@@ -14,17 +14,27 @@ package, and goes through its phases, each printing one JSON line:
              TwoLevelRetriever over the legal corpus -> ServedExtractor ->
              paged ServingEngine; the kernel launch counts are set to 0
              just before the query and read just after;
-  kernels    every kernel of that path (K1 paged decode attention, K2 paged
-             chunk-prefill attention, K3 L2 top-k) on the inputs of one of
-             its real launches from the main phase, plus edge cases, held
-             against its plain PyTorch version; times with CUDA events
-             beside its bound and a PyTorch library yardstick;
+  spec       the same query and weights with the settings the system is
+             served with: prefix cache on and prompt-lookup speculative
+             decoding (spec_k=4), so every decode round is a verify round
+             through K4 and prompt suffixes resume after a cached prefix;
+             counts set to 0 just before and read just after; agreement
+             with the main phase is reported, not asserted (bf16 rounds
+             differently in verify rounds and resumed chunks);
+  kernels    every kernel of those paths (K1 paged decode attention, K2
+             paged chunk-prefill attention, K3 L2 top-k, K4 paged verify
+             attention) on the inputs of one of its real launches, plus edge
+             cases, held against its plain PyTorch version; times with CUDA
+             events beside its bound and a PyTorch library yardstick;
   profile    (only with --profile) torch.profiler over one extraction round
-             of the main path: device busy share, device time by kernel;
+             of the main path and one of the spec path: device busy share,
+             device time by kernel;
   reference  the same served query code at a small size (SMOKE config,
              float32, 20 legal documents) on the card and on the CPU's plain
-             path: rows, ledger token columns, engine counters and every
-             generated token must be identical.
+             path, with speculation and the prefix cache off and on: rows,
+             ledger token columns, engine counters and every generated
+             token must be identical across the two devices, and rows and
+             tokens identical with speculation on and off.
 
 Then it prints the `kernels` summary line, the nvidia-smi line, and as its
 last line {"ok": true, "device": {...}}. Any failure exits non-zero before
@@ -121,7 +131,10 @@ def _legal_query(core):
                                       core.Filter("charges", ">", 3, table="cases")))
 
 
-def _served_query(cfg, params, corpus, device, max_new):
+SPEC = {"prefix_cache": True, "spec_decode": "prompt_lookup", "spec_k": 4}
+
+
+def _served_query(cfg, params, corpus, device, max_new, **engine_kw):
     from repro_torch import core
     from repro_torch.extract import ServedExtractor
     from repro_torch.index.retriever import TwoLevelRetriever
@@ -130,7 +143,7 @@ def _served_query(cfg, params, corpus, device, max_new):
     retriever = TwoLevelRetriever(corpus, device=device)
     build_s = time.perf_counter() - t0
     engine = ServingEngine(cfg, params, slots=4, max_len=1024, page_size=16,
-                           chunk_size=32, device=device)
+                           chunk_size=32, device=device, **engine_kw)
     extractor = ServedExtractor(corpus, engine, max_new=max_new)
     session = core.Session(retriever, extractor, batch_size=4)
     return session, engine, extractor, build_s
@@ -192,13 +205,82 @@ def phase_main(seed: int, captures: dict) -> dict:
         raise AssertionError(f"kernels never launched on the main path: {missing}")
     if not engine.stats["decode_steps"] or not engine.stats["prefill_chunks"]:
         raise AssertionError("the engine ran no decode step or no prefill chunk")
+    return out, (session, extractor), (params, result, engine)
+
+
+def _token_agreement(a: dict, b: dict) -> float:
+    """Share of generated token positions equal between two runs' finished
+    requests (by request id; a position one run lacks counts as unequal)."""
+    same = total = 0
+    for rid in set(a) | set(b):
+        x, y = a.get(rid, []), b.get(rid, [])
+        total += max(len(x), len(y))
+        same += sum(1 for u, v in zip(x, y) if u == v)
+    return same / total if total else 1.0
+
+
+def phase_spec(main_run, captures: dict) -> dict:
+    """The main query on the same weights with the prefix cache and
+    prompt-lookup speculative decoding on."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.corpus import make_legal_corpus
+    from repro_torch.kernels import decode_attention as k1
+    from repro_torch.kernels import flash_attention as k2
+    from repro_torch.kernels import topk_l2 as k3
+    from repro_torch.kernels import verify_attention as k4
+    from repro_torch import core
+
+    params, main_result, main_engine = main_run
+    cfg = get_config("qwen2.5-3b")
+    corpus = make_legal_corpus(seed=1)
+    session, engine, extractor, build_s = _served_query(
+        cfg, params, corpus, "cuda", max_new=12, **SPEC)
+    captures["K4"] = Capture(k4, "paged_verify_attention",
+                             lambda q, kp, vp, tbl, starts: tbl.shape[1] * q.shape[0])
+    k1.launches = k2.launches = k3.launches = k4.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    result = session.prepare(_legal_query(core)).submit().result()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"K1": k1.launches, "K2": k2.launches, "K3": k3.launches,
+                "K4": k4.launches}
+    captures["K4"].restore()
+
+    st = engine.stats
+    gen_tokens = extractor.stats.generated_tokens
+    led = result.ledger
+    out = {"phase": "spec", "model": cfg.name, "engine_options": SPEC,
+           "rows": len(result.rows),
+           "ledger": {"input_tokens": led.input_tokens, "output_tokens": led.output_tokens,
+                      "llm_calls": led.llm_calls, "extractions": led.extractions,
+                      "per_phase": led.per_phase},
+           "engine": dict(st), "served_requests": extractor.stats.requests,
+           "generated_tokens": gen_tokens, "index_build_s": build_s,
+           "query_wall_s": wall, "generated_tokens_per_s": gen_tokens / wall,
+           "acceptance": st["accepted_tokens"] / max(st["draft_tokens"], 1),
+           "launches": launches,
+           "rows_equal_main": result.rows == main_result.rows,
+           "token_agreement_main": _token_agreement(
+               {r: q.out for r, q in engine.finished.items()},
+               {r: q.out for r, q in main_engine.finished.items()})}
+    emit(out)
+    if not result.rows:
+        raise AssertionError("the spec-path query returned no rows")
+    if launches["K4"] <= 0:
+        raise AssertionError("K4 never launched on the spec path")
+    if launches["K1"] != 0:
+        raise AssertionError("K1 launched on the spec path: a decode round skipped verify")
+    if st["prefix_hits"] <= 0 or st["spec_rounds"] <= 0:
+        raise AssertionError("the spec path had no prefix hit or no verify round")
     return out, (session, extractor)
 
 
-def phase_profile(session, extractor, out_dir) -> dict:
-    """torch.profiler over one extraction round of the main path's served
-    model (4 legal documents, attribute `year`): wall time, the device's
-    busy share, and device time by kernel group."""
+def phase_profile(session, extractor, out_dir, path: str) -> dict:
+    """torch.profiler over one extraction round of a path's served model
+    (4 legal documents, attribute `year`): wall time, the device's busy
+    share, and device time by kernel group."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -215,7 +297,8 @@ def phase_profile(session, extractor, out_dir) -> dict:
         wall_us = (time.perf_counter() - t0) * 1e6
     groups = {"K1 paged_decode": "paged_decode_kernel",
               "K2 chunk_prefill": "chunk_prefill_kernel",
-              "K3 topk_l2": "topk_l2_kernel"}
+              "K3 topk_l2": "topk_l2_kernel",
+              "K4 paged_verify": "paged_verify_"}      # its span and merge kernels
     by_group = dict.fromkeys(list(groups) + ["gemm", "other"], 0.0)
     launches = 0
     for e in prof.key_averages():
@@ -232,7 +315,8 @@ def phase_profile(session, extractor, out_dir) -> dict:
                 else "other"
         by_group[g] += t
     busy = sum(by_group.values())
-    out = {"phase": "profile", "requests": len(items), "wall_ms": wall_us / 1e3,
+    out = {"phase": "profile", "path": path, "requests": len(items),
+           "wall_ms": wall_us / 1e3,
            "device_busy_ms": busy / 1e3, "device_busy_share": busy / wall_us,
            "device_kernels": launches,
            "device_ms_by_group": {g: t / 1e3 for g, t in by_group.items()}}
@@ -242,7 +326,8 @@ def phase_profile(session, extractor, out_dir) -> dict:
         ev = prof.key_averages()
         key = "self_device_time_total" if ev and hasattr(ev[0], "self_device_time_total") \
             else "self_cuda_time_total"
-        (Path(out_dir) / "profile_table.txt").write_text(ev.table(sort_by=key, row_limit=40))
+        (Path(out_dir) / f"profile_table_{path}.txt").write_text(
+            ev.table(sort_by=key, row_limit=40))
     if busy <= 0:
         raise AssertionError("the profiler saw no device time")
     return out
@@ -254,6 +339,7 @@ def phase_kernels(captures: dict, launches: dict) -> list:
     from repro_torch.kernels import decode_attention as k1
     from repro_torch.kernels import flash_attention as k2
     from repro_torch.kernels import topk_l2 as k3
+    from repro_torch.kernels import verify_attention as k4
 
     rows = []
 
@@ -374,6 +460,73 @@ def phase_kernels(captures: dict, launches: dict) -> list:
         library_call="torch.cdist + torch.sort(stable=True)",
         bound_ms=b_ms, bound_by=b_by))
 
+    # ------------------------------------------------------------- K4 --
+    q, kp, vp, tbl, starts = captures["K4"].args
+    dt = str(q.dtype).removeprefix("torch.")
+    errs = {dt: max_err(k4.paged_verify_attention(q, kp, vp, tbl, starts),
+                        k4.paged_verify_attention_plain(q, kp, vp, tbl, starts))}
+    q32, kp32, vp32 = q.float(), kp.float(), vp.float()
+    errs["float32"] = max_err(k4.paged_verify_attention(q32, kp32, vp32, tbl, starts),
+                              k4.paged_verify_attention_plain(q32, kp32, vp32, tbl, starts))
+    # edge cases on the captured pools: a start that is not page-aligned
+    # with candidates crossing a page, a dead all-sink row with a stale
+    # start, start 0; then the JAX package's own K4 test shapes (ps = 256
+    # at D = 128 among them) on seeded inputs
+    B, H, C, D = q.shape
+    Hkv, ps = kp.shape[2], kp.shape[1]
+    nb = tbl.shape[1]
+    tbl_e, st_e = tbl.clone(), starts.clone()
+    st_e[0] = ps - C // 2 - 1 + ps * (nb // 2 - 1)
+    tbl_e[1 % B] = 0
+    st_e[1 % B] = nb * ps * 3
+    st_e[-1] = 0
+    errs["edge"] = max_err(k4.paged_verify_attention(q32, kp32, vp32, tbl_e, st_e),
+                           k4.paged_verify_attention_plain(q32, kp32, vp32, tbl_e, st_e))
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    for (b, h, hkv, c, d, p, pgs, n) in ((2, 4, 2, 5, 64, 16, 128, 4),
+                                         (3, 2, 1, 3, 128, 9, 256, 2)):
+        for tdt in (torch.float32, torch.bfloat16):
+            qe = torch.randn((b, h, c, d), generator=gen, device="cuda").to(tdt)
+            ke = torch.randn((p, pgs, hkv, d), generator=gen, device="cuda").to(tdt)
+            ve = torch.randn((p, pgs, hkv, d), generator=gen, device="cuda").to(tdt)
+            te = torch.randperm(p, generator=gen, device="cuda")[: b * n].reshape(b, n).int()
+            se = torch.tensor([(n * pgs * (i + 1)) // (b + 1) - c // 2 for i in range(b)],
+                              dtype=torch.int32, device="cuda")
+            err = max_err(k4.paged_verify_attention(qe, ke, ve, te, se),
+                          k4.paged_verify_attention_plain(qe, ke, ve, te, se))
+            key = "edge" if tdt == torch.float32 else "edge_bf16"
+            errs[key] = max(errs.get(key, 0.0), err)
+    if errs["edge_bf16"] > TOL["bfloat16"]:
+        raise AssertionError(f"K4: bf16 error {errs['edge_bf16']} at the test shapes")
+    vis = torch.clamp(starts.long() + C, max=nb * ps)
+    pairs = int(sum(torch.clamp(starts.long() + c + 1, max=nb * ps).sum() for c in range(C)))
+    nbytes = (2 * int(vis.sum()) * Hkv * D + 2 * B * H * C * D) * q.element_size() \
+        + tbl.numel() * 4 + starts.numel() * 4
+    flops = 4 * pairs * H * D
+    b_ms, b_by = bound(nbytes, flops, dt)
+    idx = tbl.long()
+    S = nb * ps
+    kg = kp[idx].reshape(B, S, Hkv, D).transpose(1, 2).repeat_interleave(H // Hkv, 1)
+    vg = vp[idx].reshape(B, S, Hkv, D).transpose(1, 2).repeat_interleave(H // Hkv, 1)
+    qpos = starts.long()[:, None] + torch.arange(C, device=q.device)[None, :]
+    mask = (torch.arange(S, device=q.device)[None, None, :] <= qpos[:, :, None])[:, None]
+    rows.append(dict(
+        name="paged_verify_attention", route="cuda",
+        source="src/repro_torch/kernels/csrc/paged_verify_attention.cu",
+        replaces="src/repro/kernels/decode_attention.py:185",
+        launches=launches["K4"],
+        shape=f"q{tuple(q.shape)} table{tuple(tbl.shape)} starts {starts.tolist()} {dt}",
+        max_abs_err=errs[dt], tol=TOL[dt], max_abs_err_float32=errs["float32"],
+        max_abs_err_edge_float32=errs["edge"], max_abs_err_edge_bf16=errs["edge_bf16"],
+        tol_float32=TOL["float32"],
+        ms=cuda_ms(lambda: k4.paged_verify_attention(q, kp, vp, tbl, starts)),
+        plain_ms=cuda_ms(lambda: k4.paged_verify_attention_plain(q, kp, vp, tbl, starts)),
+        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(q, kg, vg,
+                                                                  attn_mask=mask)),
+        library_call="F.scaled_dot_product_attention over a pre-gathered view "
+                     "with the per-candidate causal mask",
+        bound_ms=b_ms, bound_by=b_by))
+
     for r in rows:
         r["kernel_ms"] = r["ms"]
         emit({"phase": "kernels", **r})
@@ -385,7 +538,8 @@ def phase_kernels(captures: dict, launches: dict) -> list:
 
 
 def phase_reference(seed: int) -> dict:
-    """The served path at a small size, card against the CPU's plain path."""
+    """The served path at a small size, card against the CPU's plain path,
+    with speculation and the prefix cache off and on."""
     import torch
     from repro_torch import core
     from repro_torch.configs import get_smoke_config
@@ -398,19 +552,31 @@ def phase_reference(seed: int) -> dict:
     full = make_legal_corpus(seed=1)
     corpus = full.subset(sorted(full.docs)[:20])
     runs = {}
-    for device in ("cuda", "cpu"):
-        params = _to(cpu_params, device)
-        session, engine, _, _ = _served_query(cfg, params, corpus, device, max_new=6)
-        res = session.prepare(_legal_query(core)).submit().result()
-        runs[device] = (res.rows, res.ledger.input_tokens, res.ledger.output_tokens,
-                        res.ledger.per_phase, dict(engine.stats),
-                        {r: q.out for r, q in engine.finished.items()})
-    same = runs["cuda"] == runs["cpu"]
-    out = {"phase": "reference", "docs": len(corpus.docs), "rows": len(runs["cpu"][0]),
-           "identical": same, "engine": runs["cuda"][4]}
+    for mode, engine_kw in (("off", {}), ("spec", SPEC)):
+        for device in ("cuda", "cpu"):
+            params = _to(cpu_params, device)
+            session, engine, _, _ = _served_query(cfg, params, corpus, device, max_new=6,
+                                                  **engine_kw)
+            res = session.prepare(_legal_query(core)).submit().result()
+            runs[mode, device] = (res.rows, res.ledger.input_tokens,
+                                  res.ledger.output_tokens, res.ledger.per_phase,
+                                  dict(engine.stats),
+                                  {r: q.out for r, q in engine.finished.items()})
+    same = {mode: runs[mode, "cuda"] == runs[mode, "cpu"] for mode in ("off", "spec")}
+    spec_invariant = {dev: (runs["off", dev][0], runs["off", dev][5]) ==
+                      (runs["spec", dev][0], runs["spec", dev][5])
+                      for dev in ("cuda", "cpu")}
+    out = {"phase": "reference", "docs": len(corpus.docs), "rows": len(runs["off", "cpu"][0]),
+           "identical": same["off"], "identical_spec": same["spec"],
+           "spec_invariant": spec_invariant, "engine": runs["off", "cuda"][4],
+           "engine_spec": runs["spec", "cuda"][4]}
     emit(out)
-    if not same or not runs["cpu"][0]:
-        raise AssertionError("the card's served query differs from the CPU reference")
+    if not all(same.values()) or not runs["off", "cpu"][0]:
+        raise AssertionError(f"the card's served query differs from the CPU reference: {same}")
+    if not all(spec_invariant.values()):
+        raise AssertionError(f"rows or tokens differ with speculation on: {spec_invariant}")
+    if runs["spec", "cuda"][4]["spec_rounds"] <= 0 or runs["spec", "cuda"][4]["prefix_hits"] <= 0:
+        raise AssertionError("the reference spec run had no verify round or no prefix hit")
     return out
 
 
@@ -462,10 +628,14 @@ def main() -> int:
         emit(report["build"])
 
         captures: dict = {}
-        report["main"], served = phase_main(args.seed, captures)
-        report["kernels"] = phase_kernels(captures, report["main"]["launches"])
+        report["main"], served, main_run = phase_main(args.seed, captures)
+        report["spec"], served_spec = phase_spec(main_run, captures)
+        del main_run
+        launches = {**report["main"]["launches"], "K4": report["spec"]["launches"]["K4"]}
+        report["kernels"] = phase_kernels(captures, launches)
         if args.profile:
-            report["profile"] = phase_profile(*served, args.out)
+            report["profile"] = phase_profile(*served, args.out, "main")
+            report["profile_spec"] = phase_profile(*served_spec, args.out, "spec")
         report["reference"] = phase_reference(args.seed)
         leaked = sorted(m for m in sys.modules
                         if m.split(".")[0] in ("jax", "jaxlib", "repro"))

@@ -33,6 +33,7 @@ _SIGNATURES = {
     "repro_topk_l2": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "repro_paged_decode_attention": [_P, _P, _P, _P, _P, _P] + [_I] * 7 + [_P],
     "repro_chunk_prefill_attention": [_P, _P, _P, _P, _P] + [_I] * 8 + [_P],
+    "repro_paged_verify_attention": [_P] * 7 + [_I] * 9 + [_P],
 }
 
 _lib = None

@@ -33,6 +33,12 @@ __device__ __forceinline__ float warp_allreduce_sum(float v) {
   return v;
 }
 
+__device__ __forceinline__ float warp_allreduce_max(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
+  return v;
+}
+
 // Opt a kernel into more than the default 48 KB of dynamic shared memory.
 template <typename K>
 inline cudaError_t allow_smem(K kernel, size_t bytes) {

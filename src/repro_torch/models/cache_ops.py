@@ -4,8 +4,11 @@ paged half of `repro.models.cache_ops`).
 vLLM-style block layout: the length-indexed KV buffers live in a shared
 pool of fixed-size pages; a sequence is a *page table* (block index ->
 physical page id). Page 0 is the sink: dead batch rows write into it, it is
-never allocated and its contents are never used. The prefix-cache half of
-the JAX module (snapshots, copy-on-write, rollback) is not ported yet.
+never allocated and its contents are never used. Copy-on-write of a
+prefix entry's boundary page (`PageAllocator.copy_page`) and speculative
+rollback (`truncate_pages`, `release_trailing_pages`) work in place on the
+pools. The slab half of the JAX module (`prefix_snapshot`,
+`expand_snapshot`, `write_slot`) is not ported yet.
 """
 from __future__ import annotations
 
@@ -106,3 +109,48 @@ class PageAllocator:
             self.refcount[i] -= 1
             if self.refcount[i] == 0:
                 self._free.append(i)
+
+    def copy_page(self, src: int) -> int:
+        """Copy-on-write: allocate a fresh page holding `src`'s contents.
+        The copy is made in place in the pools, for every layer and both
+        `k` and `v` (the JAX package donates the pool buffer to the same
+        end)."""
+        (dst,) = self.alloc(1)
+        for pool in self.pools.values():
+            pool[:, dst].copy_(pool[:, src])
+        return dst
+
+
+def truncate_pages(pools: dict, page_ids: list, start: int, end: int,
+                   page_size: int) -> None:
+    """Page-truncate (speculative rollback): zero the KV at logical
+    positions [start, end) of a sequence whose block table is `page_ids`.
+    Positions past the allocation are skipped (they were written into the
+    sink). Zeroing, rather than relying only on the position masks,
+    restores the pool bit-exactly to its pre-speculation state, so shared
+    and copy-on-write pages compare equal byte for byte. Works in place on
+    the pools, for every layer and both `k` and `v`; all arguments are host
+    values."""
+    for b in range(start // page_size, -(-end // page_size)):
+        if b >= len(page_ids):
+            break
+        lo = max(start - b * page_size, 0)
+        hi = min(end - b * page_size, page_size)
+        if lo >= hi:
+            continue
+        pid = int(page_ids[b])
+        for pool in pools.values():
+            pool[:, pid, lo:hi] = 0
+
+
+def release_trailing_pages(alloc: PageAllocator, pages: list,
+                           keep_blocks: int) -> list:
+    """Ref-release (speculative rollback): drop the references a rejected
+    suffix held past the kept block high-water mark. Returns the trimmed
+    page table; the released pages return to the allocator's free list at
+    refcount zero."""
+    keep_blocks = max(0, int(keep_blocks))
+    if keep_blocks >= len(pages):
+        return pages
+    alloc.release(pages[keep_blocks:])
+    return pages[:keep_blocks]

@@ -4,8 +4,9 @@ Plain functions on tensors and nested dicts of parameters, laid out as in
 the JAX package (q/k/v projections (d, heads, head_dim), attention tensors
 (B, S, H, D)). Only the dense subset the served path needs is ported; the
 attention of the serving path runs on the paged KV pool through kernels K1
-(decode) and K2 (chunk prefill), and `sdpa` / `decode_attention` are the
-dense forms kept for tests and for the kernels' plain versions.
+(decode), K2 (chunk prefill) and K4 (speculative verify), and `sdpa` /
+`decode_attention` are the dense forms kept for tests and for the kernels'
+plain versions.
 """
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import decode_attention as _k1
 from repro_torch.kernels import flash_attention as _k2
+from repro_torch.kernels import verify_attention as _k4
 
 from .config import ModelConfig
 
@@ -173,4 +175,31 @@ def attn_decode_apply(cfg: ModelConfig, p, x, *, pos, k_pool, v_pool, table,
     v_pool[write_pages, write_offsets] = v[:, 0].to(v_pool.dtype)
     out = _k1.paged_decode_attention(q[:, 0], k_pool, v_pool, table, pos + 1)
     out = out.reshape(B, S, nq, hd)
+    return torch.einsum("bshe,hed->bsd", out, p["wo"])
+
+
+def attn_verify_apply(cfg: ModelConfig, p, x, *, pos, k_pool, v_pool, table,
+                      write_pages, write_offsets):
+    """Speculative-verify attention of every slot on the page pool: row b's
+    C candidate tokens sit at positions pos[b] + c and attend every key up
+    to their own position (causal within the candidates, full over the
+    row's filled context) -- the paged form of the JAX `attn_chunk_apply`
+    with a per-row start.
+
+    x: (B, C, d); pos (B,) int32; table (B, nb) int32 page tables; the
+    candidates' K/V is written in place at pool[write_pages[b, c],
+    write_offsets[b, c]] (the sink page for a position past the row's table
+    or at or past max_len, where the JAX package drops the write) before
+    kernel K4 reads the context. Returns (B, C, d)."""
+    B, C, _ = x.shape
+    nq, hd = cfg.n_heads, cfg.resolved_head_dim
+    q, k, v = _project_qkv(cfg, p, x)
+    if cfg.use_rope:
+        q_pos = pos.reshape(B, 1) + torch.arange(C, device=x.device, dtype=pos.dtype)
+        q = apply_rope(q, q_pos, cfg.rope_theta)
+        k = apply_rope(k, q_pos, cfg.rope_theta)
+    k_pool[write_pages, write_offsets] = k.to(k_pool.dtype)
+    v_pool[write_pages, write_offsets] = v.to(v_pool.dtype)
+    out = _k4.paged_verify_attention(q.transpose(1, 2), k_pool, v_pool, table, pos)
+    out = out.transpose(1, 2).reshape(B, C, nq, hd)
     return torch.einsum("bshe,hed->bsd", out, p["wo"])

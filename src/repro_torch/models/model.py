@@ -1,5 +1,6 @@
-"""Model assembly in PyTorch: parameters, chunked prefill and batched decode
-on the paged KV pool (counterpart of `repro.models.model`, dense family).
+"""Model assembly in PyTorch: parameters, chunked prefill, batched decode
+and speculative verification on the paged KV pool (counterpart of
+`repro.models.model`, dense family).
 
 Parameters are a nested dict of tensors with the JAX package's names and
 shapes, except that the layer stack is a Python list of per-layer dicts
@@ -8,10 +9,10 @@ layers in a loop). They are stored in `cfg.dtype` (the JAX package keeps
 float32 and casts per call).
 
 The length-indexed KV lives in pools shaped (L, P, ps, Hkv, D); the
-serving engine owns them (`cache_ops.PageAllocator`). `prefill_chunk` and
-`decode_step` write the new tokens' K/V into their pages in place and read
-the context through page tables with kernels K2 and K1 -- no dense view is
-gathered, and no page is scattered back.
+serving engine owns them (`cache_ops.PageAllocator`). `prefill_chunk`,
+`decode_step` and `verify_chunk` write the new tokens' K/V into their pages
+in place and read the context through page tables with kernels K2, K1 and
+K4 -- no dense view is gathered, and no page is scattered back.
 """
 from __future__ import annotations
 
@@ -167,4 +168,35 @@ def prefill_chunk(cfg: ModelConfig, params, tokens, start: int, length: int,
                                    write_offsets=offs)
         x = _mlp_block(cfg, lp, x)
     x = L.norm_apply(cfg, params["final_norm"], x[:, length - 1:length])
+    return x @ _head(cfg, params)
+
+
+# -------------------------------------------------- speculative verify -----
+
+
+def verify_chunk(cfg: ModelConfig, params, tokens, pos, pools, table,
+                 write_pages, write_offsets):
+    """Speculative-decoding verification forward on the page pool.
+
+    tokens (B, C) int: each row's pending token plus its drafts, right-
+    padded; pos (B,) int32 -- row b's candidate c sits at position
+    pos[b] + c; table (B, nb) int32 page tables covering every candidate
+    position; write_pages / write_offsets (B, C) the page and slot of each
+    candidate position (the sink page past the row's table). Each layer
+    writes the candidates' K/V in place, then kernel K4 attends causally
+    from pos[b]. Unlike `prefill_chunk` it returns the logits at every
+    position, (B, C, V): the acceptance test needs the greedy target after
+    each candidate. The dense family keeps no recurrent state, so there
+    are no checkpoints; rollback is the engine's page truncation.
+    """
+    _check_family(cfg)
+    wp, offs = write_pages.long(), write_offsets.long()
+    x = params["embed"][tokens.long()]
+    for li, lp in enumerate(params["layers"]):
+        h = L.norm_apply(cfg, lp["attn_norm"], x)
+        x = x + L.attn_verify_apply(cfg, lp["attn"], h, pos=pos,
+                                    k_pool=pools["k"][li], v_pool=pools["v"][li],
+                                    table=table, write_pages=wp, write_offsets=offs)
+        x = _mlp_block(cfg, lp, x)
+    x = L.norm_apply(cfg, params["final_norm"], x)
     return x @ _head(cfg, params)

@@ -11,30 +11,49 @@ a decode step -- where the JAX engine gathers the pages into dense views,
 runs jnp attention and scatters the pages back; the engine's counters keep
 the JAX formulas, so `stats` are identical between the two packages.
 
+A request whose prompt extends a cached prefix (`prefix_cache=True`)
+splices the entry's full page ids into its table (ref-counted), copies the
+partially filled boundary page (copy-on-write) and chunk-prefills only the
+unshared suffix, from a start position in the middle of a page.
+
+With `spec_decode="prompt_lookup"` (or a custom drafter) decode runs as
+draft/verify rounds: the drafter proposes up to `spec_k` tokens per live
+slot, one batched `verify_chunk` scores every slot's pending token plus
+drafts at per-row positions -- kernel K4 on the card -- and the longest
+greedy-agreeing prefix plus one bonus token is emitted. Rejected suffixes
+roll back exactly: their KV positions are zeroed and the speculative page
+references released (`cache_ops.truncate_pages` /
+`release_trailing_pages`). Greedy output is identical to plain decode.
+
 Requests, slots, the insert coroutines that interleave chunked prefill
 with decode, `drain_slot` (bounded retries), `cancel`, `poll` and the
 strict `run()` (`RunTruncated`) follow the JAX engine one for one. The
-slab layout, the prefix KV cache, speculative decoding, mesh serving and
-shared page allocators are not ported yet and raise NotImplementedError.
+slab layout, the draft-model drafter, mesh serving and shared page
+allocators are not ported yet and raise NotImplementedError.
 """
 from __future__ import annotations
 
 import time
 from collections import deque
 from dataclasses import dataclass, field
-from typing import Optional
+from typing import Optional, Union
 
 import numpy as np
 import torch
 
 from repro_torch.data import lm_data
 from repro_torch.device import resolve_device
-from repro_torch.models import decode_step, prefill_chunk
+from repro_torch.models import decode_step, prefill_chunk, verify_chunk
 from repro_torch.models.cache_ops import (PAGE_SINK, PageAllocator,
-                                          PagePoolExhausted, cache_nbytes)
+                                          PagePoolExhausted, cache_nbytes,
+                                          release_trailing_pages,
+                                          truncate_pages)
 from repro_torch.models.config import ModelConfig
 from repro_torch.obs import MetricsRegistry, StatsDict, as_tracer
 from repro_torch.obs.metrics import ENGINE_STATS
+
+from .prefix_cache import PrefixCache
+from .spec_decode import DraftModelDrafter, PromptLookupDrafter
 
 _NOT_PORTED = "not yet ported, see ROADMAP.md Queue 1"
 
@@ -55,7 +74,7 @@ class Request:
     finished_s: float = 0.0
     retries: int = 0
     error: Optional[str] = None
-    # speculative-decode economy (kept for field parity; spec is not ported)
+    # per-request speculative-decode economy
     draft_tokens: int = 0
     accepted_tokens: int = 0
     # live-corpus provenance: doc_ids whose text the prompt embeds, and the
@@ -81,28 +100,34 @@ def _pow2_at_least(n: int) -> int:
 
 class ServingEngine:
     def __init__(self, cfg: ModelConfig, params, *, slots: int = 4,
-                 max_len: int = 256, queue_depth: Optional[int] = None, prefix_cache=False,
-                 kv_layout: str = "paged",
+                 max_len: int = 256, queue_depth: Optional[int] = None,
+                 prefix_cache: Union[bool, PrefixCache, None] = False,
+                 prefix_min_len: int = 8, kv_layout: str = "paged",
                  page_size: int = 16, num_pages: Optional[int] = None,
-                 chunk_size: int = 32, spec_decode="off", mesh=None,
-                 page_allocator=None, tracer=None, metrics=None,
-                 device=None):
+                 chunk_size: int = 32, spec_decode="off", spec_k: int = 4,
+                 spec_ngram: int = 3, mesh=None, page_allocator=None,
+                 tracer=None, metrics=None, device=None):
         """queue_depth: optional admission-control bound on queued requests;
         ServedExtractor splits its batch rounds into windows of this size
         (None = unbounded).
+        prefix_cache: shared-prefix KV reuse -- False/None off, True for a
+        default `PrefixCache()`, or a configured instance.
+        prefix_min_len: shortest prefix worth snapshotting/splicing.
         page_size: tokens per KV page (must divide max_len).
         num_pages: pool capacity (default (slots+4) tables' worth + sink).
         chunk_size: prompt tokens per chunked-prefill call.
+        spec_decode: speculative decoding -- "off", "prompt_lookup" (n-gram
+        drafting over the request's own context) or a custom drafter
+        instance (`draft_round`/`on_insert`/`on_free`); "draft" (a second
+        model) is not ported yet. Greedy output is identical across them.
+        spec_k: draft tokens per verify round (each round emits 1..k+1).
+        spec_ngram: longest n-gram the prompt-lookup drafter matches.
         device: where the pool and the model run (None = the CUDA device);
         `params` must already live there.
-        prefix_cache, kv_layout="slab", spec_decode, mesh and page_allocator
-        are the JAX engine's options that are not ported yet."""
+        kv_layout="slab", mesh and page_allocator are the JAX engine's
+        options that are not ported yet."""
         if kv_layout != "paged":
             raise NotImplementedError(f"kv_layout={kv_layout!r} is {_NOT_PORTED}")
-        if prefix_cache:
-            raise NotImplementedError(f"prefix_cache is {_NOT_PORTED}")
-        if spec_decode not in ("off", None, False):
-            raise NotImplementedError(f"spec_decode={spec_decode!r} is {_NOT_PORTED}")
         if mesh is not None:
             raise NotImplementedError(f"mesh serving is {_NOT_PORTED}")
         if page_allocator is not None:
@@ -115,6 +140,33 @@ class ServingEngine:
         self.queue_depth = queue_depth
         self.page_size = max(1, int(page_size))
         self.chunk_size = max(1, int(chunk_size))
+        if isinstance(prefix_cache, PrefixCache):   # may be empty, i.e. falsy
+            self.prefix_cache: Optional[PrefixCache] = prefix_cache
+        else:
+            self.prefix_cache = PrefixCache() if prefix_cache else None
+        self.prefix_min_len = max(1, int(prefix_min_len))
+        self.spec_k = max(1, int(spec_k))
+        if isinstance(spec_decode, str):
+            if spec_decode not in ("off", "prompt_lookup", "draft"):
+                raise ValueError(
+                    f"spec_decode must be 'off', 'prompt_lookup', 'draft' or "
+                    f"a drafter instance, got {spec_decode!r}")
+            if spec_decode == "prompt_lookup":
+                self.drafter = PromptLookupDrafter(ngram=spec_ngram)
+            elif spec_decode == "draft":
+                self.drafter = DraftModelDrafter()
+            else:
+                self.drafter = None
+        else:
+            # custom drafter instance; falsy (None/False) reads as off
+            self.drafter = spec_decode or None
+            if self.drafter is not None and \
+                    not hasattr(self.drafter, "draft_round"):
+                raise ValueError(
+                    f"spec_decode instance must implement the drafter "
+                    f"protocol (draft_round/on_insert/on_free), got "
+                    f"{spec_decode!r}")
+        self.spec = self.drafter is not None
         if cfg.family != "dense":
             raise NotImplementedError(f"family {cfg.family!r} is {_NOT_PORTED}")
         self.queue: deque = deque()
@@ -172,27 +224,32 @@ class ServingEngine:
     def _ids(self, ids) -> torch.Tensor:
         return torch.as_tensor(np.asarray(ids, np.int32), device=self.device)
 
-    def _chunked_prefill_co(self, slot: int, tokens: list):
-        """Feed `tokens` through fixed-size prefill chunks, yielding between
-        chunks so the caller can interleave decode of live slots with this
-        insert's prefill. Every chunk is padded to `chunk_size` and carries
-        its true length; its K/V goes straight into the slot's pages, and
-        the context is read through a pow2-bucketed page-table row as wide
-        as the JAX engine's gathered view, whose width the counters use.
-        Returns (last-chunk logits, new logical position)."""
+    def _chunked_prefill_co(self, slot: int, tokens: list, lpos: int, *,
+                            first: bool = True):
+        """Feed `tokens` through fixed-size prefill chunks from logical
+        position `lpos`, yielding between chunks so the caller can
+        interleave decode of live slots with this insert's prefill. Every
+        chunk is padded to `chunk_size` and carries its true length; its K/V
+        goes straight into the slot's pages, and the context is read through
+        a pow2-bucketed page-table row as wide as the JAX engine's gathered
+        view, whose width the counters use. `first=False` yields before the
+        first chunk too (continuation of an insert that already did a
+        prefill unit). Returns (last-chunk logits, new logical position,
+        first)."""
         cs, ps = self.chunk_size, self.page_size
         pages = self.slot_pages[slot]
-        logits, lpos, n = None, 0, len(tokens)
-        while lpos < n:
-            if lpos:
+        logits, i, n = None, 0, len(tokens)
+        while i < n:
+            if not first:
                 yield               # cooperative point between chunks
-            true_clen = min(cs, n - lpos)
+            first = False
+            true_clen = min(cs, n - i)
             # blocks the padded chunk can dirty, and the context they need
             nb = (cs + ps - 2) // ps + 1 if ps > 1 else cs
             n_ctx = _pow2_at_least(max(-(-(lpos + cs) // ps), nb))
             ctx = [pages[b] if b < len(pages) else PAGE_SINK
                    for b in range(n_ctx)]
-            chunk = list(tokens[lpos:lpos + true_clen]) + [0] * (cs - true_clen)
+            chunk = list(tokens[i:i + true_clen]) + [0] * (cs - true_clen)
             logits = prefill_chunk(
                 self.cfg, self.params,
                 torch.as_tensor([chunk], dtype=torch.int64, device=self.device),
@@ -202,8 +259,86 @@ class ServingEngine:
             self.stats["prefill_ctx_positions"] += cs * n_ctx * ps
             self.tracer.instant("engine.prefill_chunk", kind="engine",
                                 level=2, tokens=int(true_clen))
+            i += true_clen
             lpos += true_clen
-        return logits, lpos
+        return logits, lpos, first
+
+    def _ensure_pages(self, n: int, acquired: list) -> list:
+        """Allocate n pages, evicting LRU prefix entries under pool pressure
+        (pinned entries -- pages shared with live slots -- free nothing and
+        the loop moves on to the next victim). Newly allocated ids are
+        appended to `acquired`; on hard exhaustion the caller rolls that
+        list back."""
+        while True:
+            try:
+                ids = self.alloc.alloc(n)
+                acquired.extend(ids)
+                return ids
+            except PagePoolExhausted:
+                if self.prefix_cache is not None and \
+                        self.prefix_cache.pop_lru() is not None:
+                    continue
+                raise
+
+    def _cow_page(self, src: int, acquired: list) -> int:
+        """copy_page with the same evict-LRU-under-pressure behaviour as
+        `_ensure_pages`. `src` must be retained by the caller so a victim
+        eviction cannot free it mid-copy."""
+        while True:
+            try:
+                dst = self.alloc.copy_page(src)
+                acquired.append(dst)
+                return dst
+            except PagePoolExhausted:
+                if self.prefix_cache is not None and \
+                        self.prefix_cache.pop_lru() is not None:
+                    continue
+                raise
+
+    @staticmethod
+    def _entry_docs(req: Request, boundary: int) -> tuple:
+        """Doc provenance for a prefix entry at `boundary` tokens: the
+        request's content docs iff the boundary reaches into the content
+        span -- a template-only prefix embeds no document text and must
+        survive that document's mutation."""
+        if (req.content_docs and req.content_start is not None
+                and boundary > req.content_start):
+            return tuple(req.content_docs)
+        return ()
+
+    def _snapshot_prefix_paged(self, slot: int, prefix: list,
+                               req: Optional[Request] = None):
+        """Store a prefix entry as *page references*: full pages shared by
+        reference (ref-counted), the partially filled boundary page copied
+        once so the slot can keep writing into its own copy (CoW). The
+        entry's state is the position alone (the dense family has no
+        recurrent state), kept as an int32 scalar as in the JAX engine, whose
+        byte size enters the entry's size."""
+        lp = len(prefix)
+        pages = self.slot_pages[slot]
+        full = lp // self.page_size
+        entry_pages = list(pages[:full])
+        self.alloc.retain(entry_pages)
+        tail = None
+        if lp % self.page_size and full < len(pages):
+            try:
+                tail = self._cow_page(pages[full], [])
+            except PagePoolExhausted:
+                # caching this prefix is an optimization, not a requirement:
+                # under hard pool pressure skip the snapshot, keep serving
+                self.alloc.release(entry_pages)
+                return
+            self.stats["cow_copies"] += 1
+        snap = {"pos": torch.tensor(lp, dtype=torch.int32)}
+        nbytes = ((len(entry_pages) + (1 if tail is not None else 0))
+                  * self.alloc.page_nbytes + cache_nbytes(snap))
+        alloc, ids = self.alloc, entry_pages + ([tail] if tail is not None else [])
+        self.prefix_cache.insert(prefix, snap, pages=entry_pages,
+                                 tail_page=tail, nbytes=nbytes,
+                                 release=(lambda: alloc.release(ids)),
+                                 doc_ids=(self._entry_docs(req, len(prefix))
+                                          if req is not None else ()))
+        self.stats["prefix_inserts"] += 1
 
     def _free_slot_pages(self, slot: int):
         if self.slot_pages[slot]:
@@ -220,23 +355,80 @@ class ServingEngine:
                 tbl[s, :min(len(pages), width)] = pages[:width]
         return self._ids(tbl)
 
+    def _insert_paged_co(self, slot: int, req: Request):
+        """Chunked prefill of `req` into `slot`. Pages are acquired all at
+        once *before the first yield* (all-or-nothing: PagePoolExhausted
+        raises out of the first advance with every acquired ref rolled
+        back); a prefix-cache hit splices the entry's full pages and CoWs
+        its boundary page, and only the unshared suffix is prefilled. From
+        the first yield on, `slot_pages[slot]` owns every page ref, so
+        abandoning the coroutine cleans up via `_free_slot_pages` alone.
+        Returns (last-chunk logits, logical position)."""
+        prompt = req.prompt
+        plen = len(prompt)
+        ps = self.page_size
+        # Positions ever written: prompt + every fed generated token. With
+        # speculation on, verify rounds grow the table lazily (and roll a
+        # rejected suffix's pages back), so insert covers the prompt only.
+        cap = min(plen if self.spec else plen + req.max_new, self.max_len)
+        blocks = -(-cap // ps)
+        acquired: list = []
+        prefix_len, pages, hit = 0, [], False
+        try:
+            if self.prefix_cache is not None:
+                entry = self.prefix_cache.match(prompt)
+                if entry is not None and len(entry.tokens) >= self.prefix_min_len:
+                    # O(1) splice: share the full pages, CoW the boundary page
+                    hit, prefix_len = True, len(entry.tokens)
+                    pages = list(entry.pages)
+                    self.alloc.retain(pages)
+                    acquired.extend(pages)
+                    if entry.tail_page is not None:
+                        tail_src = entry.tail_page
+                        self.alloc.retain([tail_src])   # survive a victim evict
+                        try:
+                            pages.append(self._cow_page(tail_src, acquired))
+                        finally:
+                            self.alloc.release([tail_src])
+                        self.stats["cow_copies"] += 1
+                    self.stats["prefix_hits"] += 1
+                    self.stats["prefix_saved_tokens"] += prefix_len
+                    self.tracer.instant("engine.prefix_hit", kind="engine",
+                                        level=2, saved=prefix_len)
+            if blocks > len(pages):
+                pages = pages + self._ensure_pages(blocks - len(pages), acquired)
+        except PagePoolExhausted:
+            if acquired:                    # roll back the splice/CoW refs
+                self.alloc.release(acquired)
+            raise
+        self.slot_pages[slot] = pages
+        if hit:
+            logits, lpos, _ = yield from self._chunked_prefill_co(
+                slot, prompt[prefix_len:], prefix_len)
+            self.stats["prefill_tokens"] += plen - prefix_len
+            return logits, lpos
+        boundary = 0 if self.prefix_cache is None else \
+            min(int(req.shared_len), plen - 1)
+        if boundary >= self.prefix_min_len:
+            _, lpos, first = yield from self._chunked_prefill_co(
+                slot, prompt[:boundary], 0)
+            self._snapshot_prefix_paged(slot, prompt[:boundary], req=req)
+            logits, lpos, first = yield from self._chunked_prefill_co(
+                slot, prompt[boundary:], lpos, first=first)
+        else:
+            logits, lpos, _ = yield from self._chunked_prefill_co(slot, prompt, 0)
+        self.stats["prefill_tokens"] += plen
+        return logits, lpos
+
     def _insert_co(self, slot: int, req: Request):
         """Coroutine insert: run `req`'s chunked prefill into `slot`,
         yielding between chunks so `step()` can interleave decode of
         already-live slots with admission prefill. The slot goes live only
-        on completion; mid-insert it is reserved via `self._inserting`.
-        Pages are acquired all at once before the first yield
-        (all-or-nothing: PagePoolExhausted raises out of the first advance
-        with nothing held); from then on `slot_pages[slot]` owns every page
-        ref, so abandoning the coroutine cleans up via `_free_slot_pages`."""
+        on completion; mid-insert it is reserved via `self._inserting`."""
         plen = len(req.prompt)
         if plen > self.max_len:
             raise ValueError(f"prompt ({plen}) exceeds cache max_len={self.max_len}")
-        # positions ever written: prompt + every fed generated token
-        cap = min(plen + req.max_new, self.max_len)
-        self.slot_pages[slot] = self.alloc.alloc(-(-cap // self.page_size))
-        logits, lpos = yield from self._chunked_prefill_co(slot, req.prompt)
-        self.stats["prefill_tokens"] += plen
+        logits, lpos = yield from self._insert_paged_co(slot, req)
         self.cache["pos"][slot] = lpos
         self._pos_h[slot] = lpos
         nxt = int(torch.argmax(logits[0, -1]))
@@ -244,6 +436,8 @@ class ServingEngine:
         req.out.append(nxt)
         self.active[slot] = req
         self._live[slot] = True
+        if self.spec:
+            self.drafter.on_insert(slot, req)
         self._note_kv_bytes()
 
     def _note_kv_bytes(self):
@@ -259,6 +453,8 @@ class ServingEngine:
         del self.active[slot]
         self._live[slot] = False
         self._free_slot_pages(slot)
+        if self.spec:
+            self.drafter.on_free(slot)
 
     def _step(self):
         write_ids = np.full((self.slots,), PAGE_SINK, np.int32)
@@ -289,6 +485,142 @@ class ServingEngine:
         self._tokens = torch.as_tensor(nxt[:, None], dtype=torch.int64,
                                        device=self.device)
 
+    # ------------------------------------------------ speculative decode --
+
+    def _spec_grow_pages(self, slot: int, upto: int) -> int:
+        """Lazily extend a slot's page table to cover `upto` positions for
+        this verify round (evicting LRU prefix entries under pressure).
+        Returns the number of positions that actually fit -- under hard pool
+        exhaustion the round is clamped to the current allocation instead of
+        failing, as long as at least the pending token fits."""
+        ps = self.page_size
+        pages = self.slot_pages[slot]
+        need = min(-(-upto // ps), self.pages_per_slot)
+        if need > len(pages):
+            try:
+                pages += self._ensure_pages(need - len(pages), [])
+            except PagePoolExhausted:
+                if len(pages) * ps <= int(self._pos_h[slot]):
+                    raise               # not even the pending token fits
+        return min(upto, len(pages) * ps, self.max_len)
+
+    def _spec_clamp_drafts(self, live, pos_h, drafts):
+        """Clamp each live slot's drafts to its page capacity, growing
+        tables lazily. A slot whose *pending token* no longer fits (pool
+        pinned by other live slots, prefix LRU drained) is evicted back to
+        the queue via `drain_slot`, freeing its pages so the other slots
+        (and, later, the requeued request) can proceed. Returns the live
+        list minus any drained slots."""
+        kept = []
+        for s in live:
+            try:
+                fit = self._spec_grow_pages(s, int(pos_h[s]) + 1 + len(drafts[s]))
+            except PagePoolExhausted:
+                self.drain_slot(s)
+                continue
+            drafts[s] = drafts[s][: max(fit - int(pos_h[s]) - 1, 0)]
+            kept.append(s)
+        return kept
+
+    def _spec_step(self):
+        """One speculative round (replaces `_step` when `spec_decode` is
+        on): draft up to k tokens per live slot, verify pending+drafts for
+        every slot in ONE batched `verify_chunk` forward (kernel K4 on the
+        pool), emit the longest agreeing prefix plus the target's own next
+        token, then roll rejected suffixes back -- position truncation plus
+        page scrub and ref release -- so the engine state is exactly what
+        plain decode would have built."""
+        C, ps = self.spec_k + 1, self.page_size
+        live = [s for s in range(self.slots) if self._live[s]]
+        pos_h = self._pos_h.astype(np.int64).copy()
+        reqs = {s: self.active[s] for s in live}
+        k_eff = {}
+        for s in live:
+            req, p0 = self.active[s], int(pos_h[s])
+            k_eff[s] = max(0, min(self.spec_k, req.max_new - len(req.out) - 1,
+                                  self.max_len - 1 - p0))
+        drafts = self.drafter.draft_round(reqs, k_eff)
+        for s in live:
+            drafts[s] = list(drafts.get(s) or [])[: k_eff[s]]
+        live = self._spec_clamp_drafts(live, pos_h, drafts)
+        if not live:
+            return                       # all slots drained; run() reinserts
+        toks = np.zeros((self.slots, C), np.int64)
+        true_c = {}
+        for s in live:
+            row = [self.active[s].out[-1]] + drafts[s]
+            true_c[s] = len(row)
+            toks[s, :len(row)] = row
+
+        # context width bucketed as the JAX engine's gathered view
+        nb_probe = (C + ps - 2) // ps + 1 if ps > 1 else C
+        need_ctx = 1
+        for s in live:
+            p0 = int(pos_h[s])
+            need_ctx = max(need_ctx, -(-(p0 + C) // ps), p0 // ps + nb_probe)
+        n_ctx = _pow2_at_least(need_ctx)
+        ctx = np.full((self.slots, n_ctx), PAGE_SINK, np.int32)
+        for s in live:
+            pages = self.slot_pages[s]
+            ctx[s, :min(len(pages), n_ctx)] = pages[:n_ctx]
+        # every candidate's page and slot; a position past the row's table
+        # (or past max_len) goes to the sink, where JAX drops the write
+        cpos = pos_h[:, None] + np.arange(C)[None, :]
+        blk = cpos // ps
+        wpages = np.where(blk < n_ctx,
+                          np.take_along_axis(ctx, np.minimum(blk, n_ctx - 1), 1),
+                          PAGE_SINK)
+        logits = verify_chunk(
+            self.cfg, self.params,
+            torch.as_tensor(toks, device=self.device), self.cache["pos"],
+            self.alloc.pools, self._ids(ctx), self._ids(wpages),
+            self._ids(cpos % ps))
+
+        self.stats["decode_steps"] += 1
+        self.stats["spec_rounds"] += 1
+        self.stats["decode_slot_steps"] += len(live)
+        self.stats["max_live"] = max(self.stats["max_live"], len(live))
+
+        Y = torch.argmax(logits, dim=-1).cpu().numpy()        # (slots, C)
+        new_pos = pos_h.copy()
+        for s in live:
+            req, d, p0 = self.active[s], drafts[s], int(pos_h[s])
+            m = 0
+            while m < len(d) and int(Y[s, m]) == d[m]:
+                m += 1
+            emitted = d[:m] + [int(Y[s, m])]
+            done, n_app = False, 0
+            for i, t in enumerate(emitted):
+                req.out.append(t)
+                n_app = i + 1
+                if t == req.eos_id or len(req.out) >= req.max_new or \
+                        p0 + i + 1 >= self.max_len - 1:
+                    done = True
+                    break
+            keep = n_app
+            self.stats["draft_tokens"] += len(d)
+            # count only accepted tokens actually emitted: when EOS/max_new/
+            # max_len truncates mid-prefix, the tail never reached the output
+            self.stats["accepted_tokens"] += min(m, n_app)
+            req.draft_tokens += len(d)
+            req.accepted_tokens += min(m, n_app)
+            self.stats["decode_steps_saved"] += n_app - 1
+            new_pos[s] = p0 + keep
+            if done:
+                self._finish(s, req)
+            else:
+                # page-truncate + ref-release the rejected suffix
+                pages = self.slot_pages[s]
+                end = min(p0 + true_c[s], len(pages) * ps)
+                if p0 + keep < end:
+                    truncate_pages(self.alloc.pools, pages, p0 + keep, end, ps)
+                self.slot_pages[s] = release_trailing_pages(
+                    self.alloc, pages, -(-(p0 + keep) // ps))
+        self.cache["pos"] = torch.as_tensor(new_pos.astype(np.int32),
+                                            device=self.device)
+        self._pos_h = new_pos
+        self._note_kv_bytes()
+
     def drain_slot(self, slot: int):
         """Evict + requeue (straggler/failure mitigation). Retries are
         bounded: past `req.max_retries` the request fails visibly into
@@ -297,6 +629,8 @@ class ServingEngine:
             req = self.active.pop(slot)
             self._live[slot] = False
             self._free_slot_pages(slot)
+            if self.spec:
+                self.drafter.on_free(slot)
             req.out.clear()
             req.retries += 1
             self.stats["evictions"] += 1
@@ -374,6 +708,8 @@ class ServingEngine:
                 del self.active[slot]
                 self._live[slot] = False
                 self._free_slot_pages(slot)
+                if self.spec:
+                    self.drafter.on_free(slot)
                 req.out.clear()
                 self._resolve_cancelled(req)
                 return True
@@ -422,12 +758,14 @@ class ServingEngine:
                     break
                 raise
         if self.active:
+            decode = self._spec_step if self.spec else self._step
             if self.tracer.enabled(2):
-                with self.tracer.span("engine.decode_step", kind="engine",
-                                      level=2, live=len(self.active)):
-                    self._step()
+                name = "engine.verify_round" if self.spec else "engine.decode_step"
+                with self.tracer.span(name, kind="engine", level=2,
+                                      live=len(self.active)):
+                    decode()
             else:
-                self._step()
+                decode()
         return bool(self.queue or self.active or self._inserting)
 
     def run(self, max_steps: int = 10_000, *, strict: bool = True):

@@ -21,7 +21,7 @@ COPIES = ["core/__init__.py", "core/difficulty.py", "core/executor.py",
           "obs/__init__.py", "obs/metrics.py", "obs/report.py", "obs/trace.py",
           "data/tokens.py", "data/lm_data.py", "data/corpus.py",
           "index/segmenter.py", "extract/oracle.py", "models/config.py",
-          "configs/qwen2_5_3b.py"]
+          "configs/qwen2_5_3b.py", "serving/prefix_cache.py"]
 
 
 def _modules():

@@ -1,5 +1,6 @@
 """Plain PyTorch versions of the port's kernels (K1 paged decode attention,
-K2 paged chunk-prefill attention, K3 L2 top-k) against the JAX package's
+K2 paged chunk-prefill attention, K3 L2 top-k, K4 paged verify attention)
+against the JAX package's
 Pallas kernels in interpret mode and its jnp references, on the same
 numpy inputs. The CUDA kernels themselves are held against these plain
 versions on the card by `chip_smoke.py`."""
@@ -7,18 +8,21 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
 from repro.kernels import ref  # noqa: E402
 from repro.kernels.decode_attention import (  # noqa: E402
-    paged_decode_attention_pallas, paged_decode_attention_ref)
+    paged_decode_attention_pallas, paged_decode_attention_ref,
+    paged_verify_attention_pallas, paged_verify_attention_ref)
 from repro.kernels.flash_attention import flash_attention_pallas  # noqa: E402
 from repro.kernels.topk_l2 import topk_l2_pallas  # noqa: E402
 from repro.models import layers as jl  # noqa: E402
 from repro_torch.kernels import decode_attention as k1  # noqa: E402
 from repro_torch.kernels import flash_attention as k2  # noqa: E402
 from repro_torch.kernels import topk_l2 as k3  # noqa: E402
+from repro_torch.kernels import verify_attention as k4  # noqa: E402
 
 F32_TOL = 2e-5
 TOPK_TOL = 1e-4
@@ -143,6 +147,73 @@ def test_chunk_prefill_plain_offset_paged(start, C):
     np.testing.assert_allclose(got, want, atol=F32_TOL, rtol=F32_TOL)
 
 
+# ------------------------------------------------- K4 paged verify -------
+
+
+@pytest.mark.parametrize("B,H,Hkv,C,D,P,ps,nb", [
+    (2, 4, 2, 5, 64, 16, 128, 4),
+    (3, 2, 1, 3, 128, 9, 256, 2),
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_verify_plain_matches_pallas(B, H, Hkv, C, D, P, ps, nb, dtype):
+    """The shapes of the JAX package's own K4 test, starts that cross a
+    page boundary mid-candidates, plus a dead row (all-sink table, stale
+    start) whose output is discarded by the engine but must be finite."""
+    rng = np.random.default_rng(7)
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    tdt = torch.float32 if dtype == "float32" else torch.bfloat16
+    q = _rand(rng, (B, H, C, D))
+    kp = _rand(rng, (P, ps, Hkv, D))
+    vp = _rand(rng, (P, ps, Hkv, D))
+    table = rng.permutation(P)[: B * nb].reshape(B, nb).astype(np.int32)
+    starts = np.asarray([(nb * ps * (i + 1)) // (B + 1) - C // 2 for i in range(B)],
+                        np.int32)
+    jargs = [jnp.asarray(a).astype(jdt) for a in (q, kp, vp)]
+    want = np.asarray(paged_verify_attention_pallas(
+        *jargs, jnp.asarray(table), jnp.asarray(starts), interpret=True), np.float32)
+    want_ref = np.asarray(paged_verify_attention_ref(
+        *jargs, jnp.asarray(table), jnp.asarray(starts)), np.float32)
+    targs = [_t(np.array(a, np.float32)).to(tdt) for a in jargs]
+    got = k4.paged_verify_attention(*targs, _t(table), _t(starts))
+    assert got.shape == (B, H, C, D) and got.dtype == tdt
+    tol = F32_TOL if dtype == "float32" else 2e-2
+    np.testing.assert_allclose(got.float().numpy(), want, atol=tol, rtol=tol)
+    np.testing.assert_allclose(got.float().numpy(), want_ref, atol=tol, rtol=tol)
+    # a dead row: all-sink table, start far past its table
+    table_d, starts_d = table.copy(), starts.copy()
+    table_d[0], starts_d[0] = 0, nb * ps * 3
+    dead = k4.paged_verify_attention(*targs, _t(table_d), _t(starts_d))
+    assert torch.isfinite(dead.float()).all()
+    want_d = np.asarray(paged_verify_attention_ref(
+        *jargs, jnp.asarray(table_d), jnp.asarray(starts_d)), np.float32)
+    np.testing.assert_allclose(dead.float().numpy(), want_d, atol=tol, rtol=tol)
+    assert k4.launches == 0
+
+
+def test_paged_verify_plain_matches_model_chunk_attention():
+    """Against the jnp attention the JAX engine's verify round runs over its
+    gathered view (`layers.attn_chunk_apply`'s masked softmax with per-row
+    starts), start 0 included."""
+    rng = np.random.default_rng(8)
+    B, H, Hkv, C, D, P, ps, nb = 3, 4, 2, 5, 16, 20, 8, 4
+    q = _rand(rng, (B, H, C, D))
+    kp = _rand(rng, (P, ps, Hkv, D))
+    vp = _rand(rng, (P, ps, Hkv, D))
+    table = rng.permutation(np.arange(1, P))[: B * nb].reshape(B, nb).astype(np.int32)
+    starts = np.asarray([0, 13, nb * ps - C], np.int32)
+    kg = kp[table].reshape(B, nb * ps, Hkv, D)
+    vg = vp[table].reshape(B, nb * ps, Hkv, D)
+    qg = q.transpose(0, 2, 1, 3).reshape(B, C, Hkv, H // Hkv, D)
+    s = np.einsum("bqhgd,bshd->bhgqs", qg, kg) * D ** -0.5
+    q_pos = starts[:, None] + np.arange(C)[None, :]
+    ok = np.arange(nb * ps)[None, None, :] <= q_pos[:, :, None]
+    s = np.where(ok[:, None, None], s, -np.inf)
+    p = np.asarray(jax.nn.softmax(jnp.asarray(s), axis=-1))
+    want = np.einsum("bhgqs,bshd->bqhgd", p, vg).reshape(B, C, H, D).transpose(0, 2, 1, 3)
+    got = k4.paged_verify_attention(_t(q), _t(kp), _t(vp), _t(table), _t(starts))
+    np.testing.assert_allclose(got.numpy(), want, atol=F32_TOL, rtol=F32_TOL)
+
+
 # ------------------------------------------------------------ K3 top-k ---
 
 
@@ -200,4 +271,7 @@ def test_no_silent_cpu_fallback():
         k3.topk_l2(meta, meta, 2)
     with pytest.raises(ValueError):
         k1.paged_decode_attention(torch.empty((1, 2, 8), device="meta"),
+                                  None, None, None, None)
+    with pytest.raises(ValueError):
+        k4.paged_verify_attention(torch.empty((1, 2, 3, 8), device="meta"),
                                   None, None, None, None)

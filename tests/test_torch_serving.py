@@ -134,9 +134,8 @@ def test_served_mini_swde_query_identical(weights):
 
 def test_unported_options_raise(weights):
     _, _, tcfg, tparams, _ = weights
-    for kw in ({"kv_layout": "slab"}, {"prefix_cache": True},
-               {"spec_decode": "prompt_lookup"}, {"mesh": object()},
-               {"page_allocator": object()}):
+    for kw in ({"kv_layout": "slab"}, {"spec_decode": "draft"},
+               {"mesh": object()}, {"page_allocator": object()}):
         with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
             ServingEngine(tcfg, tparams, device="cpu", **kw)
     eng = ServingEngine(tcfg, tparams, device="cpu")
