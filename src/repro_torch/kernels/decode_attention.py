@@ -1,6 +1,8 @@
-"""K1: paged decode attention on the shared KV page pool.
+"""K1: paged decode attention on the shared KV page pool, and K5:
+flash-decoding over a dense per-row cache (the slab layout). The JAX
+module holds both TPU kernels too.
 
-Replaces `repro.kernels.decode_attention.paged_decode_attention_pallas`
+K1 replaces `repro.kernels.decode_attention.paged_decode_attention_pallas`
 (src/repro/kernels/decode_attention.py:101). CUDA source:
 `csrc/paged_decode_attention.cu`.
 
@@ -20,6 +22,23 @@ the table width (a dead slot's length keeps growing while its table row is
 all sink pages); a row with lengths[b] == 0 sees no key and returns zeros
 (the Pallas kernel, whose mask value is a finite -1e30, would return the
 mean of V over the table instead; the engine never issues a zero length).
+
+K5 replaces `repro.kernels.decode_attention.decode_attention_pallas`
+(src/repro/kernels/decode_attention.py:274, body `_kernel` :24). CUDA
+source: `csrc/dense_decode_attention.cu`. It serves every decode step of
+the slab layout and of the draft model. The slab engine passes per-row
+lengths (pos + 1), so K5 takes lengths (B,) int32 where the Pallas kernel
+takes a scalar; the wrapper broadcasts a scalar.
+
+Bound on the H100: device-memory bytes, as K1: the K/V bytes of
+min(length, S) positions per (row, KV head), read once for its G query
+heads, over 3.35 TB/s. Design: the flash-decoding split of K4 -- one block
+per (row, KV head, span of key positions) serving all G query heads from
+each 64-position K/V tile staged in shared memory once, fp32 online
+softmax, and a second kernel merging the spans -- so the 8 (row, KV head)
+pairs of a full-width decode step spread over the 132 SMs. The walk is
+bounded by S (a slot that is not live keeps advancing its position, so its
+length can pass S); a zero length gives zeros, as K1.
 """
 from __future__ import annotations
 
@@ -100,4 +119,90 @@ def paged_decode_attention(q, k_pool, v_pool, page_table, lengths):
         _build.stream_handle(q.device))
     _build.check(rc, "paged_decode_attention")
     launches += 1
+    return out
+
+
+# ------------------------------------------------------------------ K5 --
+
+DENSE_KEY_TILE = 64    # key positions per shared-memory tile (the .cu's kDecTile)
+DENSE_MAX_ACC = 4096   # G * D the block's accumulators hold (256 threads x 16)
+TARGET_BLOCKS = 264    # two blocks per SM of the H100's 132
+
+dense_launches = 0
+
+
+def _lengths_vector(lengths, B: int, device) -> torch.Tensor:
+    """A scalar length (int or 0-d tensor) broadcast to (B,) int32."""
+    t = torch.as_tensor(lengths, device=device)
+    if t.ndim == 0:
+        t = t.reshape(1).expand(B)
+    return t.to(torch.int32).contiguous()
+
+
+def decode_attention_plain(q, k_cache, v_cache, lengths):
+    """Plain PyTorch version: the model's masked softmax
+    (`repro_torch.models.layers.decode_attention`, the port of the jnp
+    `layers.decode_attention` the JAX model runs). q (B, H, D); caches
+    (B, S, Hkv, D); lengths int or (B,) int32 -> (B, H, D); a row with no
+    visible key gives zeros."""
+    from repro_torch.models.layers import decode_attention  # layers imports us
+    B, H, D = q.shape
+    Hkv = k_cache.shape[2]
+    lens = _lengths_vector(lengths, B, q.device)
+    out = decode_attention(q.reshape(B, 1, Hkv, H // Hkv, D), k_cache, v_cache, lens.long())
+    seen = (lens > 0).reshape(B, 1, 1, 1, 1)
+    return torch.where(seen, out, torch.zeros_like(out)).reshape(B, H, D).to(q.dtype)
+
+
+def _check_dense(q, k_cache, v_cache, lengths):
+    dev = q.device
+    for name, t in (("k_cache", k_cache), ("v_cache", v_cache), ("lengths", lengths)):
+        if t.device != dev:
+            raise ValueError(f"decode_attention: {name} on {t.device}, q on {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"decode_attention: {name} is not contiguous")
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"decode_attention: q dtype {q.dtype}")
+    if k_cache.dtype != q.dtype or v_cache.dtype != q.dtype:
+        raise TypeError("decode_attention: caches must share q's dtype")
+    if q.ndim != 3:
+        raise ValueError(f"decode_attention: q {tuple(q.shape)}, want (B, H, D)")
+    B, H, D = q.shape
+    if k_cache.ndim != 4 or k_cache.shape != v_cache.shape or k_cache.shape[0] != B \
+            or k_cache.shape[3] != D or k_cache.shape[1] == 0:
+        raise ValueError(f"decode_attention: caches {tuple(k_cache.shape)}")
+    Hkv = k_cache.shape[2]
+    if H % Hkv or D > 256 or (H // Hkv) * D > DENSE_MAX_ACC:
+        raise ValueError(f"decode_attention: unsupported H={H} Hkv={Hkv} D={D}")
+
+
+def decode_attention(q, k_cache, v_cache, lengths):
+    """q (B, H, D); caches (B, S, Hkv, D) in q's dtype; lengths int, 0-d or
+    (B,) int32 (broadcast) -> (B, H, D) in q's dtype. CPU tensors take the
+    plain version; CUDA tensors launch the kernel or raise."""
+    global dense_launches
+    if q.device.type == "cpu":
+        return decode_attention_plain(q, k_cache, v_cache, lengths)
+    if q.device.type != "cuda":
+        raise ValueError(f"decode_attention: device {q.device}")
+    q = q.contiguous()
+    B, H, D = q.shape
+    lens = _lengths_vector(lengths, B, q.device)
+    _check_dense(q, k_cache, v_cache, lens)
+    S, Hkv = k_cache.shape[1], k_cache.shape[2]
+    out = torch.empty_like(q)
+    if B == 0:
+        return out
+    # split the key walk into spans of whole tiles, enough to fill the card
+    tiles = -(-S // DENSE_KEY_TILE)
+    nsplit = max(1, min(tiles, -(-TARGET_BLOCKS // (B * Hkv))))
+    ws = torch.empty((B * H * nsplit * (D + 2),), dtype=torch.float32, device=q.device)
+    lib = _build.library()
+    rc = lib.repro_dense_decode_attention(
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), lens.data_ptr(),
+        out.data_ptr(), ws.data_ptr(), B, S, H, Hkv, D, nsplit,
+        _build.DTYPE_CODES[str(q.dtype).removeprefix("torch.")],
+        _build.stream_handle(q.device))
+    _build.check(rc, "decode_attention")
+    dense_launches += 1
     return out

@@ -1,14 +1,23 @@
-"""Paged KV pool: page allocation and byte accounting (counterpart of the
-paged half of `repro.models.cache_ops`).
+"""Decode-cache surgery for the two KV layouts (counterpart of
+`repro.models.cache_ops`).
 
-vLLM-style block layout: the length-indexed KV buffers live in a shared
-pool of fixed-size pages; a sequence is a *page table* (block index ->
-physical page id). Page 0 is the sink: dead batch rows write into it, it is
-never allocated and its contents are never used. Copy-on-write of a
-prefix entry's boundary page (`PageAllocator.copy_page`) and speculative
-rollback (`truncate_pages`, `release_trailing_pages`) work in place on the
-pools. The slab half of the JAX module (`prefix_snapshot`,
-`expand_snapshot`, `write_slot`) is not ported yet.
+Slab half: the engine keeps one batched slab decode cache (k/v (L, B,
+max_len, Hkv, D), `model.init_decode_cache`); a request prefills into a
+B=1 sub-cache that `write_slot` merges into its slot. The shared-prefix
+cache stores *trimmed* B=1 sub-caches (`prefix_snapshot`: the token axis
+cut to the prefix length, so a snapshot costs O(prefix)), which
+`expand_snapshot` zero-pads back to max_len on a hit. Attention in decode
+is gated by pos, so the zero tail is never attended. These copy where the
+JAX functions return new arrays, so a snapshot never aliases a cache the
+model later writes into in place.
+
+Paged half: vLLM-style block layout: the length-indexed KV buffers live in
+a shared pool of fixed-size pages; a sequence is a *page table* (block
+index -> physical page id). Page 0 is the sink: dead batch rows write into
+it, it is never allocated and its contents are never used. Copy-on-write
+of a prefix entry's boundary page (`PageAllocator.copy_page`) and
+speculative rollback (`truncate_pages`, `release_trailing_pages`) work in
+place on the pools.
 """
 from __future__ import annotations
 
@@ -33,6 +42,63 @@ def cache_nbytes(tree: dict) -> int:
     """Device bytes held by a dict of tensors (for byte accounting)."""
     return sum(t.numel() * t.element_size()
                for t in tree.values() if torch.is_tensor(t))
+
+
+def slot_cache(cache: dict, slot: int) -> dict:
+    """One slot of a batched slab cache as a B=1 sub-cache (a copy)."""
+    sub = {}
+    for k, a in cache.items():
+        if k == "pos":
+            sub[k] = a[slot].clone() if a.ndim else a.clone()
+        else:
+            sub[k] = a[:, slot:slot + 1].clone()
+    return sub
+
+
+def write_slot(cache: dict, sub: dict, slot: int) -> dict:
+    """Merge a B=1 sub-cache into `slot` of a batched slab cache, in place.
+    The cache's pos is (B,) (the engine's) or 0-d; the sub-cache's is 0-d."""
+    for k in cache:
+        if k == "pos":
+            pos = cache["pos"]
+            if pos.ndim:
+                pos[slot] = torch.as_tensor(sub["pos"], dtype=pos.dtype, device=pos.device)
+            else:
+                cache["pos"] = torch.as_tensor(sub["pos"], dtype=pos.dtype,
+                                               device=pos.device).clone()
+        else:
+            cache[k][:, slot] = sub[k][:, 0].to(cache[k].dtype)
+    return cache
+
+
+def prefix_snapshot(sub: dict, prefix_len: int) -> dict:
+    """Trim a B=1 sub-cache (taken right after prefilling exactly the
+    prefix) to O(prefix_len) storage: pos a 0-d int32 of prefix_len, the
+    token axis cut to prefix_len (copied)."""
+    snap = {}
+    for k, a in sub.items():
+        if k == "pos":
+            snap[k] = torch.tensor(prefix_len, dtype=torch.int32, device=a.device)
+        elif k in LENGTH_KEYS:
+            snap[k] = a[:, :, :prefix_len].clone()
+        else:
+            snap[k] = a.clone()
+    return snap
+
+
+def expand_snapshot(snap: dict, max_len: int) -> dict:
+    """Zero-pad a trimmed snapshot's token axis back to `max_len` so it is
+    shape-compatible with the engine's slab cache (new tensors: the
+    snapshot stays as it was)."""
+    sub = {}
+    for k, a in snap.items():
+        if k in LENGTH_KEYS and a.shape[2] < max_len:
+            out = a.new_zeros(a.shape[:2] + (max_len,) + a.shape[3:])
+            out[:, :, :a.shape[2]] = a
+            sub[k] = out
+        else:
+            sub[k] = a.clone()
+    return sub
 
 
 class PageAllocator:

@@ -2,11 +2,17 @@
 
 Plain functions on tensors and nested dicts of parameters, laid out as in
 the JAX package (q/k/v projections (d, heads, head_dim), attention tensors
-(B, S, H, D)). Only the dense subset the served path needs is ported; the
-attention of the serving path runs on the paged KV pool through kernels K1
-(decode), K2 (chunk prefill) and K4 (speculative verify), and `sdpa` /
-`decode_attention` are the dense forms kept for tests and for the kernels'
-plain versions.
+(B, S, H, D)). Only the dense subset the served path needs is ported.
+
+The attention of the serving path runs through kernels on either KV
+layout. On the paged pool: K1 (decode), K2 (chunk prefill) and K4
+(speculative verify). On the slab -- one contiguous (B, max_len, Hkv, hd)
+cache per layer, the JAX package's `init_decode_cache` layout --
+`attn_decode_apply_slab` runs K5, while `attn_apply_slab` (prefill) and
+`attn_chunk_apply_slab` (verify) run K2 and K4 over the slab seen as a
+page pool (`slab_pages`): the same bytes, no copy. `sdpa` and
+`decode_attention` are the dense forms kept for the kernels' plain
+versions and the tests.
 """
 from __future__ import annotations
 
@@ -201,5 +207,141 @@ def attn_verify_apply(cfg: ModelConfig, p, x, *, pos, k_pool, v_pool, table,
     k_pool[write_pages, write_offsets] = k.to(k_pool.dtype)
     v_pool[write_pages, write_offsets] = v.to(v_pool.dtype)
     out = _k4.paged_verify_attention(q.transpose(1, 2), k_pool, v_pool, table, pos)
+    out = out.transpose(1, 2).reshape(B, C, nq, hd)
+    return torch.einsum("bshe,hed->bsd", out, p["wo"])
+
+
+# ------------------------------------------------------------ slab KV ------
+# A slab layer is (B, Smax, Hkv, hd). The model writes new K/V into it in
+# place (the JAX package returns an updated copy); rows and positions the
+# JAX scatter drops are dropped here too, never clamped or written out of
+# bounds.
+
+
+def cache_write(cache, new, pos):
+    """Write one token's K/V (new (B, 1, Hkv, hd)) into a slab layer in
+    place at `pos`: a 0-d tensor -- every row at the same position, clamped
+    into the cache as `lax.dynamic_update_slice` clamps it -- or per-row
+    positions (B,), where a row at or past Smax is dropped, as the JAX
+    scatter drops it (a slot that is not live keeps advancing its
+    position). No host synchronisation."""
+    B, S = cache.shape[:2]
+    rows = torch.arange(B, device=cache.device)
+    val = new[:, 0].to(cache.dtype)
+    if pos.ndim == 0:
+        cache[rows, pos.clamp(0, S - 1).long().expand(B)] = val
+        return cache
+    idx = pos.long()
+    ok = (idx < S).reshape((B,) + (1,) * (val.ndim - 1))
+    idx = idx.clamp(max=S - 1)
+    cache[rows, idx] = torch.where(ok, val, cache[rows, idx])
+    return cache
+
+
+def cache_write_chunk(cache, new, start):
+    """Write a C-token chunk's K/V (new (B, C, Hkv, hd)) into a slab layer
+    in place at positions [start, start+C). `start` is an int or 0-d
+    tensor (every row shares the offset, clamped so the chunk fits, as
+    `lax.dynamic_update_slice` clamps it) or per-row (B,) (batched
+    speculative verification): then positions at or past Smax are dropped,
+    as JAX's `mode="drop"` scatter drops them -- a verify chunk near the
+    bound must never be clamped backward over valid earlier K/V."""
+    B, C = new.shape[:2]
+    S = cache.shape[1]
+    val = new.to(cache.dtype)
+    if not torch.is_tensor(start) or start.ndim == 0:
+        s = min(max(int(start), 0), S - C)
+        cache[:, s:s + C] = val
+        return cache
+    pos = start.long()[:, None] + torch.arange(C, device=cache.device)[None, :]
+    ok = pos < S
+    rows = torch.arange(B, device=cache.device)[:, None].expand(B, C)
+    cache[rows[ok], pos[ok]] = val[ok]
+    return cache
+
+
+def slab_page_size(max_len: int) -> int:
+    """Page size of the slab's page-pool view: the largest divisor of
+    max_len not above 64, which K2's shared-memory check accepts for every
+    head_dim up to 256."""
+    return max(d for d in range(1, min(64, max_len) + 1) if max_len % d == 0)
+
+
+def slab_pages(layer, ps: int):
+    """A slab layer (B, Smax, Hkv, hd) seen as a page pool (B*Smax/ps, ps,
+    Hkv, hd): the same bytes, no copy. Row b's table is b*nb + arange(nb)
+    (`slab_tables`)."""
+    B, S = layer.shape[:2]
+    return layer.view((B * (S // ps), ps) + tuple(layer.shape[2:]))
+
+
+def slab_tables(B: int, S: int, ps: int, device):
+    """(B, S/ps) int32 page tables of the slab's page-pool view."""
+    nb = S // ps
+    return torch.arange(B * nb, dtype=torch.int32, device=device).reshape(B, nb)
+
+
+def attn_apply_slab(cfg: ModelConfig, p, x, *, k_cache, v_cache, tables):
+    """Causal self-attention of a full prefill from position 0 (the JAX
+    `attn_apply` of `prefill`), writing the K/V into slab layers. x
+    (B, S, d); caches (B, Smax, Hkv, hd) of this layer, written in place at
+    [0, S); tables (B, Smax/ps) from `slab_tables`. Each row runs kernel K2
+    over its slab seen as pages, the whole prompt as one chunk. Returns
+    (B, S, d)."""
+    B, S, _ = x.shape
+    nq, hd = cfg.n_heads, cfg.resolved_head_dim
+    positions = torch.arange(S, device=x.device)
+    q, k, v = _project_qkv(cfg, p, x)
+    if cfg.use_rope:
+        q = apply_rope(q, positions[None], cfg.rope_theta)
+        k = apply_rope(k, positions[None], cfg.rope_theta)
+    cache_write_chunk(k_cache, k, 0)
+    cache_write_chunk(v_cache, v, 0)
+    ps = k_cache.shape[1] // tables.shape[1]
+    kp, vp = slab_pages(k_cache, ps), slab_pages(v_cache, ps)
+    out = torch.stack([_k2.chunk_prefill_attention(q[b], kp, vp, tables[b], 0)
+                       for b in range(B)])
+    out = out.reshape(B, S, nq, hd)
+    return torch.einsum("bshe,hed->bsd", out, p["wo"])
+
+
+def attn_decode_apply_slab(cfg: ModelConfig, p, x, *, pos, k_cache, v_cache):
+    """Single-token decode on slab layers (the JAX `attn_decode_apply`).
+    x (B, 1, d); pos a 0-d tensor or per-row (B,) int32; the new K/V is
+    written at pos (`cache_write`) before kernel K5 attends positions
+    < pos + 1. Returns (B, 1, d)."""
+    B, S, _ = x.shape
+    nq, hd = cfg.n_heads, cfg.resolved_head_dim
+    q, k, v = _project_qkv(cfg, p, x)
+    if cfg.use_rope:
+        pp = pos.reshape(-1, 1).expand(B, S)
+        q = apply_rope(q, pp, cfg.rope_theta)
+        k = apply_rope(k, pp, cfg.rope_theta)
+    cache_write(k_cache, k, pos)
+    cache_write(v_cache, v, pos)
+    out = _k1.decode_attention(q[:, 0], k_cache, v_cache, pos + 1)
+    out = out.reshape(B, S, nq, hd)
+    return torch.einsum("bshe,hed->bsd", out, p["wo"])
+
+
+def attn_chunk_apply_slab(cfg: ModelConfig, p, x, *, start, k_cache, v_cache, tables):
+    """Speculative-verify attention on slab layers (the JAX
+    `attn_chunk_apply` with a per-row start): row b's C candidates sit at
+    positions start[b] + c, are written there (positions at or past Smax
+    dropped, `cache_write_chunk`) and attend every key up to their own
+    position through kernel K4 over the slab seen as pages. x (B, C, d);
+    start (B,) int32; tables (B, Smax/ps). Returns (B, C, d)."""
+    B, C, _ = x.shape
+    nq, hd = cfg.n_heads, cfg.resolved_head_dim
+    q, k, v = _project_qkv(cfg, p, x)
+    if cfg.use_rope:
+        q_pos = start.reshape(B, 1) + torch.arange(C, device=x.device, dtype=start.dtype)
+        q = apply_rope(q, q_pos, cfg.rope_theta)
+        k = apply_rope(k, q_pos, cfg.rope_theta)
+    cache_write_chunk(k_cache, k, start)
+    cache_write_chunk(v_cache, v, start)
+    ps = k_cache.shape[1] // tables.shape[1]
+    out = _k4.paged_verify_attention(q.transpose(1, 2), slab_pages(k_cache, ps),
+                                     slab_pages(v_cache, ps), tables, start)
     out = out.transpose(1, 2).reshape(B, C, nq, hd)
     return torch.einsum("bshe,hed->bsd", out, p["wo"])

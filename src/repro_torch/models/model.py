@@ -1,6 +1,6 @@
-"""Model assembly in PyTorch: parameters, chunked prefill, batched decode
-and speculative verification on the paged KV pool (counterpart of
-`repro.models.model`, dense family).
+"""Model assembly in PyTorch: parameters, and the forward passes of the
+serving engine on both KV layouts (counterpart of `repro.models.model`,
+dense family).
 
 Parameters are a nested dict of tensors with the JAX package's names and
 shapes, except that the layer stack is a Python list of per-layer dicts
@@ -8,11 +8,21 @@ shapes, except that the layer stack is a Python list of per-layer dicts
 layers in a loop). They are stored in `cfg.dtype` (the JAX package keeps
 float32 and casts per call).
 
-The length-indexed KV lives in pools shaped (L, P, ps, Hkv, D); the
-serving engine owns them (`cache_ops.PageAllocator`). `prefill_chunk`,
-`decode_step` and `verify_chunk` write the new tokens' K/V into their pages
-in place and read the context through page tables with kernels K2, K1 and
-K4 -- no dense view is gathered, and no page is scattered back.
+Paged layout: the length-indexed KV lives in pools shaped (L, P, ps, Hkv,
+D); the serving engine owns them (`cache_ops.PageAllocator`).
+`prefill_chunk`, `decode_step` and `verify_chunk` write the new tokens'
+K/V into their pages in place and read the context through page tables
+with kernels K2, K1 and K4 -- no dense view is gathered, and no page is
+scattered back.
+
+Slab layout: a decode cache {"pos", "k", "v"} with k/v (L, B, max_len,
+Hkv, D), as the JAX `init_decode_cache` makes it. The JAX functions map to
+these: `init_decode_cache` -> `init_decode_cache`, `prefill` -> `prefill`,
+slab `decode_step` -> `decode_step_slab` (kernel K5) and slab
+`verify_chunk` -> `verify_chunk_slab` (kernel K4 over the slab seen as
+pages; `prefill` runs K2 the same way). They write K/V into the cache's
+tensors in place and return the dict with its new `pos`, where the JAX
+functions return an updated copy.
 """
 from __future__ import annotations
 
@@ -200,3 +210,102 @@ def verify_chunk(cfg: ModelConfig, params, tokens, pos, pools, table,
         x = _mlp_block(cfg, lp, x)
     x = L.norm_apply(cfg, params["final_norm"], x)
     return x @ _head(cfg, params)
+
+
+# ------------------------------------------------------------ slab KV ------
+
+
+def init_decode_cache(cfg: ModelConfig, B: int, max_len: int, dtype=None,
+                      device=None) -> dict:
+    """Slab decode cache sized for `max_len` tokens, as the JAX package's:
+    pos a 0-d int32 (the engine makes it (B,)), k/v (L, B, max_len, Hkv,
+    D) zeros in `dtype` (default cfg.dtype)."""
+    _check_family(cfg)
+    dev = resolve_device(device)
+    dt = dtype or torch_dtype(cfg.dtype)
+    shape = (cfg.num_layers, B, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
+    return {"pos": torch.zeros((), dtype=torch.int32, device=dev),
+            "k": torch.zeros(shape, dtype=dt, device=dev),
+            "v": torch.zeros(shape, dtype=dt, device=dev)}
+
+
+def prefill(cfg: ModelConfig, params, tokens, max_len: int, length=None):
+    """Process a prompt into a fresh slab cache; return (last-position
+    logits (B, 1, V), cache).
+
+    tokens (B, S) int, right-padded past `length` real tokens when the
+    engine buckets the prompt (None: all S are real). Every position's K/V
+    is written (padded positions hold K/V no query attends before a later
+    write replaces it), each layer's causal attention runs kernel K2 over
+    the slab from position 0, and cache["pos"] = length.
+    """
+    _check_family(cfg)
+    B, S = tokens.shape
+    if S > max_len:
+        raise ValueError(f"prompt ({S}) exceeds cache max_len={max_len}")
+    dev = params["embed"].device
+    cache = init_decode_cache(cfg, B, max_len, device=dev)
+    ps = L.slab_page_size(max_len)
+    tables = L.slab_tables(B, max_len, ps, dev)
+    x = params["embed"][tokens.long()]
+    for li, lp in enumerate(params["layers"]):
+        h = L.norm_apply(cfg, lp["attn_norm"], x)
+        x = x + L.attn_apply_slab(cfg, lp["attn"], h, k_cache=cache["k"][li],
+                                  v_cache=cache["v"][li], tables=tables)
+        x = _mlp_block(cfg, lp, x)
+    n = S if length is None else int(length)
+    x = L.norm_apply(cfg, params["final_norm"], x[:, n - 1:n])
+    cache["pos"] = torch.tensor(n, dtype=torch.int32, device=dev)
+    return x @ _head(cfg, params), cache
+
+
+def decode_step_slab(cfg: ModelConfig, params, tokens, cache):
+    """One decode step on a slab cache (the JAX slab `decode_step`).
+
+    tokens (B, 1) int; cache["pos"] a 0-d int32 (every row at one
+    position: the B=1 sub-cache of a prompt suffix or the drafter's
+    prefill) or (B,) per-row positions. Writes each layer's K/V at pos
+    (rows at or past max_len dropped) and attends positions < pos + 1 with
+    kernel K5. Returns (logits (B, 1, V), cache) with pos advanced by one.
+    """
+    _check_family(cfg)
+    pos = cache["pos"]
+    x = params["embed"][tokens.long()]
+    for li, lp in enumerate(params["layers"]):
+        h = L.norm_apply(cfg, lp["attn_norm"], x)
+        x = x + L.attn_decode_apply_slab(cfg, lp["attn"], h, pos=pos,
+                                         k_cache=cache["k"][li], v_cache=cache["v"][li])
+        x = _mlp_block(cfg, lp, x)
+    x = L.norm_apply(cfg, params["final_norm"], x)
+    cache["pos"] = pos + 1
+    return x @ _head(cfg, params), cache
+
+
+def verify_chunk_slab(cfg: ModelConfig, params, tokens, cache):
+    """Speculative-decoding verification forward on a slab cache (the JAX
+    slab `verify_chunk`).
+
+    tokens (B, C) int: each row's pending token plus its drafts, right-
+    padded; cache["pos"] (B,) int32 -- row b's candidate c sits at
+    pos[b] + c. Each layer writes the candidates' K/V (positions at or past
+    max_len dropped, as JAX's `mode="drop"`), then kernel K4 attends
+    causally from pos[b] over the slab seen as pages. Returns (logits
+    (B, C, V), cache) with pos advanced by C; the dense family keeps no
+    recurrent state, so rollback is the engine's position reset.
+    """
+    _check_family(cfg)
+    pos = cache["pos"]
+    B, _ = tokens.shape
+    S = cache["k"].shape[2]
+    ps = L.slab_page_size(S)
+    tables = L.slab_tables(B, S, ps, pos.device)
+    x = params["embed"][tokens.long()]
+    for li, lp in enumerate(params["layers"]):
+        h = L.norm_apply(cfg, lp["attn_norm"], x)
+        x = x + L.attn_chunk_apply_slab(cfg, lp["attn"], h, start=pos,
+                                        k_cache=cache["k"][li], v_cache=cache["v"][li],
+                                        tables=tables)
+        x = _mlp_block(cfg, lp, x)
+    x = L.norm_apply(cfg, params["final_norm"], x)
+    cache["pos"] = pos + tokens.shape[1]
+    return x @ _head(cfg, params), cache

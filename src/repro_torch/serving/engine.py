@@ -1,35 +1,49 @@
-"""Batched serving engine with continuous batching on a paged KV pool
-(counterpart of `repro.serving.engine`, paged layout).
+"""Batched serving engine with continuous batching (counterpart of
+`repro.serving.engine`). Inputs are token-level `Request`s; outputs are
+greedy decoded ids, identical across every layout and option below.
 
-Length-indexed KV lives in a fixed pool of `page_size`-token pages
-(`models.cache_ops.PageAllocator`); each slot is a page table. Prompts
-prefill in fixed-size chunks (`chunk_size` tokens per `prefill_chunk`
-call, the last chunk right-padded with its true length carried along), and
-live slots decode together in batched `decode_step`s. On the card both run
-their attention on the pool itself -- kernel K2 for a chunk, kernel K1 for
-a decode step -- where the JAX engine gathers the pages into dense views,
-runs jnp attention and scatters the pages back; the engine's counters keep
-the JAX formulas, so `stats` are identical between the two packages.
+Two KV layouts, as in the JAX engine:
 
+`kv_layout="paged"` (default): length-indexed KV lives in a fixed pool of
+`page_size`-token pages (`models.cache_ops.PageAllocator`); each slot is a
+page table. Prompts prefill in fixed-size chunks (`chunk_size` tokens per
+`prefill_chunk` call, the last chunk right-padded with its true length
+carried along), and live slots decode together in batched `decode_step`s.
+On the card both run their attention on the pool itself -- kernel K2 for a
+chunk, kernel K1 for a decode step -- where the JAX engine gathers the
+pages into dense views, runs jnp attention and scatters the pages back.
 A request whose prompt extends a cached prefix (`prefix_cache=True`)
 splices the entry's full page ids into its table (ref-counted), copies the
 partially filled boundary page (copy-on-write) and chunk-prefills only the
 unshared suffix, from a start position in the middle of a page.
 
-With `spec_decode="prompt_lookup"` (or a custom drafter) decode runs as
-draft/verify rounds: the drafter proposes up to `spec_k` tokens per live
-slot, one batched `verify_chunk` scores every slot's pending token plus
-drafts at per-row positions -- kernel K4 on the card -- and the longest
-greedy-agreeing prefix plus one bonus token is emitted. Rejected suffixes
-roll back exactly: their KV positions are zeroed and the speculative page
-references released (`cache_ops.truncate_pages` /
-`release_trailing_pages`). Greedy output is identical to plain decode.
+`kv_layout="slab"`: per-slot contiguous KV (`model.init_decode_cache`).
+A prompt prefills whole, right-padded to the next `chunk_size` multiple
+(`prefill(..., length=n)` keeps the state exact at the true length;
+kernel K2 over the slab seen as pages), into a B=1 sub-cache merged into
+its slot (`write_slot`). A prefix hit copies the entry's trimmed snapshot
+into a fresh sub-cache (`expand_snapshot`) and decodes the unshared
+suffix one token at a time through the B=1 slab decode step; the first
+request of a group prefills exactly the prefix and snapshots it
+(`prefix_snapshot`). Batched decode steps run kernel K5 on the slab.
 
-Requests, slots, the insert coroutines that interleave chunked prefill
-with decode, `drain_slot` (bounded retries), `cancel`, `poll` and the
-strict `run()` (`RunTruncated`) follow the JAX engine one for one. The
-slab layout, the draft-model drafter, mesh serving and shared page
-allocators are not ported yet and raise NotImplementedError.
+With `spec_decode="prompt_lookup"`, `"draft"` (a second model,
+`draft_model=(cfg, params)`) or a custom drafter, decode runs as
+draft/verify rounds: the drafter proposes up to `spec_k` tokens per live
+slot, one batched verify forward scores every slot's pending token plus
+drafts at per-row positions -- kernel K4, on the pool or on the slab seen
+as pages -- and the longest greedy-agreeing prefix plus one bonus token is
+emitted. Rejected suffixes roll back exactly: on the pool their KV
+positions are zeroed and the speculative page references released
+(`cache_ops.truncate_pages` / `release_trailing_pages`); on the slab the
+row's position is reset. Greedy output is identical to plain decode.
+
+The engine's counters keep the JAX formulas, so `stats` are identical
+between the two packages. Requests, slots, the insert coroutines that
+interleave prefill with decode, `drain_slot` (bounded retries), `cancel`,
+`poll` and the strict `run()` (`RunTruncated`) follow the JAX engine one
+for one. Mesh serving and shared page allocators are not ported yet and
+raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -43,11 +57,14 @@ import torch
 
 from repro_torch.data import lm_data
 from repro_torch.device import resolve_device
-from repro_torch.models import decode_step, prefill_chunk, verify_chunk
+from repro_torch.models import (decode_step, decode_step_slab,
+                                init_decode_cache, prefill, prefill_chunk,
+                                verify_chunk, verify_chunk_slab)
 from repro_torch.models.cache_ops import (PAGE_SINK, PageAllocator,
                                           PagePoolExhausted, cache_nbytes,
+                                          expand_snapshot, prefix_snapshot,
                                           release_trailing_pages,
-                                          truncate_pages)
+                                          truncate_pages, write_slot)
 from repro_torch.models.config import ModelConfig
 from repro_torch.obs import MetricsRegistry, StatsDict, as_tracer
 from repro_torch.obs.metrics import ENGINE_STATS
@@ -105,29 +122,36 @@ class ServingEngine:
                  prefix_min_len: int = 8, kv_layout: str = "paged",
                  page_size: int = 16, num_pages: Optional[int] = None,
                  chunk_size: int = 32, spec_decode="off", spec_k: int = 4,
-                 spec_ngram: int = 3, mesh=None, page_allocator=None,
-                 tracer=None, metrics=None, device=None):
+                 spec_ngram: int = 3, draft_model: Optional[tuple] = None,
+                 mesh=None, page_allocator=None, tracer=None, metrics=None,
+                 device=None):
         """queue_depth: optional admission-control bound on queued requests;
         ServedExtractor splits its batch rounds into windows of this size
         (None = unbounded).
         prefix_cache: shared-prefix KV reuse -- False/None off, True for a
         default `PrefixCache()`, or a configured instance.
         prefix_min_len: shortest prefix worth snapshotting/splicing.
-        page_size: tokens per KV page (must divide max_len).
+        kv_layout: "paged" (page-table KV + chunked prefill) or "slab"
+        (per-slot contiguous KV, bucketed whole-prompt prefill).
+        page_size: tokens per KV page (paged layout; must divide max_len).
         num_pages: pool capacity (default (slots+4) tables' worth + sink).
-        chunk_size: prompt tokens per chunked-prefill call.
+        chunk_size: prompt tokens per chunked-prefill call; also the
+        bucket granularity of slab-layout prefill.
         spec_decode: speculative decoding -- "off", "prompt_lookup" (n-gram
-        drafting over the request's own context) or a custom drafter
-        instance (`draft_round`/`on_insert`/`on_free`); "draft" (a second
-        model) is not ported yet. Greedy output is identical across them.
+        drafting over the request's own context), "draft" (a second model,
+        see `draft_model`) or a custom drafter instance (`draft_round`/
+        `on_insert`/`on_free`). Greedy output is identical across them.
         spec_k: draft tokens per verify round (each round emits 1..k+1).
         spec_ngram: longest n-gram the prompt-lookup drafter matches.
-        device: where the pool and the model run (None = the CUDA device);
+        draft_model: (ModelConfig, params) of the draft model, required for
+        spec_decode="draft" (dense/moe family, same vocab; the port runs a
+        dense draft); its params must live on `device`.
+        device: where the KV and the model run (None = the CUDA device);
         `params` must already live there.
-        kv_layout="slab", mesh and page_allocator are the JAX engine's
-        options that are not ported yet."""
-        if kv_layout != "paged":
-            raise NotImplementedError(f"kv_layout={kv_layout!r} is {_NOT_PORTED}")
+        mesh and page_allocator are the JAX engine's options that are not
+        ported yet."""
+        if kv_layout not in ("paged", "slab"):
+            raise ValueError(f"kv_layout must be 'paged' or 'slab', got {kv_layout!r}")
         if mesh is not None:
             raise NotImplementedError(f"mesh serving is {_NOT_PORTED}")
         if page_allocator is not None:
@@ -138,6 +162,8 @@ class ServingEngine:
         self.slots = slots
         self.max_len = max_len
         self.queue_depth = queue_depth
+        self.kv_layout = kv_layout
+        self.paged = kv_layout == "paged"
         self.page_size = max(1, int(page_size))
         self.chunk_size = max(1, int(chunk_size))
         if isinstance(prefix_cache, PrefixCache):   # may be empty, i.e. falsy
@@ -154,7 +180,16 @@ class ServingEngine:
             if spec_decode == "prompt_lookup":
                 self.drafter = PromptLookupDrafter(ngram=spec_ngram)
             elif spec_decode == "draft":
-                self.drafter = DraftModelDrafter()
+                if draft_model is None:
+                    raise ValueError(
+                        "spec_decode='draft' requires draft_model=(cfg, params)")
+                dcfg, dparams = draft_model
+                if dcfg.vocab_size != cfg.vocab_size:
+                    raise ValueError(
+                        f"draft vocab {dcfg.vocab_size} != target vocab "
+                        f"{cfg.vocab_size}")
+                self.drafter = DraftModelDrafter(dcfg, dparams, slots=slots,
+                                                 max_len=max_len, device=self.device)
             else:
                 self.drafter = None
         else:
@@ -180,23 +215,28 @@ class ServingEngine:
         self.stats = StatsDict(self.metrics, "engine", ENGINE_STATS)
 
         # per-slot state: the decode position, int32 as in the JAX engine
-        # (its byte size enters kv_bytes_peak)
-        self.cache = {"pos": torch.zeros((slots,), dtype=torch.int32,
-                                         device=self.device)}
+        # (its byte size enters kv_bytes_peak), beside the slab's K/V
+        if self.paged:
+            self.cache = {}
+        else:
+            self.cache = init_decode_cache(cfg, slots, max_len, device=self.device)
+            self._prefill_buckets: set = set()     # distinct prefill lengths
+        self.cache["pos"] = torch.zeros((slots,), dtype=torch.int32, device=self.device)
+        self._pos_h = np.zeros((slots,), np.int64)   # host mirror of pos
         self._live = np.zeros((slots,), bool)
         self._tokens = torch.zeros((slots, 1), dtype=torch.int64,
                                    device=self.device)
+        self.slot_pages: list = [[] for _ in range(slots)]   # empty for slab
 
-        if max_len % self.page_size:
-            raise ValueError(
-                f"max_len={max_len} must be a multiple of page_size={page_size}")
-        self.pages_per_slot = max_len // self.page_size
-        if num_pages is None:
-            num_pages = (slots + 4) * self.pages_per_slot + 1
-        self.alloc = PageAllocator(cfg, num_pages, self.page_size,
-                                   device=self.device)
-        self.slot_pages: list = [[] for _ in range(slots)]
-        self._pos_h = np.zeros((slots,), np.int64)   # host mirror of pos
+        if self.paged:
+            if max_len % self.page_size:
+                raise ValueError(
+                    f"max_len={max_len} must be a multiple of page_size={page_size}")
+            self.pages_per_slot = max_len // self.page_size
+            if num_pages is None:
+                num_pages = (slots + 4) * self.pages_per_slot + 1
+            self.alloc = PageAllocator(cfg, num_pages, self.page_size,
+                                       device=self.device)
 
     # ------------------------------------------------------------ intake --
 
@@ -219,7 +259,80 @@ class ServingEngine:
             req.submitted_s = time.time()
             self.queue.append(req)
 
-    # ------------------------------------------------------------ prefill --
+    # --------------------------------------------------- slab-mode prefill --
+
+    def _bucket_len(self, n: int) -> int:
+        """Next chunk_size multiple, capped at max_len: bounds the distinct
+        prefill lengths (the JAX engine's jit signatures)."""
+        b = self.chunk_size
+        return min(((n + b - 1) // b) * b, self.max_len)
+
+    def _prefill_sub(self, tokens: list):
+        """Exact-state prefill of `tokens` into a B=1 slab sub-cache, padded
+        to a bucketed length (`length` keeps the logits and the cache
+        position exact at the true length). Returns (last-position logits,
+        sub-cache)."""
+        n = len(tokens)
+        bucket = self._bucket_len(n)
+        self._prefill_buckets.add(bucket)
+        toks = torch.as_tensor([list(tokens) + [0] * (bucket - n)], dtype=torch.int64,
+                               device=self.device)
+        self.stats["prefill_invocations"] += 1
+        # attention-FLOPs proxy: KV positions computed against (S x S matrix)
+        self.stats["prefill_ctx_positions"] += bucket ** 2
+        return prefill(self.cfg, self.params, toks, self.max_len, length=n)
+
+    def _insert_slab_co(self, slot: int, req: Request):
+        """Slab-layout insert, yielding between prefill units (one bucketed
+        prefill, or one decode step per unshared-suffix token). A prefix
+        hit expands the entry's snapshot and decodes the suffix token by
+        token through the B=1 slab decode step; the first request of a
+        group prefills exactly the shared prefix, snapshots it, then
+        continues the same way. Returns (last logits, logical position)."""
+        prompt = req.prompt
+        sub, prefix_len, did_work = None, 0, False
+        if self.prefix_cache is not None:
+            entry = self.prefix_cache.match(prompt)
+            if entry is not None and len(entry.tokens) >= self.prefix_min_len:
+                prefix_len = len(entry.tokens)
+                sub = expand_snapshot(entry.cache, self.max_len)
+                self.stats["prefix_hits"] += 1
+                self.stats["prefix_saved_tokens"] += prefix_len
+                self.tracer.instant("engine.prefix_hit", kind="engine",
+                                    level=2, saved=prefix_len)
+            else:
+                # first request of a prefix group: prefill the shared prefix
+                # exactly (state-correct snapshot boundary), then continue
+                boundary = min(int(req.shared_len), len(prompt) - 1)
+                if boundary >= self.prefix_min_len:
+                    _, sub = self._prefill_sub(prompt[:boundary])
+                    did_work = True
+                    self.stats["prefill_tokens"] += boundary
+                    self.prefix_cache.insert(
+                        prompt[:boundary], prefix_snapshot(sub, boundary),
+                        doc_ids=self._entry_docs(req, boundary))
+                    self.stats["prefix_inserts"] += 1
+                    prefix_len = boundary
+        if sub is None:
+            logits, sub = self._prefill_sub(prompt)
+            self.stats["prefill_tokens"] += len(prompt)
+        else:
+            logits = None
+            for t in prompt[prefix_len:]:
+                if did_work:
+                    yield               # cooperative point between tokens
+                did_work = True
+                logits, sub = decode_step_slab(
+                    self.cfg, self.params,
+                    torch.as_tensor([[t]], dtype=torch.int64, device=self.device), sub)
+                self.stats["prefill_invocations"] += 1
+                # each token-step attends the full max_len KV buffer
+                self.stats["prefill_ctx_positions"] += self.max_len
+            self.stats["prefill_tokens"] += len(prompt) - prefix_len
+        write_slot(self.cache, sub, slot)
+        return logits, len(prompt)
+
+    # -------------------------------------------------- paged-mode prefill --
 
     def _ids(self, ids) -> torch.Tensor:
         return torch.as_tensor(np.asarray(ids, np.int32), device=self.device)
@@ -428,7 +541,8 @@ class ServingEngine:
         plen = len(req.prompt)
         if plen > self.max_len:
             raise ValueError(f"prompt ({plen}) exceeds cache max_len={self.max_len}")
-        logits, lpos = yield from self._insert_paged_co(slot, req)
+        co = self._insert_paged_co if self.paged else self._insert_slab_co
+        logits, lpos = yield from co(slot, req)
         self.cache["pos"][slot] = lpos
         self._pos_h[slot] = lpos
         nxt = int(torch.argmax(logits[0, -1]))
@@ -441,7 +555,11 @@ class ServingEngine:
         self._note_kv_bytes()
 
     def _note_kv_bytes(self):
-        used = cache_nbytes(self.cache) + self.alloc.nbytes_in_use
+        used = cache_nbytes(self.cache)
+        if self.paged:
+            used += self.alloc.nbytes_in_use
+        elif self.prefix_cache is not None:
+            used += self.prefix_cache.nbytes
         self.stats["kv_bytes_peak"] = max(self.stats["kv_bytes_peak"], used)
 
     # ------------------------------------------------------------- decode --
@@ -457,20 +575,27 @@ class ServingEngine:
             self.drafter.on_free(slot)
 
     def _step(self):
-        write_ids = np.full((self.slots,), PAGE_SINK, np.int32)
-        maxb = 1
-        for s in range(self.slots):
-            if self._live[s]:
-                maxb = max(maxb, len(self.slot_pages[s]))
-                b = int(self._pos_h[s]) // self.page_size
-                if b < len(self.slot_pages[s]):
-                    write_ids[s] = self.slot_pages[s][b]
-        width = min(_pow2_at_least(maxb), self.pages_per_slot)
-        pos = self.cache["pos"]
-        logits = decode_step(self.cfg, self.params, self._tokens, pos,
-                             self.alloc.pools, self._page_table(width),
-                             self._ids(write_ids))
-        self.cache["pos"] = pos + 1
+        if self.paged:
+            write_ids = np.full((self.slots,), PAGE_SINK, np.int32)
+            maxb = 1
+            for s in range(self.slots):
+                if self._live[s]:
+                    maxb = max(maxb, len(self.slot_pages[s]))
+                    b = int(self._pos_h[s]) // self.page_size
+                    if b < len(self.slot_pages[s]):
+                        write_ids[s] = self.slot_pages[s][b]
+            width = min(_pow2_at_least(maxb), self.pages_per_slot)
+            pos = self.cache["pos"]
+            logits = decode_step(self.cfg, self.params, self._tokens, pos,
+                                 self.alloc.pools, self._page_table(width),
+                                 self._ids(write_ids))
+            self.cache["pos"] = pos + 1
+        else:
+            # every row steps, live or not: a free slot's position runs on
+            # (past max_len too, where its writes are dropped) until an
+            # insert resets it, as in the JAX engine
+            logits, self.cache = decode_step_slab(self.cfg, self.params,
+                                                  self._tokens, self.cache)
         self._pos_h += 1
         self.stats["decode_steps"] += 1
         self.stats["decode_slot_steps"] += len(self.active)
@@ -542,9 +667,10 @@ class ServingEngine:
         drafts = self.drafter.draft_round(reqs, k_eff)
         for s in live:
             drafts[s] = list(drafts.get(s) or [])[: k_eff[s]]
-        live = self._spec_clamp_drafts(live, pos_h, drafts)
-        if not live:
-            return                       # all slots drained; run() reinserts
+        if self.paged:
+            live = self._spec_clamp_drafts(live, pos_h, drafts)
+            if not live:
+                return                   # all slots drained; run() reinserts
         toks = np.zeros((self.slots, C), np.int64)
         true_c = {}
         for s in live:
@@ -552,29 +678,34 @@ class ServingEngine:
             true_c[s] = len(row)
             toks[s, :len(row)] = row
 
-        # context width bucketed as the JAX engine's gathered view
-        nb_probe = (C + ps - 2) // ps + 1 if ps > 1 else C
-        need_ctx = 1
-        for s in live:
-            p0 = int(pos_h[s])
-            need_ctx = max(need_ctx, -(-(p0 + C) // ps), p0 // ps + nb_probe)
-        n_ctx = _pow2_at_least(need_ctx)
-        ctx = np.full((self.slots, n_ctx), PAGE_SINK, np.int32)
-        for s in live:
-            pages = self.slot_pages[s]
-            ctx[s, :min(len(pages), n_ctx)] = pages[:n_ctx]
-        # every candidate's page and slot; a position past the row's table
-        # (or past max_len) goes to the sink, where JAX drops the write
-        cpos = pos_h[:, None] + np.arange(C)[None, :]
-        blk = cpos // ps
-        wpages = np.where(blk < n_ctx,
-                          np.take_along_axis(ctx, np.minimum(blk, n_ctx - 1), 1),
-                          PAGE_SINK)
-        logits = verify_chunk(
-            self.cfg, self.params,
-            torch.as_tensor(toks, device=self.device), self.cache["pos"],
-            self.alloc.pools, self._ids(ctx), self._ids(wpages),
-            self._ids(cpos % ps))
+        if self.paged:
+            # context width bucketed as the JAX engine's gathered view
+            nb_probe = (C + ps - 2) // ps + 1 if ps > 1 else C
+            need_ctx = 1
+            for s in live:
+                p0 = int(pos_h[s])
+                need_ctx = max(need_ctx, -(-(p0 + C) // ps), p0 // ps + nb_probe)
+            n_ctx = _pow2_at_least(need_ctx)
+            ctx = np.full((self.slots, n_ctx), PAGE_SINK, np.int32)
+            for s in live:
+                pages = self.slot_pages[s]
+                ctx[s, :min(len(pages), n_ctx)] = pages[:n_ctx]
+            # every candidate's page and slot; a position past the row's table
+            # (or past max_len) goes to the sink, where JAX drops the write
+            cpos = pos_h[:, None] + np.arange(C)[None, :]
+            blk = cpos // ps
+            wpages = np.where(blk < n_ctx,
+                              np.take_along_axis(ctx, np.minimum(blk, n_ctx - 1), 1),
+                              PAGE_SINK)
+            logits = verify_chunk(
+                self.cfg, self.params,
+                torch.as_tensor(toks, device=self.device), self.cache["pos"],
+                self.alloc.pools, self._ids(ctx), self._ids(wpages),
+                self._ids(cpos % ps))
+        else:
+            logits, self.cache = verify_chunk_slab(
+                self.cfg, self.params, torch.as_tensor(toks, device=self.device),
+                self.cache)
 
         self.stats["decode_steps"] += 1
         self.stats["spec_rounds"] += 1
@@ -608,7 +739,7 @@ class ServingEngine:
             new_pos[s] = p0 + keep
             if done:
                 self._finish(s, req)
-            else:
+            elif self.paged:
                 # page-truncate + ref-release the rejected suffix
                 pages = self.slot_pages[s]
                 end = min(p0 + true_c[s], len(pages) * ps)
@@ -652,6 +783,15 @@ class ServingEngine:
             if not self._live[s] and s not in self._inserting:
                 return s
         return None
+
+    def estimate_pages(self, prompt_len: int, max_new: int) -> int:
+        """Pages the paged insert will demand up front for a prompt of this
+        shape (0 for the slab layout) -- the admission headroom check of the
+        JAX package's frontend."""
+        if not self.paged:
+            return 0
+        cap = min(prompt_len if self.spec else prompt_len + max_new, self.max_len)
+        return -(-cap // self.page_size)
 
     def _advance_insert(self, slot: int, req: Request, gen, budget):
         """Drive one insert coroutine until it completes or `budget`

@@ -134,8 +134,7 @@ def test_served_mini_swde_query_identical(weights):
 
 def test_unported_options_raise(weights):
     _, _, tcfg, tparams, _ = weights
-    for kw in ({"kv_layout": "slab"}, {"spec_decode": "draft"},
-               {"mesh": object()}, {"page_allocator": object()}):
+    for kw in ({"mesh": object()}, {"page_allocator": object()}):
         with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
             ServingEngine(tcfg, tparams, device="cpu", **kw)
     eng = ServingEngine(tcfg, tparams, device="cpu")

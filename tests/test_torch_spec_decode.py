@@ -119,7 +119,7 @@ def test_engine_spec_options(weights):
         ServingEngine(tcfg, tparams, device="cpu", spec_decode=object())
     with pytest.raises(ValueError, match="spec_decode must be"):
         ServingEngine(tcfg, tparams, device="cpu", spec_decode="medusa")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
+    with pytest.raises(ValueError, match="draft_model"):
         ServingEngine(tcfg, tparams, device="cpu", spec_decode="draft")
 
 
