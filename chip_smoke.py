@@ -37,24 +37,42 @@ package, and goes through its phases, each printing one JSON line:
              verify rounds and the drafter's steps are reported; rows and
              ledger token columns must equal the main phase's, K1 must
              stay at 0;
+  ssm        with the qwen2.5-3b weights freed, the same query on
+             falcon-mamba-7b (Mamba1) at its published width and all 64
+             layers (d_model 4096, d_inner 8192, bf16, random weights from
+             --seed), with the spec phase's served settings and
+             chunk_size=128: every prompt chunk and every verify round runs
+             the selective scan through K7 (64 launches a forward), verify
+             rounds keep per-position state checkpoints and roll rejected
+             drafts back from them, prefix entries carry the recurrent
+             state. Rows and the ledger's input tokens must equal the main
+             phase's (output tokens are reported: another model may end
+             elsewhere); K1, K2, K4 and K5 must stay at 0;
   kernels    every kernel of those paths (K1 paged decode attention, K2
              paged chunk-prefill attention, K3 L2 top-k, K4 paged verify
-             attention, K5 dense-cache decode attention) on the inputs of
-             one of its real launches, plus edge cases, held against its
-             plain PyTorch version; times with CUDA events beside its bound
-             and a PyTorch library yardstick;
+             attention, K5 dense-cache decode attention, K7 selective scan)
+             on the inputs of one of its real launches (K7: a prefill chunk
+             and a verify round), plus edge cases, held against its plain
+             PyTorch version; times with CUDA events beside its bound and a
+             PyTorch library yardstick where one call computes the same
+             function (none does for K7);
   profile    (only with --profile) torch.profiler over one extraction round
-             of each path (main, spec, slab, draft): device busy share,
+             of each path (main, spec, slab, draft, ssm): device busy share,
              device time by kernel;
-  reference  the same served query code at a small size (SMOKE config,
+  reference  the same served query code at a small size (SMOKE configs,
              float32, 20 legal documents) on the card and on the CPU's plain
-             path, in four modes: speculation and the prefix cache off;
-             prompt lookup with the prefix cache; the slab layout with the
-             prefix cache (snapshot, expand and token-by-token suffix decode
-             on the card); self-drafting. Rows, ledger token columns, engine
-             (and drafter) counters and every generated token must be
-             identical across the two devices, and rows and tokens
-             identical to the first mode's in every mode.
+             path: qwen2.5-3b in four modes (speculation and the prefix
+             cache off; prompt lookup with the prefix cache; the slab layout
+             with the prefix cache, whose snapshot, expand and token-by-
+             token suffix decode run on the card; self-drafting) and
+             falcon-mamba-7b in four (off; prompt lookup with the prefix
+             cache; slab with the prefix cache; scripted drafts of which two
+             of four are right, so rejected drafts roll back to a checkpoint
+             past the first position). Rows, ledger token columns,
+             engine (and drafter) counters and every generated token must be
+             identical across the two devices, and rows and tokens identical
+             to the model's first mode in every mode; falcon-mamba-7b's
+             recurrent state must also agree across the devices.
 
 Every phase raises on a mismatch. Then it prints each phase's seconds,
 the `kernels` summary line, the nvidia-smi line, and as its last line
@@ -79,6 +97,13 @@ SRC = ROOT / "src"
 HBM_BYTES_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 TOL = {"bfloat16": 2e-2, "float32": 2e-5, "topk": 1e-4}
+# the recurrent state of a served SMOKE query, card against CPU, float32:
+# the same recurrence, with matmuls summed in another order on the card
+STATE_TOL = 1e-4
+# exponentials per second on the SFU: 16 per clock per SM (NVIDIA's CUDA
+# C++ documentation, the arithmetic instruction throughput table, compute
+# capability 9.0) x 132 SMs x the H100 SXM's 1,980 MHz boost clock
+SFU_OPS_S = 16 * 132 * 1.98e9
 
 
 def emit(obj) -> None:
@@ -108,9 +133,12 @@ def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(nbytes: float, flops: float, dtype: str) -> tuple:
+def bound(nbytes: float, flops: float, dtype: str, exps: float = 0.0) -> tuple:
+    """The least time (ms) for the work, and what bounds it: the bytes over
+    HBM's rate, or the operations -- flops over the peak for their type,
+    exponentials over the SFU's rate, whichever is longer."""
     t_bytes = nbytes / HBM_BYTES_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    t_ops = max(flops / PEAK_FLOPS[dtype], exps / SFU_OPS_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -159,6 +187,9 @@ SLAB = {"kv_layout": "slab"}
 # included, stays well inside its time limit (the four paths at 36 layers
 # took 1,128 s of the 1,200 s with --profile on one H100 80GB HBM3).
 MAIN_LAYERS = 12
+# The ssm phase feeds prompts in 128-token chunks: at 64 layers its wall
+# follows the number of forwards, and each chunk gives K7 a real sequence.
+SSM_CHUNK = 128
 
 
 def _cut(cfg, params):
@@ -167,7 +198,7 @@ def _cut(cfg, params):
             {**params, "layers": params["layers"][:MAIN_LAYERS]})
 
 
-def _served_query(cfg, params, corpus, device, max_new, **engine_kw):
+def _served_query(cfg, params, corpus, device, max_new, chunk_size=32, **engine_kw):
     from repro_torch import core
     from repro_torch.extract import ServedExtractor
     from repro_torch.index.retriever import TwoLevelRetriever
@@ -176,7 +207,7 @@ def _served_query(cfg, params, corpus, device, max_new, **engine_kw):
     retriever = TwoLevelRetriever(corpus, device=device)
     build_s = time.perf_counter() - t0
     engine = ServingEngine(cfg, params, slots=4, max_len=1024, page_size=16,
-                           chunk_size=32, device=device, **engine_kw)
+                           chunk_size=chunk_size, device=device, **engine_kw)
     extractor = ServedExtractor(corpus, engine, max_new=max_new)
     session = core.Session(retriever, extractor, batch_size=4)
     return session, engine, extractor, build_s
@@ -205,18 +236,21 @@ def _check_like_main(name, result, main_result):
 def _launch_counts():
     from repro_torch.kernels import decode_attention as k15
     from repro_torch.kernels import flash_attention as k2
+    from repro_torch.kernels import ssm_scan as k7
     from repro_torch.kernels import topk_l2 as k3
     from repro_torch.kernels import verify_attention as k4
     return {"K1": k15.launches, "K2": k2.launches, "K3": k3.launches,
-            "K4": k4.launches, "K5": k15.dense_launches}
+            "K4": k4.launches, "K5": k15.dense_launches, "K7": k7.launches}
 
 
 def _zero_launches():
     from repro_torch.kernels import decode_attention as k15
     from repro_torch.kernels import flash_attention as k2
+    from repro_torch.kernels import ssm_scan as k7
     from repro_torch.kernels import topk_l2 as k3
     from repro_torch.kernels import verify_attention as k4
     k15.launches = k15.dense_launches = k2.launches = k3.launches = k4.launches = 0
+    k7.launches = 0
 
 
 def _timed_query(session):
@@ -420,6 +454,72 @@ def phase_draft(main_run, captures: dict, slab_tokens: dict) -> tuple:
     return out, (session, extractor)
 
 
+def phase_ssm(seed: int, captures: dict, main_result) -> tuple:
+    """The main query on falcon-mamba-7b at full width and depth with the
+    served settings (prefix cache, prompt lookup) and 128-token chunks."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.corpus import make_legal_corpus
+    from repro_torch.kernels import ssm_scan as k7
+    from repro_torch.models import init_params, param_count
+
+    cfg = get_config("falcon-mamba-7b")
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = init_params(cfg, gen, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    corpus = make_legal_corpus(seed=1)
+    session, engine, extractor, build_s = _served_query(
+        cfg, params, corpus, "cuda", max_new=12, chunk_size=SSM_CHUNK, **SPEC)
+    # K7's inputs on two kinds of launch: the first full prompt chunk (B = 1,
+    # S = SSM_CHUNK, from a carried state) and the first verify round of all
+    # four slots (B = 4, S = spec_k + 1, per-position states written)
+    captures["K7_verify"] = Capture(
+        k7, "ssm_scan", lambda x, dt, A, Bm, Cm, D, h0=None, states=None:
+        1 if states is not None and x.shape[0] == 4 else -1)
+    captures["K7"] = Capture(
+        k7, "ssm_scan", lambda x, dt, A, Bm, Cm, D, h0=None, states=None:
+        x.shape[1] if states is None and h0 is not None else -1)
+    result, wall, launches = _timed_query(session)
+    captures["K7"].restore()
+    captures["K7_verify"].restore()
+    if captures["K7"].args is None or captures["K7_verify"].args is None:
+        raise AssertionError("ssm: K7 captured no prefill chunk or no verify launch")
+    st = engine.stats
+    gen_tokens = extractor.stats.generated_tokens
+    out = {"phase": "ssm", "model": cfg.name, "layers": cfg.num_layers,
+           "d_model": cfg.d_model, "d_inner": cfg.d_inner, "ssm_state": cfg.ssm_state,
+           "dtype": cfg.dtype, "params": param_count(params),
+           "engine_options": {**SPEC, "chunk_size": SSM_CHUNK},
+           "rows": len(result.rows), "rows_main": len(main_result.rows),
+           "rows_equal_main": result.rows == main_result.rows, "ledger": _ledger(result),
+           "engine": dict(st), "served_requests": extractor.stats.requests,
+           "generated_tokens": gen_tokens, "weights_init_s": init_s,
+           "index_build_s": build_s, "query_wall_s": wall,
+           "generated_tokens_per_s": gen_tokens / wall,
+           "verify_rounds": st["spec_rounds"], "drafted": st["draft_tokens"],
+           "accepted": st["accepted_tokens"], "prefix_hits": st["prefix_hits"],
+           "kv_bytes_peak": st["kv_bytes_peak"], "launches": launches}
+    emit(out)
+    if not result.rows or result.rows != main_result.rows:
+        raise AssertionError(f"ssm: {len(result.rows)} rows, not the main phase's "
+                             f"{len(main_result.rows)}")
+    if result.ledger.input_tokens != main_result.ledger.input_tokens:
+        raise AssertionError(f"ssm: ledger input_tokens {result.ledger.input_tokens} != "
+                             f"main's {main_result.ledger.input_tokens}")
+    stray = {k: launches[k] for k in ("K1", "K2", "K4", "K5") if launches[k]}
+    if stray or not launches["K3"]:
+        raise AssertionError(f"ssm: attention kernels launched or K3 did not: {launches}")
+    forwards = st["prefill_chunks"] + st["spec_rounds"]
+    if launches["K7"] != cfg.num_layers * forwards or not st["spec_rounds"]:
+        raise AssertionError(f"ssm: K7 launched {launches['K7']} times for {forwards} "
+                             f"chunk and verify forwards of {cfg.num_layers} layers")
+    if st["prefix_hits"] <= 0:
+        raise AssertionError("ssm: no prefix hit")
+    return out, (session, extractor)
+
+
 def phase_profile(session, extractor, out_dir, path: str) -> dict:
     """torch.profiler over one extraction round of a path's served model
     (4 legal documents, attribute `year`): wall time, the device's busy
@@ -442,7 +542,8 @@ def phase_profile(session, extractor, out_dir, path: str) -> dict:
               "K2 chunk_prefill": "chunk_prefill_kernel",
               "K3 topk_l2": "topk_l2_kernel",
               "K4 paged_verify": "paged_verify_",      # its span and merge kernels
-              "K5 dense_decode": "dense_decode_"}      # its span and merge kernels
+              "K5 dense_decode": "dense_decode_",      # its span and merge kernels
+              "K7 ssm_scan": "ssm_scan_kernel"}
     by_group = dict.fromkeys(list(groups) + ["gemm", "other"], 0.0)
     launches = 0
     for e in prof.key_averages():
@@ -722,6 +823,8 @@ def phase_kernels(captures: dict, launches: dict) -> list:
                      "with a per-row length mask",
         bound_ms=b_ms, bound_by=b_by))
 
+    rows.append(_kernel_k7(captures, launches))
+
     for r in rows:
         r["kernel_ms"] = r["ms"]
         emit({"phase": "kernels", **r})
@@ -732,10 +835,174 @@ def phase_kernels(captures: dict, launches: dict) -> list:
     return rows
 
 
+def _k7_work(x, N, h0, states) -> tuple:
+    """Bytes K7 must move (each input read once, each output written once),
+    its flops and its exponentials, for x (B, S, di) and state size N."""
+    B, S, di = x.shape
+    e = x.element_size()
+    nbytes = (3 * B * S * di + 2 * B * S * N + di) * e + di * N * 4 + B * di * N * 4 \
+        + (B * di * N * 4 if h0 is not None else 0) \
+        + (B * S * di * N * 4 if states is not None else 0)
+    return nbytes, B * S * di * (6 * N + 3), B * S * di * N
+
+
+def _kernel_k7(captures: dict, launches: dict) -> dict:
+    """K7 on the inputs of a captured prefill chunk and verify round, and on
+    edge cases, against `ssm_scan_plain`. Tolerances: y in bf16 at 2e-2
+    (one bf16 rounding of an fp32 value the kernel and the plain version
+    sum in another order), as the other kernels; in float32, y and the fp32
+    states at 2e-5 (the state update rounds as the plain version's
+    unfused ops; only the order of y's sum over N differs). With random
+    weights y is mostly D * x and the captured launches' scan term
+    sum_n h C is far below either tolerance (reported, not relied on), so
+    the edge cases run at unit scale at the captured widths, where the
+    scan term must exceed ten times the float32 tolerance: a y without
+    it fails there."""
+    import torch
+    from repro_torch.kernels import ssm_scan as k7
+
+    def errs_of(args, states=None):
+        """(y error, final-state error, states error) of kernel vs plain."""
+        x, dt, A, Bm, Cm, D, h0 = (list(args) + [None])[:7]
+        st_k = st_p = None
+        if states is not None:
+            st_k, st_p = torch.empty_like(states), torch.empty_like(states)
+        yk, hk = k7.ssm_scan(x, dt, A, Bm, Cm, D, h0, st_k)
+        yp, hp = k7.ssm_scan_plain(x, dt, A, Bm, Cm, D, h0, st_p)
+        return (max_err(yk, yp), max_err(hk, hp),
+                max_err(st_k, st_p) if states is not None else 0.0)
+
+    def f32(args):
+        return tuple(a.float() if a is not None and a.dtype == torch.bfloat16 else a
+                     for a in args)
+
+    pre = captures["K7"].args                      # (x, dt, A, B, C, D, h0)
+    ver = captures["K7_verify"].args               # (..., h0, states)
+    x, dt, A, Bm, Cm, D, h0 = pre
+    dtn = str(x.dtype).removeprefix("torch.")
+    N = A.shape[1]
+    errs = {}
+    errs[dtn], errs["state"], _ = errs_of(pre)
+    e_y, e_h, e_s = errs_of(ver[:7], ver[7])
+    errs["verify"], errs["state"] = e_y, max(errs["state"], e_h, e_s)
+    y32, h32, _ = errs_of(f32(pre))
+    vy32, vh32, vs32 = errs_of(f32(ver[:7]), ver[7])
+    errs["float32"] = max(y32, h32, vy32, vh32, vs32)
+
+    def scan_term(args):
+        """max |y - D x| of the plain version in float32: the part of y
+        the scan contributes."""
+        xf, dtf, Af, Bf, Cf, Df, h0f = f32(args[:7])
+        yp, _ = k7.ssm_scan_plain(xf, dtf, Af, Bf, Cf, Df, h0f)
+        return (yp - Df * xf).abs().max().item()
+    errs["scan_term"] = max(scan_term(pre), scan_term(ver))
+    # edge cases at unit scale (the JAX package's K7 test distributions) on
+    # the captured widths and on SMOKE's: h0 = None, S = 1, a verify-shaped
+    # S = 5 from a carried state, dt zeroed past a true length (the state
+    # must freeze), N = 8 with di = 128
+    gen = torch.Generator(device="cuda").manual_seed(11)
+
+    def unit(B, S, di, n, dtype):
+        def r(*shape, scale=1.0):
+            return torch.randn(shape, generator=gen, device="cuda") * scale
+        xs = r(B, S, di, scale=0.5)
+        dts = torch.nn.functional.softplus(r(B, S, di) - 1.0)
+        As = -torch.exp(r(di, n, scale=0.3))
+        return [xs.to(dtype), dts.to(dtype), As, r(B, S, n, scale=0.5).to(dtype),
+                r(B, S, n, scale=0.5).to(dtype), torch.ones(di, device="cuda").to(dtype),
+                r(B, di, n)]
+    di = x.shape[2]
+    edge32, edge_bf, edge_scan = 0.0, 0.0, float("inf")
+    for B, S, width, n, h0_none, cut in ((1, 128, di, N, True, None), (4, 1, di, N, False, None),
+                                         (4, 5, di, N, False, None),
+                                         (1, 128, di, N, False, 77), (2, 37, 128, 8, False, 20),
+                                         (3, 5, 96, 4, True, None)):
+        for dtype in (torch.float32, torch.bfloat16):
+            args = unit(B, S, width, n, dtype)
+            if cut is not None:
+                args[1][:, cut:] = 0
+            if h0_none:
+                args[6] = None
+            states = torch.empty((B, S, width, n), device="cuda")
+            ey, eh, es = errs_of(args, states)
+            if dtype == torch.float32:
+                edge32 = max(edge32, ey, eh, es)
+                edge_scan = min(edge_scan, scan_term(args))
+            else:
+                edge_bf = max(edge_bf, ey)
+                edge32 = max(edge32, eh, es)
+            if cut is not None:                       # frozen past the length
+                st_k = torch.empty_like(states)
+                k7.ssm_scan(*args[:7], st_k)
+                if not torch.equal(st_k[:, cut:], st_k[:, cut - 1:cut].expand_as(st_k[:, cut:])):
+                    raise AssertionError("K7: the state moved where dt is zero")
+    errs["edge"], errs["edge_bf16"] = edge32, edge_bf
+    for key, tol in ((dtn, TOL[dtn]), ("verify", TOL[dtn]), ("edge_bf16", TOL["bfloat16"]),
+                     ("state", TOL["float32"]), ("float32", TOL["float32"]),
+                     ("edge", TOL["float32"])):
+        if not errs[key] <= tol:
+            raise AssertionError(f"K7: {key} error {errs[key]} > {tol}")
+    if not edge_scan > 10 * TOL["float32"]:
+        raise AssertionError(f"K7: the edge cases' scan term {edge_scan} is too small for "
+                             f"the float32 check to see it")
+    nbytes, flops, exps = _k7_work(x, N, h0, None)
+    b_ms, b_by = bound(nbytes, flops, "float32", exps)
+    vx, vh0, vst = ver[0], ver[6], ver[7]
+    vbytes, vflops, vexps = _k7_work(vx, N, vh0, vst)
+    vb_ms, vb_by = bound(vbytes, vflops, "float32", vexps)
+    return dict(
+        name="ssm_scan", route="cuda", source="src/repro_torch/kernels/csrc/ssm_scan.cu",
+        replaces="src/repro/kernels/ssm_scan.py:55", launches=launches["K7"],
+        shape=f"x{tuple(x.shape)} N={N} h0 {dtn} (a prefill chunk)",
+        shape_verify=f"x{tuple(vx.shape)} N={N} h0 + states {dtn} (a verify round)",
+        max_abs_err=errs[dtn], tol=TOL[dtn], max_abs_err_verify=errs["verify"],
+        max_abs_err_state=errs["state"], max_abs_err_float32=errs["float32"],
+        max_abs_err_edge_float32=errs["edge"], max_abs_err_edge_bf16=errs["edge_bf16"],
+        tol_float32=TOL["float32"], scan_term_max_abs=errs["scan_term"],
+        edge_scan_term_min=edge_scan,
+        ms=cuda_ms(lambda: k7.ssm_scan(*pre)),
+        plain_ms=cuda_ms(lambda: k7.ssm_scan_plain(*pre), iters=10, warmup=2),
+        ms_verify=cuda_ms(lambda: k7.ssm_scan(*ver)),
+        plain_ms_verify=cuda_ms(lambda: k7.ssm_scan_plain(*ver), iters=10, warmup=2),
+        library_ms=None, library_call="none: no single PyTorch call computes a selective scan",
+        bound_ms=b_ms, bound_by=b_by, bound_ms_verify=vb_ms, bound_by_verify=vb_by,
+        bound_bytes=nbytes, bound_exps=exps)
+
+
+class _Scripted:
+    """Drafter proposing each request's known greedy continuation (the
+    off mode's tokens) with every token from index `good` on corrupted, so
+    every round accepts some drafts and rolls the rest back: the Mamba1
+    state is restored from a checkpoint past the first position."""
+
+    def __init__(self, truth: dict, good: int, vocab: int):
+        self.truth, self.good, self.vocab = truth, good, vocab
+
+    def on_insert(self, slot, req):
+        pass
+
+    def on_free(self, slot):
+        pass
+
+    def draft_round(self, reqs, k_eff):
+        out = {}
+        for slot, req in reqs.items():
+            d = self.truth[req.rid][len(req.out):][: k_eff.get(slot, 0)]
+            out[slot] = [t if i < self.good else (t + 1) % self.vocab for i, t in enumerate(d)]
+        return out
+
+
 def phase_reference(seed: int) -> dict:
-    """The served path at a small size, card against the CPU's plain path,
-    in four modes: off, prompt lookup with the prefix cache, the slab layout
-    with the prefix cache, and self-drafting."""
+    """The served path at a small size, card against the CPU's plain path:
+    qwen2.5-3b in four modes (off, prompt lookup with the prefix cache, the
+    slab layout with the prefix cache, self-drafting) and falcon-mamba-7b
+    in four (off, prompt lookup with the prefix cache, slab with the prefix
+    cache, and scripted drafts that accept two of four, so that rejected
+    drafts roll back to a checkpoint past the first position).
+    Falcon-mamba-7b's per-slot recurrent state after the query must
+    also agree across the devices to STATE_TOL: with random SMOKE weights
+    the skip path D * x dominates each block, so its tokens alone say little
+    about the state."""
     import torch
     from repro_torch import core
     from repro_torch.configs import get_smoke_config
@@ -743,45 +1010,71 @@ def phase_reference(seed: int) -> dict:
     from repro_torch.data.corpus import make_legal_corpus
     from repro_torch.models import init_params
 
-    cfg = get_smoke_config("qwen2.5-3b").replace(vocab_size=lm_data.VOCAB)
-    cpu_params = init_params(cfg, torch.Generator().manual_seed(seed), device="cpu")
     full = make_legal_corpus(seed=1)
     corpus = full.subset(sorted(full.docs)[:20])
-    modes = {"off": {}, "spec": SPEC, "slab": {**SLAB, "prefix_cache": True},
-             "draft": {"spec_decode": "draft", "spec_k": 4}}
-    runs = {}
-    for mode, engine_kw in modes.items():
-        for device in ("cuda", "cpu"):
-            params = _to(cpu_params, device)
-            if mode == "draft":
-                engine_kw = {**engine_kw, "draft_model": (cfg, params)}
-            session, engine, _, _ = _served_query(cfg, params, corpus, device, max_new=6,
-                                                  **engine_kw)
-            res = session.prepare(_legal_query(core)).submit().result()
-            runs[mode, device] = (res.rows, res.ledger.input_tokens,
-                                  res.ledger.output_tokens, res.ledger.per_phase,
-                                  dict(engine.stats),
-                                  {r: q.out for r, q in engine.finished.items()},
-                                  dict(getattr(engine.drafter, "stats", {})))
-    same = {mode: runs[mode, "cuda"] == runs[mode, "cpu"] for mode in modes}
-    invariant = {f"{mode}/{dev}": (runs["off", dev][0], runs["off", dev][5]) ==
-                 (runs[mode, dev][0], runs[mode, dev][5])
-                 for mode in modes if mode != "off" for dev in ("cuda", "cpu")}
-    st = {mode: runs[mode, "cuda"][4] for mode in modes}
-    out = {"phase": "reference", "docs": len(corpus.docs), "rows": len(runs["off", "cpu"][0]),
+    models = {"qwen2.5-3b": {"off": {}, "spec": SPEC, "slab": {**SLAB, "prefix_cache": True},
+                             "draft": {"spec_decode": "draft", "spec_k": 4}},
+              "falcon-mamba-7b": {"off": {}, "spec": SPEC,
+                                  "slab": {**SLAB, "prefix_cache": True},
+                                  "rollback": {"prefix_cache": True, "spec_k": 4}}}
+    runs, states = {}, {}
+    for arch, modes in models.items():
+        cfg = get_smoke_config(arch).replace(vocab_size=lm_data.VOCAB)
+        cpu_params = init_params(cfg, torch.Generator().manual_seed(seed), device="cpu")
+        for mode, engine_kw in modes.items():
+            for device in ("cuda", "cpu"):
+                params = _to(cpu_params, device)
+                if mode == "draft":
+                    engine_kw = {**engine_kw, "draft_model": (cfg, params)}
+                if mode == "rollback":
+                    engine_kw = {**engine_kw, "spec_decode": _Scripted(
+                        runs[arch, "off", "cpu"][5], good=2, vocab=cfg.vocab_size)}
+                session, engine, _, _ = _served_query(cfg, params, corpus, device,
+                                                      max_new=6, **engine_kw)
+                res = session.prepare(_legal_query(core)).submit().result()
+                runs[arch, mode, device] = (
+                    res.rows, res.ledger.input_tokens, res.ledger.output_tokens,
+                    res.ledger.per_phase, dict(engine.stats),
+                    {r: q.out for r, q in engine.finished.items()},
+                    dict(getattr(engine.drafter, "stats", {})))
+                if "ssm" in engine.cache:
+                    states[arch, mode, device] = {k: engine.cache[k].cpu()
+                                                  for k in ("conv", "ssm")}
+    keys = [(arch, mode) for arch, modes in models.items() for mode in modes]
+    same = {f"{a}/{m}": runs[a, m, "cuda"] == runs[a, m, "cpu"] for a, m in keys}
+    invariant = {f"{a}/{m}/{dev}": (runs[a, "off", dev][0], runs[a, "off", dev][5]) ==
+                 (runs[a, m, dev][0], runs[a, m, dev][5])
+                 for a, m in keys if m != "off" for dev in ("cuda", "cpu")}
+    state_err = {f"{a}/{m}": max(max_err(states[a, m, "cuda"][k], states[a, m, "cpu"][k])
+                                 for k in ("conv", "ssm"))
+                 for a, m in keys if (a, m, "cpu") in states}
+    st = {f"{a}/{m}": runs[a, m, "cuda"][4] for a, m in keys}
+    out = {"phase": "reference", "docs": len(corpus.docs),
+           "rows": len(runs["qwen2.5-3b", "off", "cpu"][0]),
            "identical": same, "same_rows_and_tokens_as_off": invariant,
-           "engine": st["off"], "engine_spec": st["spec"], "engine_slab": st["slab"],
-           "engine_draft": st["draft"], "drafter": runs["draft", "cuda"][6]}
+           "state_max_abs_err": state_err, "state_tol": STATE_TOL, "engine": st,
+           "drafter": runs["qwen2.5-3b", "draft", "cuda"][6]}
     emit(out)
-    if not all(same.values()) or not runs["off", "cpu"][0]:
+    if not all(same.values()) or not all(runs[a, "off", "cpu"][0] for a in models):
         raise AssertionError(f"the card's served query differs from the CPU reference: {same}")
     if not all(invariant.values()):
         raise AssertionError(f"rows or tokens differ from the plain mode: {invariant}")
-    if st["spec"]["spec_rounds"] <= 0 or st["spec"]["prefix_hits"] <= 0:
-        raise AssertionError("the reference spec run had no verify round or no prefix hit")
-    if st["slab"]["prefix_hits"] <= 0:
-        raise AssertionError("the reference slab run had no prefix hit")
-    if st["draft"]["spec_rounds"] <= 0 or st["draft"]["draft_tokens"] <= 0:
+    if not all(e <= STATE_TOL for e in state_err.values()):
+        raise AssertionError(f"the card's recurrent state differs from the CPU's: {state_err}")
+    for arch in models:
+        if st[f"{arch}/spec"]["spec_rounds"] <= 0 or st[f"{arch}/spec"]["prefix_hits"] <= 0:
+            raise AssertionError(f"{arch}: the reference spec run had no verify round "
+                                 f"or no prefix hit")
+        if st[f"{arch}/spec"]["draft_tokens"] <= 0:
+            raise AssertionError(f"{arch}: prompt lookup drafted nothing in the reference")
+        if st[f"{arch}/slab"]["prefix_hits"] <= 0:
+            raise AssertionError(f"{arch}: the reference slab run had no prefix hit")
+    rb = st["falcon-mamba-7b/rollback"]
+    if not 0 < rb["accepted_tokens"] < rb["draft_tokens"]:
+        raise AssertionError(f"falcon-mamba-7b: the scripted drafts did not roll back in "
+                             f"part: {rb['accepted_tokens']} of {rb['draft_tokens']} accepted")
+    draft = st["qwen2.5-3b/draft"]
+    if draft["spec_rounds"] <= 0 or draft["draft_tokens"] <= 0:
         raise AssertionError("the reference draft run had no verify round or no draft")
     return out
 
@@ -799,7 +1092,7 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0, help="weights seed")
     ap.add_argument("--out", default=None, help="directory for the full report")
     ap.add_argument("--profile", action="store_true",
-                    help="also profile one extraction round of the main path")
+                    help="also profile one extraction round of every path")
     args = ap.parse_args()
     t_start = time.perf_counter()
 
@@ -850,18 +1143,29 @@ def main() -> int:
         lap("slab")
         report["draft"], served_draft = phase_draft(main_run, captures, slab_tokens)
         lap("draft")
-        del main_run
-        launches = {**report["main"]["launches"], "K4": report["spec"]["launches"]["K4"],
-                    "K5": report["draft"]["launches"]["K5"],
-                    "K5_slab": report["slab"]["launches"]["K5"]}
-        report["kernels"] = phase_kernels(captures, launches)
-        lap("kernels")
         if args.profile:
             for path, served_path in (("main", served), ("spec", served_spec),
                                       ("slab", served_slab), ("draft", served_draft)):
                 key = "profile" if path == "main" else f"profile_{path}"
                 report[key] = phase_profile(*served_path, args.out, path)
             lap("profile")
+        main_result = main_run[1]
+        # free the qwen2.5-3b weights and engines before falcon-mamba-7b's
+        del main_run, served, served_spec, served_slab, served_draft
+        torch.cuda.empty_cache()
+        report["ssm"], served_ssm = phase_ssm(args.seed, captures, main_result)
+        lap("ssm")
+        if args.profile:
+            report["profile_ssm"] = phase_profile(*served_ssm, args.out, "ssm")
+            lap("profile_ssm")
+        del served_ssm
+        torch.cuda.empty_cache()
+        launches = {**report["main"]["launches"], "K4": report["spec"]["launches"]["K4"],
+                    "K5": report["draft"]["launches"]["K5"],
+                    "K5_slab": report["slab"]["launches"]["K5"],
+                    "K7": report["ssm"]["launches"]["K7"]}
+        report["kernels"] = phase_kernels(captures, launches)
+        lap("kernels")
         report["reference"] = phase_reference(args.seed)
         lap("reference")
         seconds["total"] = time.perf_counter() - t_start

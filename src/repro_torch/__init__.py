@@ -8,8 +8,9 @@ imports torch, numpy and the standard library, and never `jax` or `repro`.
 
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``. The kernels of the served paths -- L2 top-k, paged decode
-attention, paged chunk-prefill attention, paged verify attention and
-dense-cache (slab) decode attention, K1-K5 of `kernels/` -- are
-hand-written CUDA C++ for sm_90a under `kernels/csrc/`; on a CPU tensor
-each wrapper runs its plain PyTorch version instead.
+attention, paged chunk-prefill attention, paged verify attention,
+dense-cache (slab) decode attention and the Mamba1 selective scan, K1-K5
+and K7 of `kernels/` -- are hand-written CUDA C++ for sm_90a under
+`kernels/csrc/`; on a CPU tensor each wrapper runs its plain PyTorch
+version instead.
 """

@@ -4,7 +4,8 @@
 `jax.tree.map(np.asarray, repro.models.init_params(cfg, key))` gives --
 layers stacked on axis 0 -- and returns the port's parameters: the same
 names and per-layer shapes, the layer stack as a list of per-layer dicts,
-tensors in `dtype` (default cfg.dtype) on `device`. This module imports no
+tensors in `dtype` (default cfg.dtype) on `device`, for every family the
+port serves (dense, Mamba1). This module imports no
 JAX; the parity tests call JAX on one side and this function on the other.
 """
 from __future__ import annotations
@@ -14,7 +15,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.model import torch_dtype
+from repro_torch.models.model import _check_family, torch_dtype
 
 
 def _to_torch(tree, dev, dt):
@@ -25,9 +26,7 @@ def _to_torch(tree, dev, dt):
 
 
 def params_from_numpy(cfg: ModelConfig, tree: dict, device=None, dtype=None) -> dict:
-    if cfg.family != "dense" or cfg.use_mla or cfg.n_experts:
-        raise NotImplementedError(
-            f"model family {cfg.family!r} is not yet ported, see ROADMAP.md Queue 1")
+    _check_family(cfg)
     dev = resolve_device(device)
     dt = dtype or torch_dtype(cfg.dtype)
     out = {k: _to_torch(v, dev, dt) for k, v in tree.items() if k != "layers"}

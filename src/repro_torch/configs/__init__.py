@@ -1,8 +1,9 @@
 """Architecture registry: ``get_config(arch_id)`` / ``get_smoke_config``.
 
-Mirrors `repro.configs`. The port serves the dense family only so far, so
-the registry knows qwen2.5-3b; the other ids of the JAX registry raise a
-clear error until their family is ported (ROADMAP.md Queue 1).
+Mirrors `repro.configs`. The port serves the dense family (qwen2.5-3b)
+and the Mamba1 ssm family (falcon-mamba-7b) so far; the other ids of the
+JAX registry raise a clear error until their family is ported (ROADMAP.md
+Queue 1).
 """
 from __future__ import annotations
 
@@ -12,12 +13,13 @@ from repro_torch.models.config import ModelConfig
 
 _MODULES = {
     "qwen2.5-3b": "qwen2_5_3b",
+    "falcon-mamba-7b": "falcon_mamba_7b",
 }
 
 # ids the JAX registry knows whose model family is not ported yet
 NOT_YET_PORTED = [
     "whisper-medium", "nemotron-4-15b", "qwen3-32b", "deepseek-67b",
-    "zamba2-2.7b", "grok-1-314b", "deepseek-v2-lite-16b", "falcon-mamba-7b",
+    "zamba2-2.7b", "grok-1-314b", "deepseek-v2-lite-16b",
     "llava-next-mistral-7b",
 ]
 

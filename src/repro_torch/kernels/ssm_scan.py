@@ -1,0 +1,117 @@
+"""K7: the Mamba1 selective scan (falcon-mamba-7b's recurrence).
+
+Replaces `repro.kernels.ssm_scan.ssm_scan_pallas` (src/repro/kernels/
+ssm_scan.py:55). CUDA source: `csrc/ssm_scan.cu`. It computes what
+`repro.models.ssm.mamba1_scan_ref` computes, from an optional initial
+state `h0` (the Pallas kernel asserts h0 is None; chunked prefill and
+prefix hits resume from a carried state), and on request writes the state
+after every position into a caller-given (B, S, di, N) float32 buffer --
+`mamba1_scan_states`' output, the checkpoints a verify round rolls back
+to. One kernel computes the states and the final state, so they are the
+same arithmetic.
+
+Bound on the H100: the bytes of x, dt and y in the model dtype plus the
+fp32 h0, final state and states, against the exponentials (B S di N of
+them) on the SFU; at a 128-token chunk of falcon-mamba-7b the SFU's share
+is the larger (~4 us against ~2 us of bytes). Design: one thread per
+(row, channel, state), time walked inside the block over tiles staged in
+shared memory, y reduced across a channel's N lanes with warp shuffles.
+
+`ssm_scan` runs the kernel on CUDA tensors and `ssm_scan_plain` on CPU
+tensors; `launches` counts kernel launches.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import _build
+
+launches = 0
+
+
+def ssm_scan_plain(x, dt, A, B_mat, C_mat, D, h0=None, states=None):
+    """Plain PyTorch version: the JAX recurrence step by step in fp32
+    (`mamba1_scan_ref`). x, dt (B, S, di); A (di, N) float32; B_mat, C_mat
+    (B, S, N); D (di); h0 (B, di, N) float32 or None (zeros); states an
+    optional (B, S, di, N) float32 buffer that receives the state after
+    every position. Returns (y (B, S, di) in x's dtype, h (B, di, N)
+    float32)."""
+    Bsz, S, di = x.shape
+    N = A.shape[-1]
+    h = torch.zeros((Bsz, di, N), dtype=torch.float32, device=x.device) \
+        if h0 is None else h0.float()
+    xf, dtf = x.float(), dt.float()
+    Bf, Cf = B_mat.float(), C_mat.float()
+    ys = torch.empty((Bsz, S, di), dtype=torch.float32, device=x.device)
+    for t in range(S):
+        da = torch.exp(dtf[:, t, :, None] * A)
+        h = da * h + (dtf[:, t] * xf[:, t])[..., None] * Bf[:, t, None, :]
+        ys[:, t] = (h * Cf[:, t, None, :]).sum(-1)
+        if states is not None:
+            states[:, t] = h
+    y = ys + xf * D.float()
+    return y.to(x.dtype), h
+
+
+def _check(x, dt, A, B_mat, C_mat, D, h0, states):
+    if x.ndim != 3:
+        raise ValueError(f"ssm_scan: x {tuple(x.shape)}, want (B, S, di)")
+    Bsz, S, di = x.shape
+    if A.ndim != 2 or A.shape[0] != di:
+        raise ValueError(f"ssm_scan: A {tuple(A.shape)}, want ({di}, N)")
+    N = A.shape[1]
+    shapes = {"dt": (dt, (Bsz, S, di)), "B_mat": (B_mat, (Bsz, S, N)),
+              "C_mat": (C_mat, (Bsz, S, N)), "D": (D, (di,))}
+    if h0 is not None:
+        shapes["h0"] = (h0, (Bsz, di, N))
+    if states is not None:
+        shapes["states"] = (states, (Bsz, S, di, N))
+    for name, (t, want) in shapes.items():
+        if tuple(t.shape) != want:
+            raise ValueError(f"ssm_scan: {name} {tuple(t.shape)}, want {want}")
+    for name, t in (("A", A), ("h0", h0), ("states", states)):
+        if t is not None and t.dtype != torch.float32:
+            raise TypeError(f"ssm_scan: {name} must be float32, got {t.dtype}")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"ssm_scan: x dtype {x.dtype}")
+    for name, t in (("dt", dt), ("B_mat", B_mat), ("C_mat", C_mat), ("D", D)):
+        if t.dtype != x.dtype:
+            raise TypeError(f"ssm_scan: {name} is {t.dtype}, x is {x.dtype}")
+    return Bsz, S, di, N
+
+
+def ssm_scan(x, dt, A, B_mat, C_mat, D, h0=None, states=None):
+    """Shapes and result as `ssm_scan_plain`; x, dt, B_mat, C_mat and D
+    share one dtype (float32 or bfloat16). CPU tensors take the plain
+    version; CUDA tensors launch the kernel or raise. On the card N must be
+    a power of two <= 32 and every tensor contiguous."""
+    global launches
+    Bsz, S, di, N = _check(x, dt, A, B_mat, C_mat, D, h0, states)
+    if x.device.type == "cpu":
+        return ssm_scan_plain(x, dt, A, B_mat, C_mat, D, h0, states)
+    if x.device.type != "cuda":
+        raise ValueError(f"ssm_scan: device {x.device}")
+    for name, t in (("x", x), ("dt", dt), ("A", A), ("B_mat", B_mat), ("C_mat", C_mat),
+                    ("D", D), ("h0", h0), ("states", states)):
+        if t is None:
+            continue
+        if t.device != x.device:
+            raise ValueError(f"ssm_scan: {name} on {t.device}, x on {x.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"ssm_scan: {name} is not contiguous")
+    if N > 32 or N & (N - 1):
+        raise ValueError(f"ssm_scan: state size N={N} must be a power of two <= 32")
+    y = torch.empty_like(x)
+    h = torch.empty((Bsz, di, N), dtype=torch.float32, device=x.device)
+    if Bsz == 0:
+        return y, h
+    lib = _build.library()
+    rc = lib.repro_ssm_scan(
+        x.data_ptr(), dt.data_ptr(), A.data_ptr(), B_mat.data_ptr(), C_mat.data_ptr(),
+        D.data_ptr(), None if h0 is None else h0.data_ptr(), y.data_ptr(), h.data_ptr(),
+        None if states is None else states.data_ptr(), Bsz, S, di, N,
+        _build.DTYPE_CODES[str(x.dtype).removeprefix("torch.")],
+        _build.stream_handle(x.device))
+    _build.check(rc, "ssm_scan")
+    launches += 1
+    return y, h

@@ -7,7 +7,10 @@ B=1 sub-cache that `write_slot` merges into its slot. The shared-prefix
 cache stores *trimmed* B=1 sub-caches (`prefix_snapshot`: the token axis
 cut to the prefix length, so a snapshot costs O(prefix)), which
 `expand_snapshot` zero-pads back to max_len on a hit. Attention in decode
-is gated by pos, so the zero tail is never attended. These copy where the
+is gated by pos, so the zero tail is never attended. Pure-state entries
+(Mamba1's conv window and scan state) are kept whole: they are the exact
+state after the prefix, which is why a snapshot is taken by prefilling
+exactly the prefix. These copy where the
 JAX functions return new arrays, so a snapshot never aliases a cache the
 model later writes into in place.
 
@@ -26,11 +29,13 @@ import torch
 from repro_torch.device import resolve_device
 
 from .config import ModelConfig
-from .model import torch_dtype
+from .model import init_decode_cache
 
 PAGE_SINK = 0  # reserved page id: write target for dead rows, never read
 
 # Buffers indexed by token position; the dense family keeps "k" and "v".
+# Every other cache entry (Mamba1's "conv" and "ssm") is per-slot state,
+# copied whole.
 LENGTH_KEYS = ("k", "v")
 
 
@@ -105,24 +110,24 @@ class PageAllocator:
     """Fixed-size KV page pool: free-list allocation + ref-counting.
 
     Owns the device pools -- one tensor per length-indexed cache key, shaped
-    (num_layers, num_pages, page_size, n_kv_heads, head_dim) in cfg.dtype --
-    and the host-side page metadata.
+    (num_layers, num_pages, page_size, n_kv_heads, head_dim) in cfg.dtype;
+    none for Mamba1, whose state is not indexed by position -- and the
+    host-side page metadata.
     """
 
     def __init__(self, cfg: ModelConfig, num_pages: int, page_size: int, *,
                  device=None):
         assert num_pages >= 2, "need at least the sink plus one real page"
-        if cfg.family != "dense" or cfg.use_mla:
-            raise NotImplementedError(
-                f"paged KV for family {cfg.family!r} is not yet ported, see "
-                f"ROADMAP.md Queue 1")
         dev = resolve_device(device)
         self.page_size = int(page_size)
         self.num_pages = int(num_pages)
-        shape = (cfg.num_layers, self.num_pages, self.page_size,
-                 cfg.n_kv_heads, cfg.resolved_head_dim)
-        self.pools = {k: torch.zeros(shape, dtype=torch_dtype(cfg.dtype), device=dev)
-                      for k in LENGTH_KEYS}
+        template = init_decode_cache(cfg, 1, self.page_size, device=dev)
+        self.pools = {}
+        for key in LENGTH_KEYS:
+            if key in template:
+                a = template[key]               # (L, 1, page_size, Hkv, D)
+                self.pools[key] = torch.zeros((a.shape[0], self.num_pages) + a.shape[2:],
+                                              dtype=a.dtype, device=dev)
         self.refcount = [0] * self.num_pages
         self._free = list(range(self.num_pages - 1, 0, -1))  # sink excluded
 

@@ -1,6 +1,6 @@
 """Model assembly in PyTorch: parameters, and the forward passes of the
 serving engine on both KV layouts (counterpart of `repro.models.model`,
-dense family).
+dense family and the Mamba1 ssm family).
 
 Parameters are a nested dict of tensors with the JAX package's names and
 shapes, except that the layer stack is a Python list of per-layer dicts
@@ -23,6 +23,18 @@ slab `decode_step` -> `decode_step_slab` (kernel K5) and slab
 pages; `prefill` runs K2 the same way). They write K/V into the cache's
 tensors in place and return the dict with its new `pos`, where the JAX
 functions return an updated copy.
+
+Mamba1 (`family="ssm"`, falcon-mamba-7b) keeps no length-indexed KV: its
+state is the conv window "conv" (L, B, K-1, di) in the model dtype and the
+scan state "ssm" (L, B, di, N) in float32 (`init_state_cache`). The paged
+functions take that state as `state=` (the engine's per-slot cache, or a
+request's B=1 state while it prefills) and update it in place; the pools
+and page tables go unused. The slab functions keep it in the cache dict.
+Chunked prefill, whole-prompt prefill and verify run the selective scan
+through kernel K7; verify also fills `ckpts` -- "ssm" (L, B, C, di, N),
+the state after every position, and "conv" (L, B, K-1+C, di), the raw
+input history -- which the engine restores a rejected suffix from
+(`init_verify_ckpts` allocates them once).
 """
 from __future__ import annotations
 
@@ -33,6 +45,7 @@ import torch
 from repro_torch.device import resolve_device
 
 from . import layers as L
+from . import ssm as S
 from .config import ModelConfig
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -44,10 +57,13 @@ def torch_dtype(name: str) -> torch.dtype:
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family != "dense" or cfg.use_mla or cfg.n_experts:
-        raise NotImplementedError(
-            f"model family {cfg.family!r} is not yet ported, see ROADMAP.md "
-            f"Queue 1 (the port serves the dense family)")
+    if cfg.family == "dense" and not (cfg.use_mla or cfg.n_experts):
+        return
+    if cfg.family == "ssm" and cfg.mamba_version == 1:
+        return
+    raise NotImplementedError(
+        f"model family {cfg.family!r} is not yet ported, see ROADMAP.md "
+        f"Queue 1 (the port serves the dense family and Mamba1)")
 
 
 # ------------------------------------------------------------------ init ----
@@ -57,9 +73,10 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
                 device=None, dtype=None) -> dict:
     """Random parameters with the distributions of `repro.models.model.
     init_params` (normal * 0.02, output projections scaled by
-    1/sqrt(2L), zero biases, unit norms), drawn from `generator` -- a
-    different draw from JAX's, made on `device` in `dtype` (default
-    cfg.dtype). A generator must live on `device`; None seeds one with 0."""
+    1/sqrt(2L), zero biases, unit norms; Mamba1 blocks as `ssm.
+    mamba1_init`, drawn in float32), drawn from `generator` -- a different
+    draw from JAX's, made on `device` in `dtype` (default cfg.dtype). A
+    generator must live on `device`; None seeds one with 0."""
     _check_family(cfg)
     dev = resolve_device(device)
     dt = dtype or torch_dtype(cfg.dtype)
@@ -82,6 +99,10 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
     p = {"embed": normal((cfg.vocab_size, d), 0.02), "final_norm": ones(d)}
     if not cfg.tie_embeddings:
         p["lm_head"] = normal((d, cfg.vocab_size), 0.02)
+    if cfg.family == "ssm":
+        p["layers"] = [{"norm": ones(d), "mamba": S.mamba1_init(cfg, generator, dev, dt)}
+                       for _ in range(cfg.num_layers)]
+        return p
     layers = []
     for _ in range(cfg.num_layers):
         attn = {"wq": normal((d, nq, hd), 0.02), "wk": normal((d, nkv, hd), 0.02),
@@ -119,10 +140,92 @@ def _mlp_block(cfg, lp, x):
     return x + L.mlp_apply(cfg, lp["mlp"], L.norm_apply(cfg, lp["mlp_norm"], x))
 
 
+# ------------------------------------------------------ Mamba1 (ssm) -------
+
+
+def init_state_cache(cfg: ModelConfig, B: int, dtype=None, device=None) -> dict:
+    """The per-slot state that is not indexed by token position: for
+    Mamba1 the conv window (L, B, K-1, di) in `dtype` (default cfg.dtype)
+    and the scan state (L, B, di, N) float32, zeros; the dense family has
+    none."""
+    _check_family(cfg)
+    if cfg.family != "ssm":
+        return {}
+    dev = resolve_device(device)
+    dt = dtype or torch_dtype(cfg.dtype)
+    return {"conv": torch.zeros((cfg.num_layers, B, cfg.ssm_conv - 1, cfg.d_inner),
+                                dtype=dt, device=dev),
+            "ssm": torch.zeros((cfg.num_layers, B, cfg.d_inner, cfg.ssm_state),
+                               dtype=torch.float32, device=dev)}
+
+
+def init_verify_ckpts(cfg: ModelConfig, B: int, C: int, dtype=None, device=None) -> dict:
+    """Buffers a Mamba1 verify forward of B rows x C candidates fills with
+    its rollback checkpoints: "ssm" (L, B, C, di, N) float32, the state
+    after every position, and "conv" (L, B, K-1+C, di), the raw input
+    history with the carried window. Allocated once and reused: at
+    falcon-mamba-7b's width and B = 4, C = 5 they hold ~0.7 GB."""
+    dev = resolve_device(device)
+    dt = dtype or torch_dtype(cfg.dtype)
+    Lc, di = cfg.num_layers, cfg.d_inner
+    return {"ssm": torch.empty((Lc, B, C, di, cfg.ssm_state), dtype=torch.float32,
+                               device=dev),
+            "conv": torch.empty((Lc, B, cfg.ssm_conv - 1 + C, di), dtype=dt, device=dev)}
+
+
+def _logits(cfg, params, x):
+    return L.norm_apply(cfg, params["final_norm"], x) @ _head(cfg, params)
+
+
+def _ssm_decode(cfg, params, tokens, state):
+    """One Mamba1 decode step of every row of `state` (plain tensor ops, as
+    the JAX step), updating its conv and ssm in place."""
+    x = params["embed"][tokens.long()]
+    for li, lp in enumerate(params["layers"]):
+        y, state["conv"][li], state["ssm"][li] = S.mamba1_decode(
+            cfg, lp["mamba"], L.norm_apply(cfg, lp["norm"], x),
+            conv_state=state["conv"][li], ssm_state=state["ssm"][li])
+        x = x + y
+    return _logits(cfg, params, x)
+
+
+def _ssm_chunk(cfg, params, tokens, length, state):
+    """A right-padded Mamba1 prompt chunk through K7 from the carried state
+    (updated in place, frozen past `length`); logits at the last real
+    position."""
+    x = params["embed"][tokens.long()]
+    for li, lp in enumerate(params["layers"]):
+        y, state["conv"][li], state["ssm"][li] = S.mamba1_chunk(
+            cfg, lp["mamba"], L.norm_apply(cfg, lp["norm"], x),
+            conv_state=state["conv"][li], ssm_state=state["ssm"][li], length=length)
+        x = x + y
+    return _logits(cfg, params, x[:, length - 1:length])
+
+
+def _ssm_verify(cfg, params, tokens, state, ckpts):
+    """A Mamba1 verify forward: every position's logits; the state advances
+    through all C candidates in place, and `ckpts` (`init_verify_ckpts`)
+    receives every position's state and the conv history. Returns the
+    logits (B, C, V)."""
+    C = tokens.shape[1]
+    x = params["embed"][tokens.long()]
+    for li, lp in enumerate(params["layers"]):
+        y, hist, hs = S.mamba1_chunk_states(
+            cfg, lp["mamba"], L.norm_apply(cfg, lp["norm"], x),
+            conv_state=state["conv"][li], ssm_state=state["ssm"][li],
+            states=ckpts["ssm"][li])
+        ckpts["conv"][li] = hist
+        state["conv"][li] = hist[:, C:]
+        state["ssm"][li] = hs[:, -1]
+        x = x + y
+    return _logits(cfg, params, x)
+
+
 # ------------------------------------------------------------- decode ------
 
 
-def decode_step(cfg: ModelConfig, params, tokens, pos, pools, table, write_pages):
+def decode_step(cfg: ModelConfig, params, tokens, pos, pools, table, write_pages,
+                state=None):
     """One batched decode step on the page pool.
 
     tokens (B, 1) int; pos (B,) int32 -- row b's token sits at position
@@ -130,9 +233,12 @@ def decode_step(cfg: ModelConfig, params, tokens, pos, pools, table, write_pages
     holds position pos[b] (the sink page for a dead row). Writes each
     layer's K/V at (write_pages[b], pos[b] % ps) and attends positions
     < pos[b] + 1 with kernel K1. Returns logits (B, 1, V); the caller
-    advances pos.
+    advances pos. Mamba1 steps `state` (conv/ssm, B rows) in place
+    instead, with plain tensor ops; pools and tables go unused.
     """
     _check_family(cfg)
+    if cfg.family == "ssm":
+        return _ssm_decode(cfg, params, tokens, state)
     ps = pools["k"].shape[2]
     wp = write_pages.long()
     offs = (pos % ps).long()
@@ -151,7 +257,7 @@ def decode_step(cfg: ModelConfig, params, tokens, pos, pools, table, write_pages
 
 
 def prefill_chunk(cfg: ModelConfig, params, tokens, start: int, length: int,
-                  pools, ctx_ids):
+                  pools, ctx_ids, state=None):
     """Advance one sequence through a C-token prompt chunk on the page pool.
 
     tokens (1, C) int, right-padded past `length` real tokens; the chunk
@@ -161,9 +267,13 @@ def prefill_chunk(cfg: ModelConfig, params, tokens, start: int, length: int,
     harmless garbage past the true end, which later chunks and decode
     overwrite before any query may attend them), then kernel K2 attends
     the context causally. Returns the logits (1, 1, V) at the last real
-    position; the sequence's position advances by `length`.
+    position; the sequence's position advances by `length`. Mamba1
+    advances the sequence's B=1 `state` in place through K7, frozen past
+    `length`; pools and ctx_ids go unused.
     """
     _check_family(cfg)
+    if cfg.family == "ssm":
+        return _ssm_chunk(cfg, params, tokens, length, state)
     ps = pools["k"].shape[2]
     C = tokens.shape[1]
     positions = start + torch.arange(C, device=ctx_ids.device)
@@ -185,7 +295,7 @@ def prefill_chunk(cfg: ModelConfig, params, tokens, start: int, length: int,
 
 
 def verify_chunk(cfg: ModelConfig, params, tokens, pos, pools, table,
-                 write_pages, write_offsets):
+                 write_pages, write_offsets, state=None, ckpts=None):
     """Speculative-decoding verification forward on the page pool.
 
     tokens (B, C) int: each row's pending token plus its drafts, right-
@@ -197,9 +307,14 @@ def verify_chunk(cfg: ModelConfig, params, tokens, pos, pools, table,
     from pos[b]. Unlike `prefill_chunk` it returns the logits at every
     position, (B, C, V): the acceptance test needs the greedy target after
     each candidate. The dense family keeps no recurrent state, so there
-    are no checkpoints; rollback is the engine's page truncation.
+    are no checkpoints; rollback is the engine's page truncation. Mamba1
+    advances `state` (B rows) in place through all C candidates with K7
+    and writes the rollback checkpoints into `ckpts` (`init_verify_ckpts`);
+    pools and tables go unused.
     """
     _check_family(cfg)
+    if cfg.family == "ssm":
+        return _ssm_verify(cfg, params, tokens, state, ckpts)
     wp, offs = write_pages.long(), write_offsets.long()
     x = params["embed"][tokens.long()]
     for li, lp in enumerate(params["layers"]):
@@ -219,10 +334,14 @@ def init_decode_cache(cfg: ModelConfig, B: int, max_len: int, dtype=None,
                       device=None) -> dict:
     """Slab decode cache sized for `max_len` tokens, as the JAX package's:
     pos a 0-d int32 (the engine makes it (B,)), k/v (L, B, max_len, Hkv,
-    D) zeros in `dtype` (default cfg.dtype)."""
+    D) zeros in `dtype` (default cfg.dtype); Mamba1 keeps its state
+    (`init_state_cache`) instead of k/v."""
     _check_family(cfg)
     dev = resolve_device(device)
     dt = dtype or torch_dtype(cfg.dtype)
+    if cfg.family == "ssm":
+        return {"pos": torch.zeros((), dtype=torch.int32, device=dev),
+                **init_state_cache(cfg, B, dtype=dt, device=dev)}
     shape = (cfg.num_layers, B, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
     return {"pos": torch.zeros((), dtype=torch.int32, device=dev),
             "k": torch.zeros(shape, dtype=dt, device=dev),
@@ -237,7 +356,9 @@ def prefill(cfg: ModelConfig, params, tokens, max_len: int, length=None):
     engine buckets the prompt (None: all S are real). Every position's K/V
     is written (padded positions hold K/V no query attends before a later
     write replaces it), each layer's causal attention runs kernel K2 over
-    the slab from position 0, and cache["pos"] = length.
+    the slab from position 0, and cache["pos"] = length. Mamba1 runs the
+    prompt as one chunk through K7 from the fresh cache's zero state,
+    frozen past `length`.
     """
     _check_family(cfg)
     B, S = tokens.shape
@@ -245,6 +366,12 @@ def prefill(cfg: ModelConfig, params, tokens, max_len: int, length=None):
         raise ValueError(f"prompt ({S}) exceeds cache max_len={max_len}")
     dev = params["embed"].device
     cache = init_decode_cache(cfg, B, max_len, device=dev)
+    n = S if length is None else int(length)
+    if cfg.family == "ssm":
+        # the fresh cache's zero conv window and state are the zero history
+        logits = _ssm_chunk(cfg, params, tokens, n, cache)
+        cache["pos"] = torch.tensor(n, dtype=torch.int32, device=dev)
+        return logits, cache
     ps = L.slab_page_size(max_len)
     tables = L.slab_tables(B, max_len, ps, dev)
     x = params["embed"][tokens.long()]
@@ -253,7 +380,6 @@ def prefill(cfg: ModelConfig, params, tokens, max_len: int, length=None):
         x = x + L.attn_apply_slab(cfg, lp["attn"], h, k_cache=cache["k"][li],
                                   v_cache=cache["v"][li], tables=tables)
         x = _mlp_block(cfg, lp, x)
-    n = S if length is None else int(length)
     x = L.norm_apply(cfg, params["final_norm"], x[:, n - 1:n])
     cache["pos"] = torch.tensor(n, dtype=torch.int32, device=dev)
     return x @ _head(cfg, params), cache
@@ -267,9 +393,13 @@ def decode_step_slab(cfg: ModelConfig, params, tokens, cache):
     prefill) or (B,) per-row positions. Writes each layer's K/V at pos
     (rows at or past max_len dropped) and attends positions < pos + 1 with
     kernel K5. Returns (logits (B, 1, V), cache) with pos advanced by one.
+    Mamba1 steps the cache's conv/ssm in place.
     """
     _check_family(cfg)
     pos = cache["pos"]
+    if cfg.family == "ssm":
+        cache["pos"] = pos + 1
+        return _ssm_decode(cfg, params, tokens, cache), cache
     x = params["embed"][tokens.long()]
     for li, lp in enumerate(params["layers"]):
         h = L.norm_apply(cfg, lp["attn_norm"], x)
@@ -281,7 +411,7 @@ def decode_step_slab(cfg: ModelConfig, params, tokens, cache):
     return x @ _head(cfg, params), cache
 
 
-def verify_chunk_slab(cfg: ModelConfig, params, tokens, cache):
+def verify_chunk_slab(cfg: ModelConfig, params, tokens, cache, ckpts=None):
     """Speculative-decoding verification forward on a slab cache (the JAX
     slab `verify_chunk`).
 
@@ -291,10 +421,15 @@ def verify_chunk_slab(cfg: ModelConfig, params, tokens, cache):
     max_len dropped, as JAX's `mode="drop"`), then kernel K4 attends
     causally from pos[b] over the slab seen as pages. Returns (logits
     (B, C, V), cache) with pos advanced by C; the dense family keeps no
-    recurrent state, so rollback is the engine's position reset.
+    recurrent state, so rollback is the engine's position reset. Mamba1
+    advances the cache's conv/ssm in place with K7 and fills `ckpts` as
+    `verify_chunk` does.
     """
     _check_family(cfg)
     pos = cache["pos"]
+    if cfg.family == "ssm":
+        cache["pos"] = pos + tokens.shape[1]
+        return _ssm_verify(cfg, params, tokens, cache, ckpts), cache
     B, _ = tokens.shape
     S = cache["k"].shape[2]
     ps = L.slab_page_size(S)

@@ -38,6 +38,17 @@ positions are zeroed and the speculative page references released
 (`cache_ops.truncate_pages` / `release_trailing_pages`); on the slab the
 row's position is reset. Greedy output is identical to plain decode.
 
+Mamba1 (`family="ssm"`, falcon-mamba-7b) has no length-indexed KV, so
+the pool holds nothing and no page is allocated: its conv window and scan
+state live per slot in `self.cache` beside `pos`, as in the JAX engine. A
+request prefills into a B=1 state (`_init_state_sub`) that is merged into
+its slot when the insert completes; a prefix entry carries the exact
+state at its boundary, and its byte size counts it. Verify rounds write
+the state after every candidate into checkpoint buffers allocated once
+per engine (`models.init_verify_ckpts`), and a row that rejects part of
+its drafts is restored from the checkpoint at its kept length
+(`_restore_ckpt_rows`), on either layout.
+
 The engine's counters keep the JAX formulas, so `stats` are identical
 between the two packages. Requests, slots, the insert coroutines that
 interleave prefill with decode, `drain_slot` (bounded retries), `cancel`,
@@ -58,7 +69,8 @@ import torch
 from repro_torch.data import lm_data
 from repro_torch.device import resolve_device
 from repro_torch.models import (decode_step, decode_step_slab,
-                                init_decode_cache, prefill, prefill_chunk,
+                                init_decode_cache, init_state_cache,
+                                init_verify_ckpts, prefill, prefill_chunk,
                                 verify_chunk, verify_chunk_slab)
 from repro_torch.models.cache_ops import (PAGE_SINK, PageAllocator,
                                           PagePoolExhausted, cache_nbytes,
@@ -202,8 +214,6 @@ class ServingEngine:
                     f"protocol (draft_round/on_insert/on_free), got "
                     f"{spec_decode!r}")
         self.spec = self.drafter is not None
-        if cfg.family != "dense":
-            raise NotImplementedError(f"family {cfg.family!r} is {_NOT_PORTED}")
         self.queue: deque = deque()
         self.active: dict = {}          # slot -> Request
         self.finished: dict = {}
@@ -215,9 +225,10 @@ class ServingEngine:
         self.stats = StatsDict(self.metrics, "engine", ENGINE_STATS)
 
         # per-slot state: the decode position, int32 as in the JAX engine
-        # (its byte size enters kv_bytes_peak), beside the slab's K/V
+        # (its byte size enters kv_bytes_peak), beside the slab's K/V or
+        # Mamba1's conv/ssm state
         if self.paged:
-            self.cache = {}
+            self.cache = init_state_cache(cfg, slots, device=self.device)
         else:
             self.cache = init_decode_cache(cfg, slots, max_len, device=self.device)
             self._prefill_buckets: set = set()     # distinct prefill lengths
@@ -227,6 +238,7 @@ class ServingEngine:
         self._tokens = torch.zeros((slots, 1), dtype=torch.int64,
                                    device=self.device)
         self.slot_pages: list = [[] for _ in range(slots)]   # empty for slab
+        self._ckpts = None          # Mamba1 verify checkpoints, made once
 
         if self.paged:
             if max_len % self.page_size:
@@ -337,7 +349,7 @@ class ServingEngine:
     def _ids(self, ids) -> torch.Tensor:
         return torch.as_tensor(np.asarray(ids, np.int32), device=self.device)
 
-    def _chunked_prefill_co(self, slot: int, tokens: list, lpos: int, *,
+    def _chunked_prefill_co(self, slot: int, state: dict, tokens: list, lpos: int, *,
                             first: bool = True):
         """Feed `tokens` through fixed-size prefill chunks from logical
         position `lpos`, yielding between chunks so the caller can
@@ -345,31 +357,36 @@ class ServingEngine:
         chunk is padded to `chunk_size` and carries its true length; its K/V
         goes straight into the slot's pages, and the context is read through
         a pow2-bucketed page-table row as wide as the JAX engine's gathered
-        view, whose width the counters use. `first=False` yields before the
-        first chunk too (continuation of an insert that already did a
-        prefill unit). Returns (last-chunk logits, new logical position,
-        first)."""
+        view, whose width the counters use. `state` is the request's B=1
+        pure state (Mamba1's conv/ssm; empty for the dense family), advanced
+        in place. `first=False` yields before the first chunk too
+        (continuation of an insert that already did a prefill unit). Returns
+        (last-chunk logits, new logical position, first)."""
         cs, ps = self.chunk_size, self.page_size
         pages = self.slot_pages[slot]
+        has_pool = bool(self.alloc.pools)
         logits, i, n = None, 0, len(tokens)
         while i < n:
             if not first:
                 yield               # cooperative point between chunks
             first = False
             true_clen = min(cs, n - i)
-            # blocks the padded chunk can dirty, and the context they need
-            nb = (cs + ps - 2) // ps + 1 if ps > 1 else cs
-            n_ctx = _pow2_at_least(max(-(-(lpos + cs) // ps), nb))
-            ctx = [pages[b] if b < len(pages) else PAGE_SINK
-                   for b in range(n_ctx)]
+            if has_pool:
+                # blocks the padded chunk can dirty, and the context they need
+                nb = (cs + ps - 2) // ps + 1 if ps > 1 else cs
+                n_ctx = _pow2_at_least(max(-(-(lpos + cs) // ps), nb))
+                ctx = self._ids([pages[b] if b < len(pages) else PAGE_SINK
+                                 for b in range(n_ctx)])
+            else:
+                n_ctx, ctx = 0, None
             chunk = list(tokens[i:i + true_clen]) + [0] * (cs - true_clen)
             logits = prefill_chunk(
                 self.cfg, self.params,
                 torch.as_tensor([chunk], dtype=torch.int64, device=self.device),
-                lpos, true_clen, self.alloc.pools, self._ids(ctx))
+                lpos, true_clen, self.alloc.pools, ctx, state=state)
             self.stats["prefill_invocations"] += 1
             self.stats["prefill_chunks"] += 1
-            self.stats["prefill_ctx_positions"] += cs * n_ctx * ps
+            self.stats["prefill_ctx_positions"] += cs * (n_ctx * ps if has_pool else cs)
             self.tracer.instant("engine.prefill_chunk", kind="engine",
                                 level=2, tokens=int(true_clen))
             i += true_clen
@@ -419,14 +436,15 @@ class ServingEngine:
             return tuple(req.content_docs)
         return ()
 
-    def _snapshot_prefix_paged(self, slot: int, prefix: list,
+    def _snapshot_prefix_paged(self, slot: int, prefix: list, state: dict,
                                req: Optional[Request] = None):
         """Store a prefix entry as *page references*: full pages shared by
         reference (ref-counted), the partially filled boundary page copied
         once so the slot can keep writing into its own copy (CoW). The
-        entry's state is the position alone (the dense family has no
-        recurrent state), kept as an int32 scalar as in the JAX engine, whose
-        byte size enters the entry's size."""
+        entry's state is the position, an int32 scalar as in the JAX engine,
+        and a copy of the request's pure state at the boundary (Mamba1's
+        conv/ssm; none for the dense family); their bytes enter the entry's
+        size."""
         lp = len(prefix)
         pages = self.slot_pages[slot]
         full = lp // self.page_size
@@ -442,7 +460,8 @@ class ServingEngine:
                 self.alloc.release(entry_pages)
                 return
             self.stats["cow_copies"] += 1
-        snap = {"pos": torch.tensor(lp, dtype=torch.int32)}
+        snap = {"pos": torch.tensor(lp, dtype=torch.int32),
+                **{k: a.clone() for k, a in state.items()}}
         nbytes = ((len(entry_pages) + (1 if tail is not None else 0))
                   * self.alloc.page_nbytes + cache_nbytes(snap))
         alloc, ids = self.alloc, entry_pages + ([tail] if tail is not None else [])
@@ -452,6 +471,11 @@ class ServingEngine:
                                  doc_ids=(self._entry_docs(req, len(prefix))
                                           if req is not None else ()))
         self.stats["prefix_inserts"] += 1
+
+    def _init_state_sub(self) -> dict:
+        """A fresh B=1 pure state (zeros shaped as one slot of the
+        per-slot cache, `pos` aside)."""
+        return {k: torch.zeros_like(a[:, :1]) for k, a in self.cache.items() if k != "pos"}
 
     def _free_slot_pages(self, slot: int):
         if self.slot_pages[slot]:
@@ -484,15 +508,15 @@ class ServingEngine:
         # speculation on, verify rounds grow the table lazily (and roll a
         # rejected suffix's pages back), so insert covers the prompt only.
         cap = min(plen if self.spec else plen + req.max_new, self.max_len)
-        blocks = -(-cap // ps)
+        blocks = -(-cap // ps) if self.alloc.pools else 0
         acquired: list = []
-        prefix_len, pages, hit = 0, [], False
+        state, prefix_len, pages = None, 0, []
         try:
             if self.prefix_cache is not None:
                 entry = self.prefix_cache.match(prompt)
                 if entry is not None and len(entry.tokens) >= self.prefix_min_len:
                     # O(1) splice: share the full pages, CoW the boundary page
-                    hit, prefix_len = True, len(entry.tokens)
+                    prefix_len = len(entry.tokens)
                     pages = list(entry.pages)
                     self.alloc.retain(pages)
                     acquired.extend(pages)
@@ -504,6 +528,7 @@ class ServingEngine:
                         finally:
                             self.alloc.release([tail_src])
                         self.stats["cow_copies"] += 1
+                    state = {k: a.clone() for k, a in entry.cache.items() if k != "pos"}
                     self.stats["prefix_hits"] += 1
                     self.stats["prefix_saved_tokens"] += prefix_len
                     self.tracer.instant("engine.prefix_hit", kind="engine",
@@ -515,22 +540,26 @@ class ServingEngine:
                 self.alloc.release(acquired)
             raise
         self.slot_pages[slot] = pages
-        if hit:
+        if state is not None:
             logits, lpos, _ = yield from self._chunked_prefill_co(
-                slot, prompt[prefix_len:], prefix_len)
+                slot, state, prompt[prefix_len:], prefix_len)
             self.stats["prefill_tokens"] += plen - prefix_len
-            return logits, lpos
-        boundary = 0 if self.prefix_cache is None else \
-            min(int(req.shared_len), plen - 1)
-        if boundary >= self.prefix_min_len:
-            _, lpos, first = yield from self._chunked_prefill_co(
-                slot, prompt[:boundary], 0)
-            self._snapshot_prefix_paged(slot, prompt[:boundary], req=req)
-            logits, lpos, first = yield from self._chunked_prefill_co(
-                slot, prompt[boundary:], lpos, first=first)
         else:
-            logits, lpos, _ = yield from self._chunked_prefill_co(slot, prompt, 0)
-        self.stats["prefill_tokens"] += plen
+            state = self._init_state_sub()
+            boundary = 0 if self.prefix_cache is None else \
+                min(int(req.shared_len), plen - 1)
+            if boundary >= self.prefix_min_len:
+                _, lpos, first = yield from self._chunked_prefill_co(
+                    slot, state, prompt[:boundary], 0)
+                self._snapshot_prefix_paged(slot, prompt[:boundary], state, req=req)
+                logits, lpos, first = yield from self._chunked_prefill_co(
+                    slot, state, prompt[boundary:], lpos, first=first)
+            else:
+                logits, lpos, _ = yield from self._chunked_prefill_co(
+                    slot, state, prompt, 0)
+            self.stats["prefill_tokens"] += plen
+        for k, a in state.items():
+            self.cache[k][:, slot] = a[:, 0]
         return logits, lpos
 
     def _insert_co(self, slot: int, req: Request):
@@ -576,19 +605,21 @@ class ServingEngine:
 
     def _step(self):
         if self.paged:
-            write_ids = np.full((self.slots,), PAGE_SINK, np.int32)
-            maxb = 1
-            for s in range(self.slots):
-                if self._live[s]:
-                    maxb = max(maxb, len(self.slot_pages[s]))
-                    b = int(self._pos_h[s]) // self.page_size
-                    if b < len(self.slot_pages[s]):
-                        write_ids[s] = self.slot_pages[s][b]
-            width = min(_pow2_at_least(maxb), self.pages_per_slot)
+            table = write_ids = None
+            if self.alloc.pools:
+                write_ids = np.full((self.slots,), PAGE_SINK, np.int32)
+                maxb = 1
+                for s in range(self.slots):
+                    if self._live[s]:
+                        maxb = max(maxb, len(self.slot_pages[s]))
+                        b = int(self._pos_h[s]) // self.page_size
+                        if b < len(self.slot_pages[s]):
+                            write_ids[s] = self.slot_pages[s][b]
+                width = min(_pow2_at_least(maxb), self.pages_per_slot)
+                table, write_ids = self._page_table(width), self._ids(write_ids)
             pos = self.cache["pos"]
             logits = decode_step(self.cfg, self.params, self._tokens, pos,
-                                 self.alloc.pools, self._page_table(width),
-                                 self._ids(write_ids))
+                                 self.alloc.pools, table, write_ids, state=self.cache)
             self.cache["pos"] = pos + 1
         else:
             # every row steps, live or not: a free slot's position runs on
@@ -638,12 +669,13 @@ class ServingEngine:
         list minus any drained slots."""
         kept = []
         for s in live:
-            try:
-                fit = self._spec_grow_pages(s, int(pos_h[s]) + 1 + len(drafts[s]))
-            except PagePoolExhausted:
-                self.drain_slot(s)
-                continue
-            drafts[s] = drafts[s][: max(fit - int(pos_h[s]) - 1, 0)]
+            if self.alloc.pools:
+                try:
+                    fit = self._spec_grow_pages(s, int(pos_h[s]) + 1 + len(drafts[s]))
+                except PagePoolExhausted:
+                    self.drain_slot(s)
+                    continue
+                drafts[s] = drafts[s][: max(fit - int(pos_h[s]) - 1, 0)]
             kept.append(s)
         return kept
 
@@ -678,34 +710,43 @@ class ServingEngine:
             true_c[s] = len(row)
             toks[s, :len(row)] = row
 
+        ckpts = None
+        if "ssm" in self.cache:
+            if self._ckpts is None:
+                self._ckpts = init_verify_ckpts(self.cfg, self.slots, C,
+                                                device=self.device)
+            ckpts = self._ckpts
         if self.paged:
-            # context width bucketed as the JAX engine's gathered view
-            nb_probe = (C + ps - 2) // ps + 1 if ps > 1 else C
-            need_ctx = 1
-            for s in live:
-                p0 = int(pos_h[s])
-                need_ctx = max(need_ctx, -(-(p0 + C) // ps), p0 // ps + nb_probe)
-            n_ctx = _pow2_at_least(need_ctx)
-            ctx = np.full((self.slots, n_ctx), PAGE_SINK, np.int32)
-            for s in live:
-                pages = self.slot_pages[s]
-                ctx[s, :min(len(pages), n_ctx)] = pages[:n_ctx]
-            # every candidate's page and slot; a position past the row's table
-            # (or past max_len) goes to the sink, where JAX drops the write
-            cpos = pos_h[:, None] + np.arange(C)[None, :]
-            blk = cpos // ps
-            wpages = np.where(blk < n_ctx,
-                              np.take_along_axis(ctx, np.minimum(blk, n_ctx - 1), 1),
-                              PAGE_SINK)
+            ctx = wpages = woffs = None
+            if self.alloc.pools:
+                # context width bucketed as the JAX engine's gathered view
+                nb_probe = (C + ps - 2) // ps + 1 if ps > 1 else C
+                need_ctx = 1
+                for s in live:
+                    p0 = int(pos_h[s])
+                    need_ctx = max(need_ctx, -(-(p0 + C) // ps), p0 // ps + nb_probe)
+                n_ctx = _pow2_at_least(need_ctx)
+                ctx = np.full((self.slots, n_ctx), PAGE_SINK, np.int32)
+                for s in live:
+                    pages = self.slot_pages[s]
+                    ctx[s, :min(len(pages), n_ctx)] = pages[:n_ctx]
+                # every candidate's page and slot; a position past the row's
+                # table (or past max_len) goes to the sink, where JAX drops
+                # the write
+                cpos = pos_h[:, None] + np.arange(C)[None, :]
+                blk = cpos // ps
+                wpages = np.where(blk < n_ctx,
+                                  np.take_along_axis(ctx, np.minimum(blk, n_ctx - 1), 1),
+                                  PAGE_SINK)
+                ctx, wpages, woffs = self._ids(ctx), self._ids(wpages), self._ids(cpos % ps)
             logits = verify_chunk(
                 self.cfg, self.params,
                 torch.as_tensor(toks, device=self.device), self.cache["pos"],
-                self.alloc.pools, self._ids(ctx), self._ids(wpages),
-                self._ids(cpos % ps))
+                self.alloc.pools, ctx, wpages, woffs, state=self.cache, ckpts=ckpts)
         else:
             logits, self.cache = verify_chunk_slab(
                 self.cfg, self.params, torch.as_tensor(toks, device=self.device),
-                self.cache)
+                self.cache, ckpts=ckpts)
 
         self.stats["decode_steps"] += 1
         self.stats["spec_rounds"] += 1
@@ -714,6 +755,7 @@ class ServingEngine:
 
         Y = torch.argmax(logits, dim=-1).cpu().numpy()        # (slots, C)
         new_pos = pos_h.copy()
+        restore = {}                    # slot -> tokens kept (Mamba1 rollback)
         for s in live:
             req, d, p0 = self.active[s], drafts[s], int(pos_h[s])
             m = 0
@@ -736,10 +778,12 @@ class ServingEngine:
             req.draft_tokens += len(d)
             req.accepted_tokens += min(m, n_app)
             self.stats["decode_steps_saved"] += n_app - 1
+            if not done and ckpts is not None:
+                restore[s] = keep
             new_pos[s] = p0 + keep
             if done:
                 self._finish(s, req)
-            elif self.paged:
+            elif self.paged and self.alloc.pools:
                 # page-truncate + ref-release the rejected suffix
                 pages = self.slot_pages[s]
                 end = min(p0 + true_c[s], len(pages) * ps)
@@ -747,10 +791,24 @@ class ServingEngine:
                     truncate_pages(self.alloc.pools, pages, p0 + keep, end, ps)
                 self.slot_pages[s] = release_trailing_pages(
                     self.alloc, pages, -(-(p0 + keep) // ps))
+        if restore:
+            self._restore_ckpt_rows(ckpts, restore)
         self.cache["pos"] = torch.as_tensor(new_pos.astype(np.int32),
                                             device=self.device)
         self._pos_h = new_pos
         self._note_kv_bytes()
+
+    def _restore_ckpt_rows(self, ckpts: dict, keeps: dict):
+        """Batched Mamba1 rollback (the JAX engine's `_restore_ckpt_rows`):
+        every row in `keeps` gets the state after its kept tokens -- the scan
+        state checkpointed at position keep - 1 and the conv window of raw
+        inputs [keep, keep + K - 1) -- in one gather per buffer."""
+        rows = torch.as_tensor(list(keeps), device=self.device)
+        ks = torch.as_tensor(list(keeps.values()), device=self.device)
+        km1 = self.cache["conv"].shape[2]
+        win = ks[:, None] + torch.arange(km1, device=self.device)[None, :]
+        self.cache["ssm"][:, rows] = ckpts["ssm"][:, rows, ks - 1]
+        self.cache["conv"][:, rows] = ckpts["conv"][:, rows[:, None], win]
 
     def drain_slot(self, slot: int):
         """Evict + requeue (straggler/failure mitigation). Retries are
@@ -786,9 +844,9 @@ class ServingEngine:
 
     def estimate_pages(self, prompt_len: int, max_new: int) -> int:
         """Pages the paged insert will demand up front for a prompt of this
-        shape (0 for the slab layout) -- the admission headroom check of the
-        JAX package's frontend."""
-        if not self.paged:
+        shape (0 for the slab layout and for Mamba1) -- the admission
+        headroom check of the JAX package's frontend."""
+        if not (self.paged and self.alloc.pools):
             return 0
         cap = min(prompt_len if self.spec else prompt_len + max_new, self.max_len)
         return -(-cap // self.page_size)

@@ -1,7 +1,8 @@
 """Package rules of the port: importing `repro_torch` and every one of its
 modules loads no `jax` and no module of the JAX package `repro`; the
 jax-free modules it keeps as copies stay verbatim copies; the config
-registry serves qwen2.5-3b and refuses the families not yet ported."""
+registry serves qwen2.5-3b and falcon-mamba-7b and refuses the families
+not yet ported."""
 import os
 import subprocess
 import sys
@@ -21,7 +22,8 @@ COPIES = ["core/__init__.py", "core/difficulty.py", "core/executor.py",
           "obs/__init__.py", "obs/metrics.py", "obs/report.py", "obs/trace.py",
           "data/tokens.py", "data/lm_data.py", "data/corpus.py",
           "index/segmenter.py", "extract/oracle.py", "models/config.py",
-          "configs/qwen2_5_3b.py", "serving/prefix_cache.py"]
+          "configs/qwen2_5_3b.py", "configs/falcon_mamba_7b.py",
+          "serving/prefix_cache.py"]
 
 
 def _modules():
@@ -65,11 +67,13 @@ def test_config_registry():
     from repro.configs import ARCH_IDS as JAX_ARCH_IDS
     from repro_torch.configs import NOT_YET_PORTED, get_config, get_smoke_config
 
-    for get in ("CONFIG", "SMOKE"):
-        ours = (get_config if get == "CONFIG" else get_smoke_config)("qwen2.5-3b")
-        import repro.configs.qwen2_5_3b as jq
-        assert vars(ours) == vars(getattr(jq, get))
-    assert sorted(NOT_YET_PORTED + ["qwen2.5-3b"]) == sorted(JAX_ARCH_IDS)
+    import repro.configs.falcon_mamba_7b as jf
+    import repro.configs.qwen2_5_3b as jq
+    for arch, mod in (("qwen2.5-3b", jq), ("falcon-mamba-7b", jf)):
+        for get in ("CONFIG", "SMOKE"):
+            ours = (get_config if get == "CONFIG" else get_smoke_config)(arch)
+            assert vars(ours) == vars(getattr(mod, get))
+    assert sorted(NOT_YET_PORTED + ["qwen2.5-3b", "falcon-mamba-7b"]) == sorted(JAX_ARCH_IDS)
     for arch in NOT_YET_PORTED:
         jax_get_config(arch)                     # known to the reference
         with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
