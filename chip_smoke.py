@@ -22,13 +22,13 @@ package, and goes through its phases, each printing one JSON line:
              counts set to 0 just before and read just after; agreement
              with the main phase is reported, not asserted (bf16 rounds
              differently in verify rounds and resumed chunks);
-  slab       the same query at all 36 layers on the slab KV layout
+  slab       the same query and cut weights on the slab KV layout
              (kv_layout="slab", prefix cache and speculation off): every
              prompt prefills whole, bucketed to chunk_size, through K2 over
              the slab seen as pages, and every decode step runs K5 on the
-             slab (36 launches a step); rows and the ledger's token columns
+             slab (one launch a layer); rows and the ledger's token columns
              must equal the main phase's, K1 and K4 must stay at 0;
-  draft      at all 36 layers, the spec phase's engine with draft-model
+  draft      on the cut weights, the spec phase's engine with draft-model
              speculation instead of prompt lookup: spec_decode="draft" with
              the target's own weights as the draft (self-drafting, the
              acceptance ceiling). The target prefills in chunks (K2) and
@@ -47,32 +47,47 @@ package, and goes through its phases, each printing one JSON line:
              drafts back from them, prefix entries carry the recurrent
              state. Rows and the ledger's input tokens must equal the main
              phase's (output tokens are reported: another model may end
-             elsewhere); K1, K2, K4 and K5 must stay at 0;
+             elsewhere); K1, K2, K4, K5 and K6 must stay at 0;
+  moe        with the falcon-mamba-7b weights freed, the same query on
+             deepseek-v2-lite-16b (MLA attention + MoE, 15.7B parameters)
+             at its published width and all 27 layers (d_model 2048, 64
+             routed experts of which 6 a token, bf16, random weights from
+             --seed), with the ssm phase's settings: every prompt chunk and
+             verify round gates each of its 26 MoE layers through K6; MLA
+             attends the compressed ckv/krope pool in plain PyTorch, as the
+             JAX package does. Rows and the ledger's input tokens must equal
+             the main phase's; K6 = 26 x (chunks + verify rounds); K1, K2,
+             K4, K5 and K7 must stay at 0;
   kernels    every kernel of those paths (K1 paged decode attention, K2
              paged chunk-prefill attention, K3 L2 top-k, K4 paged verify
-             attention, K5 dense-cache decode attention, K7 selective scan)
-             on the inputs of one of its real launches (K7: a prefill chunk
-             and a verify round), plus edge cases, held against its plain
-             PyTorch version; times with CUDA events beside its bound and a
-             PyTorch library yardstick where one call computes the same
-             function (none does for K7);
+             attention, K5 dense-cache decode attention, K6 MoE gating, K7
+             selective scan) on the inputs of one of its real launches (K6
+             and K7: a prefill chunk and a verify round), plus edge cases,
+             held against its plain PyTorch version; times with CUDA events
+             beside its bound and a PyTorch library yardstick where one call
+             computes the same function (none does for K7);
   profile    (only with --profile) torch.profiler over one extraction round
-             of each path (main, spec, slab, draft, ssm): device busy share,
-             device time by kernel;
+             of each path (main, spec, slab, draft, ssm, moe): device busy
+             share, device time by kernel group; on the moe path also the
+             device time of MLA attention and of the expert products;
   reference  the same served query code at a small size (SMOKE configs,
              float32, 20 legal documents) on the card and on the CPU's plain
              path: qwen2.5-3b in four modes (speculation and the prefix
              cache off; prompt lookup with the prefix cache; the slab layout
              with the prefix cache, whose snapshot, expand and token-by-
-             token suffix decode run on the card; self-drafting) and
+             token suffix decode run on the card; self-drafting),
              falcon-mamba-7b in four (off; prompt lookup with the prefix
              cache; slab with the prefix cache; scripted drafts of which two
              of four are right, so rejected drafts roll back to a checkpoint
-             past the first position). Rows, ledger token columns,
-             engine (and drafter) counters and every generated token must be
-             identical across the two devices, and rows and tokens identical
-             to the model's first mode in every mode; falcon-mamba-7b's
-             recurrent state must also agree across the devices.
+             past the first position) and deepseek-v2-lite-16b in
+             qwen2.5-3b's four, K6 gating on the card. Rows, ledger token
+             columns, engine (and drafter) counters and every generated
+             token must be identical across the two devices, and rows and
+             tokens identical to the model's first mode in every mode (for
+             MoE rows only: capacity is set per call, so a verify round
+             drops assignments a decode step does not, and tokens may
+             differ by mode); falcon-mamba-7b's recurrent state must also
+             agree across the devices.
 
 Every phase raises on a mismatch. Then it prints each phase's seconds,
 the `kernels` summary line, the nvidia-smi line, and as its last line
@@ -97,6 +112,9 @@ SRC = ROOT / "src"
 HBM_BYTES_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 TOL = {"bfloat16": 2e-2, "float32": 2e-5, "topk": 1e-4}
+# K6's weights against its plain version: float32 throughout, the softmax's
+# exponentials and sum rounded in another order (the indices must be equal)
+K6_TOL = 1e-6
 # the recurrent state of a served SMOKE query, card against CPU, float32:
 # the same recurrence, with matmuls summed in another order on the card
 STATE_TOL = 1e-4
@@ -182,14 +200,17 @@ def _legal_query(core):
 
 SPEC = {"prefix_cache": True, "spec_decode": "prompt_lookup", "spec_k": 4}
 SLAB = {"kv_layout": "slab"}
-# The main and spec phases run the first MAIN_LAYERS of the 36 layers at
-# full width, so that the whole command, slab and draft at full depth
-# included, stays well inside its time limit (the four paths at 36 layers
-# took 1,128 s of the 1,200 s with --profile on one H100 80GB HBM3).
+# The four qwen2.5-3b phases run the first MAIN_LAYERS of the 36 layers at
+# full width, so that the whole command stays well inside its time limit:
+# the four paths at 36 layers took 1,128 s of the 1,200 s with --profile
+# on one H100 80GB HBM3; main and spec were cut first, then slab and draft
+# when the moe phase and its reference modes came in (1,223 s with
+# --profile, slab and draft still at 36 layers).
 MAIN_LAYERS = 12
-# The ssm phase feeds prompts in 128-token chunks: at 64 layers its wall
-# follows the number of forwards, and each chunk gives K7 a real sequence.
-SSM_CHUNK = 128
+# The ssm and moe phases feed prompts in 128-token chunks: at 64 and 27
+# layers their walls follow the number of forwards, and each chunk gives K7
+# a real sequence and K6 a real batch of tokens.
+DEEP_CHUNK = 128
 
 
 def _cut(cfg, params):
@@ -236,21 +257,24 @@ def _check_like_main(name, result, main_result):
 def _launch_counts():
     from repro_torch.kernels import decode_attention as k15
     from repro_torch.kernels import flash_attention as k2
+    from repro_torch.kernels import moe_gating as k6
     from repro_torch.kernels import ssm_scan as k7
     from repro_torch.kernels import topk_l2 as k3
     from repro_torch.kernels import verify_attention as k4
     return {"K1": k15.launches, "K2": k2.launches, "K3": k3.launches,
-            "K4": k4.launches, "K5": k15.dense_launches, "K7": k7.launches}
+            "K4": k4.launches, "K5": k15.dense_launches, "K6": k6.launches,
+            "K7": k7.launches}
 
 
 def _zero_launches():
     from repro_torch.kernels import decode_attention as k15
     from repro_torch.kernels import flash_attention as k2
+    from repro_torch.kernels import moe_gating as k6
     from repro_torch.kernels import ssm_scan as k7
     from repro_torch.kernels import topk_l2 as k3
     from repro_torch.kernels import verify_attention as k4
     k15.launches = k15.dense_launches = k2.launches = k3.launches = k4.launches = 0
-    k7.launches = 0
+    k6.launches = k7.launches = 0
 
 
 def _timed_query(session):
@@ -373,8 +397,8 @@ def phase_slab(main_run) -> tuple:
     from repro_torch.configs import get_config
     from repro_torch.data.corpus import make_legal_corpus
 
-    params, main_result, _ = main_run
-    cfg = get_config("qwen2.5-3b")
+    full_params, main_result, _ = main_run
+    cfg, params = _cut(get_config("qwen2.5-3b"), full_params)
     corpus = make_legal_corpus(seed=1)
     session, engine, extractor, build_s = _served_query(
         cfg, params, corpus, "cuda", max_new=12, **SLAB)
@@ -408,8 +432,8 @@ def phase_draft(main_run, captures: dict, slab_tokens: dict) -> tuple:
     from repro_torch.data.corpus import make_legal_corpus
     from repro_torch.kernels import decode_attention as k15
 
-    params, main_result, main_engine = main_run
-    cfg = get_config("qwen2.5-3b")
+    full_params, main_result, main_engine = main_run
+    cfg, params = _cut(get_config("qwen2.5-3b"), full_params)
     corpus = make_legal_corpus(seed=1)
     opts = {**SPEC, "spec_decode": "draft"}
     session, engine, extractor, build_s = _served_query(
@@ -471,9 +495,9 @@ def phase_ssm(seed: int, captures: dict, main_result) -> tuple:
     init_s = time.perf_counter() - t0
     corpus = make_legal_corpus(seed=1)
     session, engine, extractor, build_s = _served_query(
-        cfg, params, corpus, "cuda", max_new=12, chunk_size=SSM_CHUNK, **SPEC)
+        cfg, params, corpus, "cuda", max_new=12, chunk_size=DEEP_CHUNK, **SPEC)
     # K7's inputs on two kinds of launch: the first full prompt chunk (B = 1,
-    # S = SSM_CHUNK, from a carried state) and the first verify round of all
+    # S = DEEP_CHUNK, from a carried state) and the first verify round of all
     # four slots (B = 4, S = spec_k + 1, per-position states written)
     captures["K7_verify"] = Capture(
         k7, "ssm_scan", lambda x, dt, A, Bm, Cm, D, h0=None, states=None:
@@ -491,7 +515,7 @@ def phase_ssm(seed: int, captures: dict, main_result) -> tuple:
     out = {"phase": "ssm", "model": cfg.name, "layers": cfg.num_layers,
            "d_model": cfg.d_model, "d_inner": cfg.d_inner, "ssm_state": cfg.ssm_state,
            "dtype": cfg.dtype, "params": param_count(params),
-           "engine_options": {**SPEC, "chunk_size": SSM_CHUNK},
+           "engine_options": {**SPEC, "chunk_size": DEEP_CHUNK},
            "rows": len(result.rows), "rows_main": len(main_result.rows),
            "rows_equal_main": result.rows == main_result.rows, "ledger": _ledger(result),
            "engine": dict(st), "served_requests": extractor.stats.requests,
@@ -508,9 +532,10 @@ def phase_ssm(seed: int, captures: dict, main_result) -> tuple:
     if result.ledger.input_tokens != main_result.ledger.input_tokens:
         raise AssertionError(f"ssm: ledger input_tokens {result.ledger.input_tokens} != "
                              f"main's {main_result.ledger.input_tokens}")
-    stray = {k: launches[k] for k in ("K1", "K2", "K4", "K5") if launches[k]}
+    stray = {k: launches[k] for k in ("K1", "K2", "K4", "K5", "K6") if launches[k]}
     if stray or not launches["K3"]:
-        raise AssertionError(f"ssm: attention kernels launched or K3 did not: {launches}")
+        raise AssertionError(f"ssm: attention or gating kernels launched or K3 did not: "
+                             f"{launches}")
     forwards = st["prefill_chunks"] + st["spec_rounds"]
     if launches["K7"] != cfg.num_layers * forwards or not st["spec_rounds"]:
         raise AssertionError(f"ssm: K7 launched {launches['K7']} times for {forwards} "
@@ -520,10 +545,115 @@ def phase_ssm(seed: int, captures: dict, main_result) -> tuple:
     return out, (session, extractor)
 
 
+def phase_moe(seed: int, captures: dict, main_result) -> tuple:
+    """The main query on deepseek-v2-lite-16b (MLA + MoE) at full width and
+    depth with the served settings (prefix cache, prompt lookup) and
+    128-token chunks: every forward gates each of its 26 MoE layers through
+    K6, and MLA attends the compressed pool in plain PyTorch."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.corpus import make_legal_corpus
+    from repro_torch.kernels import moe_gating as k6
+    from repro_torch.models import init_params, param_count
+
+    cfg = get_config("deepseek-v2-lite-16b")
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = init_params(cfg, gen, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    corpus = make_legal_corpus(seed=1)
+    session, engine, extractor, build_s = _served_query(
+        cfg, params, corpus, "cuda", max_new=12, chunk_size=DEEP_CHUNK, **SPEC)
+    # K6's inputs on two kinds of launch: the first prompt chunk (T =
+    # DEEP_CHUNK tokens) and the first verify round of all four slots (T =
+    # 4 x (spec_k + 1))
+    verify_T = 4 * (SPEC["spec_k"] + 1)
+    captures["K6_verify"] = Capture(k6, "moe_gating", lambda lg, k: 1 if lg.shape[0] == verify_T
+                                    else -1)
+    captures["K6"] = Capture(k6, "moe_gating", lambda lg, k: 1 if lg.shape[0] == DEEP_CHUNK
+                             else -1)
+    result, wall, launches = _timed_query(session)
+    captures["K6"].restore()
+    captures["K6_verify"].restore()
+    if captures["K6"].args is None or captures["K6_verify"].args is None:
+        raise AssertionError("moe: K6 captured no prefill chunk or no verify launch")
+    st = engine.stats
+    gen_tokens = extractor.stats.generated_tokens
+    n_moe = len(params["layers"])
+    out = {"phase": "moe", "model": cfg.name, "layers": cfg.num_layers, "moe_layers": n_moe,
+           "d_model": cfg.d_model, "experts": cfg.n_experts, "top_k": cfg.moe_top_k,
+           "kv_lora_rank": cfg.kv_lora_rank, "dtype": cfg.dtype,
+           "params": param_count(params),
+           "engine_options": {**SPEC, "chunk_size": DEEP_CHUNK},
+           "rows": len(result.rows), "rows_main": len(main_result.rows),
+           "rows_equal_main": result.rows == main_result.rows, "ledger": _ledger(result),
+           "engine": dict(st), "served_requests": extractor.stats.requests,
+           "generated_tokens": gen_tokens, "weights_init_s": init_s,
+           "index_build_s": build_s, "query_wall_s": wall,
+           "generated_tokens_per_s": gen_tokens / wall,
+           "verify_rounds": st["spec_rounds"], "drafted": st["draft_tokens"],
+           "accepted": st["accepted_tokens"], "prefix_hits": st["prefix_hits"],
+           "kv_bytes_peak": st["kv_bytes_peak"], "launches": launches}
+    emit(out)
+    if out["params"] != 15_706_484_224:
+        raise AssertionError(f"moe: {out['params']} parameters, not deepseek-v2-lite-16b's")
+    if not result.rows or result.rows != main_result.rows:
+        raise AssertionError(f"moe: {len(result.rows)} rows, not the main phase's "
+                             f"{len(main_result.rows)}")
+    if result.ledger.input_tokens != main_result.ledger.input_tokens:
+        raise AssertionError(f"moe: ledger input_tokens {result.ledger.input_tokens} != "
+                             f"main's {main_result.ledger.input_tokens}")
+    stray = {k: launches[k] for k in ("K1", "K2", "K4", "K5", "K7") if launches[k]}
+    if stray or not launches["K3"]:
+        raise AssertionError(f"moe: attention or scan kernels launched or K3 did not: "
+                             f"{launches}")
+    forwards = st["prefill_chunks"] + st["spec_rounds"]
+    if launches["K6"] != n_moe * forwards or not st["spec_rounds"]:
+        raise AssertionError(f"moe: K6 launched {launches['K6']} times for {forwards} "
+                             f"chunk and verify forwards of {n_moe} MoE layers")
+    if st["prefix_hits"] <= 0:
+        raise AssertionError("moe: no prefix hit")
+    return out, (session, extractor)
+
+
+class _Spans:
+    """Name the MoE path's two plain-PyTorch hot spots for the profiler,
+    while the block is open: "mla_attention" (gathering each row's page
+    view, the absorbed scores, softmax and context, writing the blocks
+    back: what a paged MLA kernel would replace) and "moe_expert_bmm" (the
+    experts' three batched products; `torch.bmm` has no other caller on
+    the path)."""
+    NAMES = ("mla_attention", "moe_expert_bmm")
+
+    def __enter__(self):
+        import torch
+        from repro_torch.models import layers
+
+        def named(fn, name):
+            def run(*a, **kw):
+                with torch.profiler.record_function(name):
+                    return fn(*a, **kw)
+            return run
+        self.saved = [(layers, n, getattr(layers, n))
+                      for n in ("page_view", "_mla_attend", "write_view_blocks")]
+        self.saved.append((torch, "bmm", torch.bmm))
+        for mod, n, fn in self.saved:
+            setattr(mod, n, named(fn, "moe_expert_bmm" if n == "bmm" else "mla_attention"))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, n, fn in self.saved:
+            setattr(mod, n, fn)
+
+
 def phase_profile(session, extractor, out_dir, path: str) -> dict:
     """torch.profiler over one extraction round of a path's served model
     (4 legal documents, attribute `year`): wall time, the device's busy
-    share, and device time by kernel group."""
+    share, and device time by kernel group; on the moe path also the device
+    time of MLA attention and of the expert products (`_Spans`)."""
+    import contextlib
+
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -533,7 +663,8 @@ def phase_profile(session, extractor, out_dir, path: str) -> dict:
     items = [(d, "year", retriever.segments(d, "year", "cases")) for d in docs]
     extractor.extract_batch(items)                 # warm-up round
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    spans = _Spans() if path == "moe" else contextlib.nullcontext()
+    with spans, profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         extractor.extract_batch(items)
         torch.cuda.synchronize()
@@ -543,10 +674,17 @@ def phase_profile(session, extractor, out_dir, path: str) -> dict:
               "K3 topk_l2": "topk_l2_kernel",
               "K4 paged_verify": "paged_verify_",      # its span and merge kernels
               "K5 dense_decode": "dense_decode_",      # its span and merge kernels
+              "K6 moe_gating": "moe_gating_kernel",
               "K7 ssm_scan": "ssm_scan_kernel"}
     by_group = dict.fromkeys(list(groups) + ["gemm", "other"], 0.0)
+    count_by_group = dict.fromkeys(by_group, 0)
+    by_span = {}
     launches = 0
     for e in prof.key_averages():
+        if e.key in _Spans.NAMES:                  # the span's kernels, summed; its
+            if e.device_type != DeviceType.CUDA:   # device-side row is its extent
+                by_span[e.key] = getattr(e, "device_time_total", None) or e.cuda_time_total
+            continue
         if e.device_type != DeviceType.CUDA:       # device kernels only: an
             continue                               # op's own row repeats them
         t = getattr(e, "self_device_time_total", None)
@@ -559,12 +697,16 @@ def phase_profile(session, extractor, out_dir, path: str) -> dict:
             g = "gemm" if any(w in name.lower() for w in ("gemm", "nvjet", "cutlass", "sm90_xmma")) \
                 else "other"
         by_group[g] += t
+        count_by_group[g] += e.count
     busy = sum(by_group.values())
     out = {"phase": "profile", "path": path, "requests": len(items),
            "wall_ms": wall_us / 1e3,
            "device_busy_ms": busy / 1e3, "device_busy_share": busy / wall_us,
            "device_kernels": launches,
-           "device_ms_by_group": {g: t / 1e3 for g, t in by_group.items()}}
+           "device_ms_by_group": {g: t / 1e3 for g, t in by_group.items()},
+           "device_launches_by_group": count_by_group}
+    if path == "moe":
+        out["device_ms_by_span"] = {n: by_span.get(n, 0.0) / 1e3 for n in _Spans.NAMES}
     emit(out)
     if out_dir:
         Path(out_dir).mkdir(parents=True, exist_ok=True)
@@ -823,6 +965,7 @@ def phase_kernels(captures: dict, launches: dict) -> list:
                      "with a per-row length mask",
         bound_ms=b_ms, bound_by=b_by))
 
+    rows.append(_kernel_k6(captures, launches))
     rows.append(_kernel_k7(captures, launches))
 
     for r in rows:
@@ -833,6 +976,71 @@ def phase_kernels(captures: dict, launches: dict) -> list:
             if key in r and not r[key] <= tol:
                 raise AssertionError(f"{r['name']}: {key}={r[key]} > {tol}")
     return rows
+
+
+def _kernel_k6(captures: dict, launches: dict) -> dict:
+    """K6 on the inputs of a captured prefill chunk (T = DEEP_CHUNK) and
+    verify round, and on edge cases, against `moe_gating_plain`: the
+    weights within K6_TOL (float32 throughout; the softmax's exponentials
+    and sum round differently) and the indices identical, in order."""
+    import torch
+    from repro_torch.kernels import moe_gating as k6
+
+    def errs_of(logits, k):
+        wk, ik = k6.moe_gating(logits, k)
+        wp, ip = k6.moe_gating_plain(logits, k)
+        return max_err(wk, wp), bool(torch.equal(ik, ip))
+
+    gen = torch.Generator(device="cuda").manual_seed(12)
+
+    def r(T, E, scale=1.0):
+        return torch.randn((T, E), generator=gen, device="cuda") * scale
+    pre, ver = captures["K6"].args, captures["K6_verify"].args
+    cases = {"chunk": pre, "verify": ver, "T=1": (r(1, 64), 6), "E=8,k=2": (r(100, 8, 2.0), 2),
+             "E=4,k=2": (r(17, 4, 2.0), 2), "E=160": (r(64, 160), 6),
+             "E=256,k=8": (r(40, 256), 8),
+             "all equal": (torch.full((9, 64), 0.37, device="cuda"), 6),
+             "bf16-rounded": (r(512, 64, 0.9).bfloat16().float(), 6), "T=37": (r(37, 64), 6)}
+    errs, same = {}, {}
+    for name, (lg, k) in cases.items():
+        errs[name], same[name] = errs_of(lg, k)
+    w_eq, i_eq = k6.moe_gating(cases["all equal"][0], 6)
+    if not torch.equal(i_eq.cpu(), torch.arange(6, dtype=torch.int32).expand(9, 6)) or \
+            max_err(w_eq, torch.full_like(w_eq, 1 / 6)) > K6_TOL:
+        raise AssertionError("K6: equal logits must give indices 0..k-1 and weights 1/k")
+    bad = {n: (errs[n], same[n]) for n in cases if not (errs[n] <= K6_TOL and same[n])}
+    if bad:
+        raise AssertionError(f"K6 disagrees with its plain version (error, indices equal): {bad}")
+
+    def work(logits, k):
+        """bytes (logits read, weights and indices written), flops (exp
+        argument, sum, divide, k rounds of compares), exponentials"""
+        T, E = logits.shape
+        return T * E * 4 + T * k * 8, T * E * (3 + k), T * E
+
+    def library(logits, k):
+        w, _ = torch.topk(torch.softmax(logits, dim=-1), k)
+        return w / w.sum(-1, keepdim=True).clamp(min=1e-9)
+    nbytes, flops, exps = work(*pre)
+    b_ms, b_by = bound(nbytes, flops, "float32", exps)
+    vb_ms, vb_by = bound(*work(*ver)[:2], "float32", work(*ver)[2])
+    edges = [n for n in cases if n not in ("chunk", "verify")]
+    return dict(
+        name="moe_gating", route="cuda", source="src/repro_torch/kernels/csrc/moe_gating.cu",
+        replaces="src/repro/kernels/moe_gating.py:47", launches=launches["K6"],
+        shape=f"logits{tuple(pre[0].shape)} k={pre[1]} float32 (a prefill chunk)",
+        shape_verify=f"logits{tuple(ver[0].shape)} k={ver[1]} float32 (a verify round)",
+        max_abs_err=errs["chunk"], tol=K6_TOL, max_abs_err_verify=errs["verify"],
+        max_abs_err_edge_float32=max(errs[n] for n in edges), tol_float32=K6_TOL,
+        indices_identical=all(same.values()), edge_cases=edges,
+        ms=cuda_ms(lambda: k6.moe_gating(*pre)),
+        plain_ms=cuda_ms(lambda: k6.moe_gating_plain(*pre)),
+        ms_verify=cuda_ms(lambda: k6.moe_gating(*ver)),
+        plain_ms_verify=cuda_ms(lambda: k6.moe_gating_plain(*ver)),
+        library_ms=cuda_ms(lambda: library(*pre)),
+        library_call="torch.softmax + torch.topk + renormalise",
+        bound_ms=b_ms, bound_by=b_by, bound_ms_verify=vb_ms, bound_by_verify=vb_by,
+        bound_bytes=nbytes)
 
 
 def _k7_work(x, N, h0, states) -> tuple:
@@ -995,10 +1203,12 @@ class _Scripted:
 def phase_reference(seed: int) -> dict:
     """The served path at a small size, card against the CPU's plain path:
     qwen2.5-3b in four modes (off, prompt lookup with the prefix cache, the
-    slab layout with the prefix cache, self-drafting) and falcon-mamba-7b
+    slab layout with the prefix cache, self-drafting), falcon-mamba-7b
     in four (off, prompt lookup with the prefix cache, slab with the prefix
     cache, and scripted drafts that accept two of four, so that rejected
-    drafts roll back to a checkpoint past the first position).
+    drafts roll back to a checkpoint past the first position) and
+    deepseek-v2-lite-16b in four (qwen2.5-3b's modes; K6 gates every MoE
+    layer on the card).
     Falcon-mamba-7b's per-slot recurrent state after the query must
     also agree across the devices to STATE_TOL: with random SMOKE weights
     the skip path D * x dominates each block, so its tokens alone say little
@@ -1008,6 +1218,7 @@ def phase_reference(seed: int) -> dict:
     from repro_torch.configs import get_smoke_config
     from repro_torch.data import lm_data
     from repro_torch.data.corpus import make_legal_corpus
+    from repro_torch.kernels import moe_gating as k6
     from repro_torch.models import init_params
 
     full = make_legal_corpus(seed=1)
@@ -1016,8 +1227,11 @@ def phase_reference(seed: int) -> dict:
                              "draft": {"spec_decode": "draft", "spec_k": 4}},
               "falcon-mamba-7b": {"off": {}, "spec": SPEC,
                                   "slab": {**SLAB, "prefix_cache": True},
-                                  "rollback": {"prefix_cache": True, "spec_k": 4}}}
-    runs, states = {}, {}
+                                  "rollback": {"prefix_cache": True, "spec_k": 4}},
+              "deepseek-v2-lite-16b": {"off": {}, "spec": SPEC,
+                                       "slab": {**SLAB, "prefix_cache": True},
+                                       "draft": {"spec_decode": "draft", "spec_k": 4}}}
+    runs, states, gating = {}, {}, {}
     for arch, modes in models.items():
         cfg = get_smoke_config(arch).replace(vocab_size=lm_data.VOCAB)
         cpu_params = init_params(cfg, torch.Generator().manual_seed(seed), device="cpu")
@@ -1031,7 +1245,9 @@ def phase_reference(seed: int) -> dict:
                         runs[arch, "off", "cpu"][5], good=2, vocab=cfg.vocab_size)}
                 session, engine, _, _ = _served_query(cfg, params, corpus, device,
                                                       max_new=6, **engine_kw)
+                k6.launches = 0
                 res = session.prepare(_legal_query(core)).submit().result()
+                gating[arch, mode, device] = k6.launches
                 runs[arch, mode, device] = (
                     res.rows, res.ledger.input_tokens, res.ledger.output_tokens,
                     res.ledger.per_phase, dict(engine.stats),
@@ -1042,9 +1258,18 @@ def phase_reference(seed: int) -> dict:
                                                   for k in ("conv", "ssm")}
     keys = [(arch, mode) for arch, modes in models.items() for mode in modes]
     same = {f"{a}/{m}": runs[a, m, "cuda"] == runs[a, m, "cpu"] for a, m in keys}
-    invariant = {f"{a}/{m}/{dev}": (runs[a, "off", dev][0], runs[a, "off", dev][5]) ==
-                 (runs[a, m, dev][0], runs[a, m, dev][5])
+    # rows and tokens equal the off mode's; for MoE rows only: capacity is
+    # set per call, so a verify round of 20 tokens drops assignments that a
+    # decode step of 4 never does, and tokens may differ by mode (as in the
+    # JAX package); the card must still equal the CPU in every mode
+    cut = {a: 1 if a == "deepseek-v2-lite-16b" else 2 for a in models}
+    invariant = {f"{a}/{m}/{dev}": (runs[a, "off", dev][0], runs[a, "off", dev][5])[:cut[a]] ==
+                 (runs[a, m, dev][0], runs[a, m, dev][5])[:cut[a]]
                  for a, m in keys if m != "off" for dev in ("cuda", "cpu")}
+    moe_tokens = {f"{m}/{dev}": _token_agreement(runs["deepseek-v2-lite-16b", "off", dev][5],
+                                                 runs["deepseek-v2-lite-16b", m, dev][5])
+                  for m in models["deepseek-v2-lite-16b"] if m != "off"
+                  for dev in ("cuda", "cpu")}
     state_err = {f"{a}/{m}": max(max_err(states[a, m, "cuda"][k], states[a, m, "cpu"][k])
                                  for k in ("conv", "ssm"))
                  for a, m in keys if (a, m, "cpu") in states}
@@ -1052,8 +1277,11 @@ def phase_reference(seed: int) -> dict:
     out = {"phase": "reference", "docs": len(corpus.docs),
            "rows": len(runs["qwen2.5-3b", "off", "cpu"][0]),
            "identical": same, "same_rows_and_tokens_as_off": invariant,
+           "moe_token_agreement_with_off": moe_tokens,
            "state_max_abs_err": state_err, "state_tol": STATE_TOL, "engine": st,
-           "drafter": runs["qwen2.5-3b", "draft", "cuda"][6]}
+           "drafter": {a: runs[a, "draft", "cuda"][6] for a in models if "draft" in models[a]},
+           "k6_launches": {f"{a}/{m}/{dev}": gating[a, m, dev] for a, m in keys
+                           for dev in ("cuda", "cpu") if gating[a, m, dev]}}
     emit(out)
     if not all(same.values()) or not all(runs[a, "off", "cpu"][0] for a in models):
         raise AssertionError(f"the card's served query differs from the CPU reference: {same}")
@@ -1073,9 +1301,16 @@ def phase_reference(seed: int) -> dict:
     if not 0 < rb["accepted_tokens"] < rb["draft_tokens"]:
         raise AssertionError(f"falcon-mamba-7b: the scripted drafts did not roll back in "
                              f"part: {rb['accepted_tokens']} of {rb['draft_tokens']} accepted")
-    draft = st["qwen2.5-3b/draft"]
-    if draft["spec_rounds"] <= 0 or draft["draft_tokens"] <= 0:
-        raise AssertionError("the reference draft run had no verify round or no draft")
+    for arch in ("qwen2.5-3b", "deepseek-v2-lite-16b"):
+        draft = st[f"{arch}/draft"]
+        if draft["spec_rounds"] <= 0 or draft["draft_tokens"] <= 0:
+            raise AssertionError(f"{arch}: the reference draft run had no verify round or "
+                                 f"no draft")
+    moe = [m for a, m in keys if a == "deepseek-v2-lite-16b"]
+    if not all(gating["deepseek-v2-lite-16b", m, "cuda"] > 0 for m in moe) or \
+            any(n for (a, m, dev), n in gating.items()
+                if dev == "cpu" or a != "deepseek-v2-lite-16b"):
+        raise AssertionError(f"K6 did not gate every MoE run on the card alone: {gating}")
     return out
 
 
@@ -1158,11 +1393,20 @@ def main() -> int:
         if args.profile:
             report["profile_ssm"] = phase_profile(*served_ssm, args.out, "ssm")
             lap("profile_ssm")
+        # free the falcon-mamba-7b weights before deepseek-v2-lite-16b's
         del served_ssm
+        torch.cuda.empty_cache()
+        report["moe"], served_moe = phase_moe(args.seed, captures, main_result)
+        lap("moe")
+        if args.profile:
+            report["profile_moe"] = phase_profile(*served_moe, args.out, "moe")
+            lap("profile_moe")
+        del served_moe
         torch.cuda.empty_cache()
         launches = {**report["main"]["launches"], "K4": report["spec"]["launches"]["K4"],
                     "K5": report["draft"]["launches"]["K5"],
                     "K5_slab": report["slab"]["launches"]["K5"],
+                    "K6": report["moe"]["launches"]["K6"],
                     "K7": report["ssm"]["launches"]["K7"]}
         report["kernels"] = phase_kernels(captures, launches)
         lap("kernels")

@@ -3,9 +3,10 @@
 `params_from_numpy` takes the nested dict of numpy arrays that
 `jax.tree.map(np.asarray, repro.models.init_params(cfg, key))` gives --
 layers stacked on axis 0 -- and returns the port's parameters: the same
-names and per-layer shapes, the layer stack as a list of per-layer dicts,
-tensors in `dtype` (default cfg.dtype) on `device`, for every family the
-port serves (dense, Mamba1). This module imports no
+names and per-layer shapes, each layer stack ("layers", and the moe
+family's "dense_layers") as a list of per-layer dicts, tensors in `dtype`
+(default cfg.dtype) on `device`, for every family the port serves (dense,
+Mamba1, MoE with MLA). This module imports no
 JAX; the parity tests call JAX on one side and this function on the other.
 """
 from __future__ import annotations
@@ -16,6 +17,8 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import _check_family, torch_dtype
+
+STACKS = ("dense_layers", "layers")      # layer stacks, stacked on axis 0
 
 
 def _to_torch(tree, dev, dt):
@@ -29,13 +32,18 @@ def params_from_numpy(cfg: ModelConfig, tree: dict, device=None, dtype=None) -> 
     _check_family(cfg)
     dev = resolve_device(device)
     dt = dtype or torch_dtype(cfg.dtype)
-    out = {k: _to_torch(v, dev, dt) for k, v in tree.items() if k != "layers"}
-    stacked = _to_torch(tree["layers"], dev, dt)
+    out = {k: _to_torch(v, dev, dt) for k, v in tree.items() if k not in STACKS}
 
     def layer(tree, i):
         if isinstance(tree, dict):
             return {k: layer(v, i) for k, v in tree.items()}
         return tree[i].contiguous()
 
-    out["layers"] = [layer(stacked, i) for i in range(cfg.num_layers)]
+    def n_layers(tree):
+        return n_layers(next(iter(tree.values()))) if isinstance(tree, dict) else tree.shape[0]
+
+    for key in STACKS:
+        if key in tree:
+            stacked = _to_torch(tree[key], dev, dt)
+            out[key] = [layer(stacked, i) for i in range(n_layers(stacked))]
     return out

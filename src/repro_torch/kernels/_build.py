@@ -36,6 +36,7 @@ _SIGNATURES = {
     "repro_paged_verify_attention": [_P] * 7 + [_I] * 9 + [_P],
     "repro_dense_decode_attention": [_P] * 6 + [_I] * 7 + [_P],
     "repro_ssm_scan": [_P] * 10 + [_I] * 5 + [_P],
+    "repro_moe_gating": [_P, _P, _P, _I, _I, _I, _P],
 }
 
 _lib = None

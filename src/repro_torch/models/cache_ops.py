@@ -2,7 +2,8 @@
 `repro.models.cache_ops`).
 
 Slab half: the engine keeps one batched slab decode cache (k/v (L, B,
-max_len, Hkv, D), `model.init_decode_cache`); a request prefills into a
+max_len, Hkv, D), or MLA's ckv/krope (L, B, max_len, r / rd),
+`model.init_decode_cache`); a request prefills into a
 B=1 sub-cache that `write_slot` merges into its slot. The shared-prefix
 cache stores *trimmed* B=1 sub-caches (`prefix_snapshot`: the token axis
 cut to the prefix length, so a snapshot costs O(prefix)), which
@@ -17,7 +18,9 @@ model later writes into in place.
 Paged half: vLLM-style block layout: the length-indexed KV buffers live in
 a shared pool of fixed-size pages; a sequence is a *page table* (block
 index -> physical page id). Page 0 is the sink: dead batch rows write into
-it, it is never allocated and its contents are never used. Copy-on-write
+it and it is never allocated; its contents never reach a live row's
+output, except through MoE capacity, where MLA keeps them as the JAX
+engine does (`layers.write_view_blocks`). Copy-on-write
 of a prefix entry's boundary page (`PageAllocator.copy_page`) and
 speculative rollback (`truncate_pages`, `release_trailing_pages`) work in
 place on the pools.
@@ -31,12 +34,12 @@ from repro_torch.device import resolve_device
 from .config import ModelConfig
 from .model import init_decode_cache
 
-PAGE_SINK = 0  # reserved page id: write target for dead rows, never read
+PAGE_SINK = 0  # reserved page id, never allocated: dead rows and writes past a table land here
 
-# Buffers indexed by token position; the dense family keeps "k" and "v".
-# Every other cache entry (Mamba1's "conv" and "ssm") is per-slot state,
-# copied whole.
-LENGTH_KEYS = ("k", "v")
+# Buffers indexed by token position: the dense family's "k" and "v", MLA's
+# compressed "ckv" and "krope". Every other cache entry (Mamba1's "conv"
+# and "ssm") is per-slot state, copied whole.
+LENGTH_KEYS = ("k", "v", "ckv", "krope")
 
 
 class PagePoolExhausted(RuntimeError):
@@ -110,9 +113,11 @@ class PageAllocator:
     """Fixed-size KV page pool: free-list allocation + ref-counting.
 
     Owns the device pools -- one tensor per length-indexed cache key, shaped
-    (num_layers, num_pages, page_size, n_kv_heads, head_dim) in cfg.dtype;
+    (num_layers, num_pages, page_size, n_kv_heads, head_dim) in cfg.dtype,
+    or (num_layers, num_pages, page_size, r / rd) for MLA's ckv/krope;
     none for Mamba1, whose state is not indexed by position -- and the
-    host-side page metadata.
+    host-side page metadata. MLA's page views are gathered and written
+    back in `layers` (`page_view`, `write_view_blocks`).
     """
 
     def __init__(self, cfg: ModelConfig, num_pages: int, page_size: int, *,
@@ -183,8 +188,8 @@ class PageAllocator:
 
     def copy_page(self, src: int) -> int:
         """Copy-on-write: allocate a fresh page holding `src`'s contents.
-        The copy is made in place in the pools, for every layer and both
-        `k` and `v` (the JAX package donates the pool buffer to the same
+        The copy is made in place in the pools, for every layer and every
+        pooled key (the JAX package donates the pool buffer to the same
         end)."""
         (dst,) = self.alloc(1)
         for pool in self.pools.values():
@@ -200,8 +205,8 @@ def truncate_pages(pools: dict, page_ids: list, start: int, end: int,
     sink). Zeroing, rather than relying only on the position masks,
     restores the pool bit-exactly to its pre-speculation state, so shared
     and copy-on-write pages compare equal byte for byte. Works in place on
-    the pools, for every layer and both `k` and `v`; all arguments are host
-    values."""
+    the pools, for every layer and every pooled key; all arguments are
+    host values."""
     for b in range(start // page_size, -(-end // page_size)):
         if b >= len(page_ids):
             break

@@ -1,8 +1,10 @@
-"""Dense transformer layers in PyTorch (counterpart of `repro.models.layers`).
+"""Transformer layers in PyTorch (counterpart of `repro.models.layers`).
 
 Plain functions on tensors and nested dicts of parameters, laid out as in
 the JAX package (q/k/v projections (d, heads, head_dim), attention tensors
-(B, S, H, D)). Only the dense subset the served path needs is ported.
+(B, S, H, D)). Only the subset the served path needs is ported: dense
+attention and MLP, and DeepSeek-V2's MLA attention and capacity-limited
+MoE.
 
 The attention of the serving path runs through kernels on either KV
 layout. On the paged pool: K1 (decode), K2 (chunk prefill) and K4
@@ -13,14 +15,27 @@ cache per layer, the JAX package's `init_decode_cache` layout --
 page pool (`slab_pages`): the same bytes, no copy. `sdpa` and
 `decode_attention` are the dense forms kept for the kernels' plain
 versions and the tests.
+
+MLA keeps a compressed cache, "ckv" (r) and "krope" (rope dim) per token,
+and computes attention in plain PyTorch, as the JAX package does with
+`jnp.einsum` (no TPU kernel computes it; K1/K2/K4/K5 take equal K and V
+head dims): the slab forms attend the slab, and the paged forms index the
+pools here in `layers` -- they gather each row's page-table view
+(`page_view`), run the slab form on it and write the dirtied blocks back
+(`write_view_blocks`), the JAX engine's own gather/scatter. MoE routes
+through kernel K6 (`moe_gating`); dispatch, the expert products and the
+combine are plain tensor code.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import decode_attention as _k1
 from repro_torch.kernels import flash_attention as _k2
+from repro_torch.kernels import moe_gating as _k6
 from repro_torch.kernels import verify_attention as _k4
 
 from .config import ModelConfig
@@ -345,3 +360,232 @@ def attn_chunk_apply_slab(cfg: ModelConfig, p, x, *, start, k_cache, v_cache, ta
                                      slab_pages(v_cache, ps), tables, start)
     out = out.transpose(1, 2).reshape(B, C, nq, hd)
     return torch.einsum("bshe,hed->bsd", out, p["wo"])
+
+
+# ------------------------------------------------------------------ MLA ----
+# DeepSeek-V2's multi-head latent attention. The cache holds, per token,
+# the normed compressed KV c_kv (r = kv_lora_rank) and the shared rotary
+# key k_rope (qk_rope_dim). Decode and chunks run the absorbed form: w_uk
+# folds into the query and w_uv into the context, so the 16 heads attend
+# one compressed key of width r + rd and read V = c_kv. Op order as the
+# JAX package's: q_abs in the model dtype, both score products in float32
+# (upcast operands, as `preferred_element_type=jnp.float32`), the scale,
+# the -inf mask, a float32 softmax, probabilities cast to the cache dtype
+# before the context product, then w_uv and wo.
+
+
+def _mla_scale(cfg: ModelConfig) -> float:
+    return (cfg.qk_nope_dim + cfg.qk_rope_dim) ** -0.5
+
+
+def chunk_positions(start, B: int, C: int, device):
+    """(B, C) query positions of a chunk at `start` (an int, a 0-d tensor
+    or per-row (B,))."""
+    s = torch.as_tensor(start, device=device).reshape(-1, 1).long()
+    return (s + torch.arange(C, device=device)[None, :]).expand(B, C)
+
+
+def mla_project(cfg: ModelConfig, p, x, positions):
+    """Shared query and compressed-KV projections. x (B, S, d); positions
+    broadcastable to (B, S). Returns q_nope (B, S, H, nd), q_rope (B, S,
+    H, rd), c_kv (B, S, r), k_rope (B, S, rd)."""
+    nd, r = cfg.qk_nope_dim, cfg.kv_lora_rank
+    q = torch.einsum("bsd,dhe->bshe", x, p["wq"])
+    q_nope, q_rope = q[..., :nd], apply_rope(q[..., nd:], positions, cfg.rope_theta)
+    dkv = x @ p["w_dkv"]
+    c_kv = rms_norm(dkv[..., :r], p["kv_norm"], cfg.norm_eps)
+    k_rope = apply_rope(dkv[..., r:][..., None, :], positions, cfg.rope_theta)[..., 0, :]
+    return q_nope, q_rope, c_kv, k_rope
+
+
+def mla_apply(cfg: ModelConfig, p, x, *, positions):
+    """Full-sequence causal MLA in the non-absorbed form (the slab's
+    whole-prompt prefill): per-head K = [c_kv w_uk, k_rope] (nd + rd) and
+    V = c_kv w_uv (vd). Returns (out (B, S, d), c_kv, k_rope)."""
+    B, S, _ = x.shape
+    H, vd, rd = cfg.n_heads, cfg.v_head_dim, cfg.qk_rope_dim
+    q_nope, q_rope, c_kv, k_rope = mla_project(cfg, p, x, positions)
+    k_nope = torch.einsum("bsr,rhe->bshe", c_kv, p["w_uk"])
+    v = torch.einsum("bsr,rhe->bshe", c_kv, p["w_uv"])
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, S, H, rd)], dim=-1)
+    out = sdpa(q[:, :, :, None, :], k, v, causal=True, scale=_mla_scale(cfg))
+    out = out.reshape(B, S, H, vd)
+    return torch.einsum("bshe,hed->bsd", out, p["wo"]), c_kv, k_rope
+
+
+def _mla_attend(cfg: ModelConfig, p, q_nope, q_rope, ckv, krope, q_pos):
+    """Absorbed attention of queries at q_pos (B, C) over a compressed
+    cache (B, T, r) / (B, T, rd): keys at positions <= the query's own."""
+    q_abs = torch.einsum("bshe,rhe->bshr", q_nope, p["w_uk"])
+    s = torch.einsum("bshr,btr->bhst", q_abs.float(), ckv.float())
+    s = s + torch.einsum("bshe,bte->bhst", q_rope.float(), krope.float())
+    s = s * _mla_scale(cfg)
+    ok = torch.arange(ckv.shape[1], device=ckv.device)[None, None, :] <= q_pos[:, :, None]
+    s = s.masked_fill(~ok[:, None], float("-inf"))
+    pr = torch.softmax(s, dim=-1)
+    ctx = torch.einsum("bhst,btr->bshr", pr.to(ckv.dtype), ckv)
+    out = torch.einsum("bshr,rhe->bshe", ctx, p["w_uv"])
+    return torch.einsum("bshe,hed->bsd", out, p["wo"])
+
+
+def mla_decode_apply_slab(cfg: ModelConfig, p, x, *, pos, ckv_cache, krope_cache):
+    """Single-token MLA decode on slab layers (the JAX `mla_decode_apply`).
+    x (B, 1, d); pos a 0-d tensor or per-row (B,); the token's c_kv/k_rope
+    are written at pos (`cache_write`: clamped, or dropped past the slab
+    per row) before it attends positions <= pos. Returns (B, 1, d)."""
+    B, S, _ = x.shape
+    pp = pos.reshape(-1, 1).expand(B, S)
+    q_nope, q_rope, c_kv, k_rope = mla_project(cfg, p, x, pp)
+    cache_write(ckv_cache, c_kv, pos)
+    cache_write(krope_cache, k_rope, pos)
+    return _mla_attend(cfg, p, q_nope, q_rope, ckv_cache, krope_cache, pp)
+
+
+def mla_chunk_apply_slab(cfg: ModelConfig, p, x, *, start, ckv_cache, krope_cache):
+    """C-token MLA chunk on slab layers (the JAX `mla_chunk_apply`): the
+    chunk's compressed KV is written at [start, start+C) (`cache_write_chunk`:
+    a shared start clamped, per-row (B,) starts dropped past the slab) and
+    each query attends positions <= its own. Returns (B, C, d)."""
+    B, C, _ = x.shape
+    q_pos = chunk_positions(start, B, C, x.device)
+    q_nope, q_rope, c_kv, k_rope = mla_project(cfg, p, x, q_pos)
+    cache_write_chunk(ckv_cache, c_kv, start)
+    cache_write_chunk(krope_cache, k_rope, start)
+    return _mla_attend(cfg, p, q_nope, q_rope, ckv_cache, krope_cache, q_pos)
+
+
+def page_view(pool, table):
+    """Each row's context gathered through its page table, as the JAX
+    package's `cache_ops.gather_page_views`: pool (P, ps, *tail), table
+    (B, nb) -> a (B, nb * ps, *tail) copy."""
+    g = pool[table.long()]
+    return g.reshape((g.shape[0], g.shape[1] * g.shape[2]) + tuple(g.shape[3:]))
+
+
+def write_view_blocks(pool, view, blocks, ids):
+    """Write blocks (B, n) of each row's `page_view` back into the pool's
+    pages ids (B, n), in place, as the JAX engine's page scatter: where a
+    page id repeats (only the sink does: dead rows and blocks past a row's
+    pages), the last (row, block) in row-major order wins, which is what
+    the JAX CPU scatter leaves there. Every duplicate carries that block,
+    so the write is deterministic on the card too. Dead rows read the sink
+    back, and with MoE a dead row's tokens compete for expert capacity, so
+    its contents are part of the result."""
+    ps = pool.shape[1]
+    B = view.shape[0]
+    tail = tuple(view.shape[2:])
+    rows = torch.arange(B, device=view.device)[:, None].expand_as(blocks)
+    pages = view.reshape((B, -1, ps) + tail)[rows, blocks].reshape((-1, ps) + tail)
+    flat = ids.reshape(-1).long()
+    order = torch.arange(flat.numel(), device=flat.device)
+    last = torch.where(flat[None, :] == flat[:, None], order[None, :], -1).amax(1)
+    pool[flat] = pages[last].to(pool.dtype)
+
+
+def mla_decode_apply(cfg: ModelConfig, p, x, *, pos, ckv_pool, krope_pool, table,
+                     write_pages):
+    """Single-token MLA decode of every slot on the page pool. Pools (P, ps,
+    r) / (P, ps, rd) of this layer; table (B, nb) page tables; pos (B,);
+    write_pages (B,) the page holding pos (the sink for a dead row). Each
+    row attends its gathered view with the token written in, and the view
+    block holding pos (clamped into the view) goes back to write_pages.
+    Returns (B, 1, d)."""
+    ps = ckv_pool.shape[1]
+    ckv, kr = page_view(ckv_pool, table), page_view(krope_pool, table)
+    out = mla_decode_apply_slab(cfg, p, x, pos=pos, ckv_cache=ckv, krope_cache=kr)
+    blocks = (pos.long() // ps).clamp(max=table.shape[1] - 1)[:, None]
+    ids = write_pages.reshape(-1, 1)
+    write_view_blocks(ckv_pool, ckv, blocks, ids)
+    write_view_blocks(krope_pool, kr, blocks, ids)
+    return out
+
+
+def mla_chunk_apply(cfg: ModelConfig, p, x, *, start: int, ckv_pool, krope_pool, ctx_ids):
+    """MLA prefill chunk of one sequence on the page pool: x (1, C, d) at
+    positions [start, start+C); ctx_ids (n_ctx,) the sequence's page table.
+    The view's blocks [b0, b0 + nb) that the padded chunk can dirty go back
+    to their pages (the sink past the sequence's pages), with nb and b0 as
+    the JAX engine's chunk scatter. Returns (1, C, d)."""
+    ps = ckv_pool.shape[1]
+    C, n_ctx = x.shape[1], ctx_ids.shape[0]
+    table = ctx_ids[None]
+    ckv, kr = page_view(ckv_pool, table), page_view(krope_pool, table)
+    out = mla_chunk_apply_slab(cfg, p, x, start=start, ckv_cache=ckv, krope_cache=kr)
+    nb = (C + ps - 2) // ps + 1 if ps > 1 else C
+    b0 = min(start // ps, n_ctx - nb)
+    blocks = torch.arange(b0, b0 + nb, device=x.device)[None]
+    ids = table[:, b0:b0 + nb]
+    write_view_blocks(ckv_pool, ckv, blocks, ids)
+    write_view_blocks(krope_pool, kr, blocks, ids)
+    return out
+
+
+def mla_verify_apply(cfg: ModelConfig, p, x, *, pos, ckv_pool, krope_pool, table,
+                     block0s):
+    """Speculative-verify MLA of every slot on the page pool: row b's C
+    candidates sit at pos[b] + c (per-row start; positions past the view
+    dropped) and attend its gathered view. Blocks [block0s[b], block0s[b] +
+    nb) of each view go back to the row's pages (the sink past them, and
+    for a dead row), as the JAX engine's verify scatter. Returns (B, C, d)."""
+    ps = ckv_pool.shape[1]
+    C = x.shape[1]
+    ckv, kr = page_view(ckv_pool, table), page_view(krope_pool, table)
+    out = mla_chunk_apply_slab(cfg, p, x, start=pos, ckv_cache=ckv, krope_cache=kr)
+    nb = (C + ps - 2) // ps + 1 if ps > 1 else C
+    blocks = block0s.long()[:, None] + torch.arange(nb, device=x.device)[None, :]
+    ids = table.long().gather(1, blocks)
+    write_view_blocks(ckv_pool, ckv, blocks, ids)
+    write_view_blocks(krope_pool, kr, blocks, ids)
+    return out
+
+
+# ------------------------------------------------------------------ MoE ----
+
+
+def moe_capacity(cfg: ModelConfig, T: int) -> int:
+    """Slots per expert for T tokens: capacity_factor x k x T / E, rounded
+    up to a multiple of 8, at least 8."""
+    C = int(math.ceil(cfg.capacity_factor * cfg.moe_top_k * T / cfg.n_experts))
+    return max(8, -(-C // 8) * 8)
+
+
+def moe_apply(cfg: ModelConfig, p, x):
+    """Capacity-limited top-k MoE with gather/scatter dispatch (the JAX
+    `moe_apply`, ungrouped). x (B, S, d) -> (B, S, d).
+
+    Every token of the call counts toward capacity (C from T = B * S, pad
+    positions and dead rows included), and assignments are numbered in
+    (token, rank) order: an expert's slots go to its first C assignments
+    and later ones are dropped (GShard-style), so tokens of one call
+    interact. Gating runs kernel K6 on the float32 router logits (formed
+    in the model dtype). Each token's k weighted expert rows are summed in
+    rank order from zeros in the model dtype -- the JAX CPU scatter-add's
+    order -- and not with `index_add_`, whose atomics on the card sum in an
+    order that changes from run to run."""
+    B, S, d = x.shape
+    x2 = x.reshape(B * S, d)
+    T, E, K = B * S, cfg.n_experts, cfg.moe_top_k
+    C = moe_capacity(cfg, T)
+    top_w, top_i = _k6.moe_gating((x2 @ p["router"]).float(), K)
+    flat_e = top_i.reshape(-1).long()
+    flat_t = torch.arange(T, device=x.device).repeat_interleave(K)
+    pos = (F.one_hot(flat_e, E).cumsum(0) - 1).gather(1, flat_e[:, None])[:, 0]
+    keep = pos < C
+    slot = torch.where(keep, flat_e * C + pos, E * C)        # E * C: the drop slot
+    xe = x2.new_zeros((E * C + 1, d))
+    xe[slot] = x2[flat_t]               # kept slots are distinct; the drop slot is cut
+    xe = xe[:E * C].reshape(E, C, d)
+    act = activation_fn(cfg.activation)
+    h = act(torch.bmm(xe, p["w_gate"])) * torch.bmm(xe, p["w_up"])
+    ye = torch.bmm(h, p["w_down"])
+    ye_flat = torch.cat([ye.reshape(E * C, d), ye.new_zeros((1, d))])
+    back = ye_flat[slot] * (top_w.reshape(-1) * keep)[:, None].to(ye.dtype)
+    back = back.reshape(T, K, d)
+    y = x2.new_zeros((T, d))
+    for j in range(K):
+        y = y + back[:, j]
+    if cfg.n_shared_experts:
+        sp = p["shared"]
+        y = y + (act(x2 @ sp["w_gate"]) * (x2 @ sp["w_up"])) @ sp["w_down"]
+    return y.reshape(B, S, d)

@@ -1,12 +1,15 @@
 """Model assembly in PyTorch: parameters, and the forward passes of the
-serving engine on both KV layouts (counterpart of `repro.models.model`,
-dense family and the Mamba1 ssm family).
+serving engine on both KV layouts (counterpart of `repro.models.model`:
+the dense family, the Mamba1 ssm family, and the moe family with MLA
+attention).
 
 Parameters are a nested dict of tensors with the JAX package's names and
-shapes, except that the layer stack is a Python list of per-layer dicts
+shapes, except that each layer stack is a Python list of per-layer dicts
 (the JAX package stacks layers on axis 0 for `lax.scan`; PyTorch runs the
 layers in a loop). They are stored in `cfg.dtype` (the JAX package keeps
-float32 and casts per call).
+float32 and casts per call). The moe family keeps two stacks, as the JAX
+package: "dense_layers" (the first `first_dense_layers`, with an MLP) and
+"layers" (MoE); cache and pool index li runs over both, dense first.
 
 Paged layout: the length-indexed KV lives in pools shaped (L, P, ps, Hkv,
 D); the serving engine owns them (`cache_ops.PageAllocator`).
@@ -35,6 +38,14 @@ through kernel K7; verify also fills `ckpts` -- "ssm" (L, B, C, di, N),
 the state after every position, and "conv" (L, B, K-1+C, di), the raw
 input history -- which the engine restores a rejected suffix from
 (`init_verify_ckpts` allocates them once).
+
+MoE with MLA (`family="moe"`, `use_mla`, deepseek-v2-lite-16b) keeps the
+compressed cache "ckv" (L, B, max_len, r) and "krope" (L, B, max_len, rd)
+on the slab, and pools of the same two keys on the paged layout. Its
+attention is plain PyTorch (`layers.mla_*`): the paged forms gather each
+row's view through its page table and write the dirtied blocks back as the
+JAX engine does, which is why `verify_chunk` takes the engine's `block0s`.
+Every MoE layer gates through kernel K6.
 """
 from __future__ import annotations
 
@@ -61,9 +72,15 @@ def _check_family(cfg: ModelConfig) -> None:
         return
     if cfg.family == "ssm" and cfg.mamba_version == 1:
         return
+    if cfg.family == "moe" and cfg.use_mla:
+        return
+    if cfg.family == "moe":
+        raise NotImplementedError(
+            "MoE without MLA attention (grok-1-314b) is not yet ported, see "
+            "ROADMAP.md Queue 1")
     raise NotImplementedError(
         f"model family {cfg.family!r} is not yet ported, see ROADMAP.md "
-        f"Queue 1 (the port serves the dense family and Mamba1)")
+        f"Queue 1 (the port serves the dense family, Mamba1 and MoE with MLA)")
 
 
 # ------------------------------------------------------------------ init ----
@@ -74,13 +91,16 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
     """Random parameters with the distributions of `repro.models.model.
     init_params` (normal * 0.02, output projections scaled by
     1/sqrt(2L), zero biases, unit norms; Mamba1 blocks as `ssm.
-    mamba1_init`, drawn in float32), drawn from `generator` -- a different
+    mamba1_init`, drawn in float32; MLA and MoE blocks as `mla_init` and
+    `moe_init`), drawn from `generator` -- a different
     draw from JAX's, made on `device` in `dtype` (default cfg.dtype). A
-    generator must live on `device`; None seeds one with 0."""
+    generator must live on `device`; None seeds one with 0. On the meta
+    device nothing is drawn: the shapes alone, for `param_count` at full
+    width."""
     _check_family(cfg)
     dev = resolve_device(device)
     dt = dtype or torch_dtype(cfg.dtype)
-    if generator is None:
+    if generator is None and dev.type != "meta":     # meta: shapes only
         generator = torch.Generator(device=dev).manual_seed(0)
     d, hd, nq, nkv, ff = (cfg.d_model, cfg.resolved_head_dim, cfg.n_heads,
                           cfg.n_kv_heads, cfg.d_ff)
@@ -103,6 +123,44 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
         p["layers"] = [{"norm": ones(d), "mamba": S.mamba1_init(cfg, generator, dev, dt)}
                        for _ in range(cfg.num_layers)]
         return p
+
+    def mlp():
+        m = {"w_down": normal((ff, d), out_std)}
+        if cfg.gated_mlp:
+            m.update(w_gate=normal((d, ff), 0.02), w_up=normal((d, ff), 0.02))
+        else:
+            m["w_in"] = normal((d, ff), 0.02)
+        return m
+
+    if cfg.family == "moe":
+        r, nd, rd, vd = cfg.kv_lora_rank, cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+        E, eff = cfg.n_experts, cfg.expert_d_ff or cfg.d_ff
+
+        def block(moe):
+            b = {"attn_norm": ones(d),
+                 "attn": {"wq": normal((d, nq, nd + rd), 0.02),
+                          "w_dkv": normal((d, r + rd), 0.02),
+                          "w_uk": normal((r, nq, nd), 0.02),
+                          "w_uv": normal((r, nq, vd), 0.02),
+                          "wo": normal((nq, vd, d), out_std), "kv_norm": ones(r)["w"]},
+                 "mlp_norm": ones(d)}
+            if not moe:
+                b["mlp"] = mlp()
+                return b
+            b["moe"] = {"router": normal((d, E), 0.02), "w_gate": normal((E, d, eff), 0.02),
+                        "w_up": normal((E, d, eff), 0.02),
+                        "w_down": normal((E, eff, d), out_std)}
+            if cfg.n_shared_experts:
+                sh = eff * cfg.n_shared_experts
+                b["moe"]["shared"] = {"w_gate": normal((d, sh), 0.02),
+                                      "w_up": normal((d, sh), 0.02),
+                                      "w_down": normal((sh, d), out_std)}
+            return b
+        nd_layers = cfg.first_dense_layers
+        if nd_layers:
+            p["dense_layers"] = [block(False) for _ in range(nd_layers)]
+        p["layers"] = [block(True) for _ in range(cfg.num_layers - nd_layers)]
+        return p
     layers = []
     for _ in range(cfg.num_layers):
         attn = {"wq": normal((d, nq, hd), 0.02), "wk": normal((d, nkv, hd), 0.02),
@@ -111,13 +169,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
             attn.update(bq=zeros((nq, hd)), bk=zeros((nkv, hd)), bv=zeros((nkv, hd)))
         if cfg.qk_norm:
             attn.update(q_norm=ones(hd)["w"], k_norm=ones(hd)["w"])
-        mlp = {"w_down": normal((ff, d), out_std)}
-        if cfg.gated_mlp:
-            mlp.update(w_gate=normal((d, ff), 0.02), w_up=normal((d, ff), 0.02))
-        else:
-            mlp["w_in"] = normal((d, ff), 0.02)
         layers.append({"attn_norm": ones(d), "attn": attn, "mlp_norm": ones(d),
-                       "mlp": mlp})
+                       "mlp": mlp()})
     p["layers"] = layers
     return p
 
@@ -136,8 +189,22 @@ def _head(cfg: ModelConfig, params):
     return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
 
 
-def _mlp_block(cfg, lp, x):
-    return x + L.mlp_apply(cfg, lp["mlp"], L.norm_apply(cfg, lp["mlp_norm"], x))
+def _blocks(params) -> list:
+    """Every attention block in cache order: the moe family's dense layers
+    first, then its MoE layers (the JAX package concatenates their caches
+    so)."""
+    return params.get("dense_layers", []) + params["layers"]
+
+
+def _trunk(cfg, params, x, attend):
+    """Run the attention blocks: x + attend(li, attn params, normed x), then
+    the MLP or MoE feed-forward on the residual."""
+    for li, lp in enumerate(_blocks(params)):
+        x = x + attend(li, lp["attn"], L.norm_apply(cfg, lp["attn_norm"], x))
+        h = L.norm_apply(cfg, lp["mlp_norm"], x)
+        x = x + (L.moe_apply(cfg, lp["moe"], h) if "moe" in lp
+                 else L.mlp_apply(cfg, lp["mlp"], h))
+    return x
 
 
 # ------------------------------------------------------ Mamba1 (ssm) -------
@@ -234,23 +301,29 @@ def decode_step(cfg: ModelConfig, params, tokens, pos, pools, table, write_pages
     layer's K/V at (write_pages[b], pos[b] % ps) and attends positions
     < pos[b] + 1 with kernel K1. Returns logits (B, 1, V); the caller
     advances pos. Mamba1 steps `state` (conv/ssm, B rows) in place
-    instead, with plain tensor ops; pools and tables go unused.
+    instead, with plain tensor ops; pools and tables go unused. MLA attends
+    each row's gathered view and writes the block holding pos back to
+    write_pages (`layers.mla_decode_apply`).
     """
     _check_family(cfg)
     if cfg.family == "ssm":
         return _ssm_decode(cfg, params, tokens, state)
-    ps = pools["k"].shape[2]
-    wp = write_pages.long()
-    offs = (pos % ps).long()
     x = params["embed"][tokens.long()]
-    for li, lp in enumerate(params["layers"]):
-        h = L.norm_apply(cfg, lp["attn_norm"], x)
-        x = x + L.attn_decode_apply(cfg, lp["attn"], h, pos=pos,
-                                    k_pool=pools["k"][li], v_pool=pools["v"][li],
-                                    table=table, write_pages=wp, write_offsets=offs)
-        x = _mlp_block(cfg, lp, x)
-    x = L.norm_apply(cfg, params["final_norm"], x)
-    return x @ _head(cfg, params)
+    if cfg.use_mla:
+        def attend(li, p, h):
+            return L.mla_decode_apply(cfg, p, h, pos=pos, ckv_pool=pools["ckv"][li],
+                                      krope_pool=pools["krope"][li], table=table,
+                                      write_pages=write_pages)
+    else:
+        ps = pools["k"].shape[2]
+        wp = write_pages.long()
+        offs = (pos % ps).long()
+
+        def attend(li, p, h):
+            return L.attn_decode_apply(cfg, p, h, pos=pos, k_pool=pools["k"][li],
+                                       v_pool=pools["v"][li], table=table,
+                                       write_pages=wp, write_offsets=offs)
+    return _logits(cfg, params, _trunk(cfg, params, x, attend))
 
 
 # ------------------------------------------------------- chunked prefill ---
@@ -269,33 +342,36 @@ def prefill_chunk(cfg: ModelConfig, params, tokens, start: int, length: int,
     the context causally. Returns the logits (1, 1, V) at the last real
     position; the sequence's position advances by `length`. Mamba1
     advances the sequence's B=1 `state` in place through K7, frozen past
-    `length`; pools and ctx_ids go unused.
+    `length`; pools and ctx_ids go unused. MLA attends the sequence's
+    gathered view (`layers.mla_chunk_apply`).
     """
     _check_family(cfg)
     if cfg.family == "ssm":
         return _ssm_chunk(cfg, params, tokens, length, state)
-    ps = pools["k"].shape[2]
-    C = tokens.shape[1]
-    positions = start + torch.arange(C, device=ctx_ids.device)
-    wp = ctx_ids[positions // ps].long()
-    offs = positions % ps
     x = params["embed"][tokens.long()]
-    for li, lp in enumerate(params["layers"]):
-        h = L.norm_apply(cfg, lp["attn_norm"], x)
-        x = x + L.attn_chunk_apply(cfg, lp["attn"], h, start=start,
-                                   k_pool=pools["k"][li], v_pool=pools["v"][li],
-                                   ctx_ids=ctx_ids, write_pages=wp,
-                                   write_offsets=offs)
-        x = _mlp_block(cfg, lp, x)
-    x = L.norm_apply(cfg, params["final_norm"], x[:, length - 1:length])
-    return x @ _head(cfg, params)
+    if cfg.use_mla:
+        def attend(li, p, h):
+            return L.mla_chunk_apply(cfg, p, h, start=start, ckv_pool=pools["ckv"][li],
+                                     krope_pool=pools["krope"][li], ctx_ids=ctx_ids)
+    else:
+        ps = pools["k"].shape[2]
+        positions = start + torch.arange(tokens.shape[1], device=ctx_ids.device)
+        wp = ctx_ids[positions // ps].long()
+        offs = positions % ps
+
+        def attend(li, p, h):
+            return L.attn_chunk_apply(cfg, p, h, start=start, k_pool=pools["k"][li],
+                                      v_pool=pools["v"][li], ctx_ids=ctx_ids,
+                                      write_pages=wp, write_offsets=offs)
+    x = _trunk(cfg, params, x, attend)
+    return _logits(cfg, params, x[:, length - 1:length])
 
 
 # -------------------------------------------------- speculative verify -----
 
 
 def verify_chunk(cfg: ModelConfig, params, tokens, pos, pools, table,
-                 write_pages, write_offsets, state=None, ckpts=None):
+                 write_pages, write_offsets, state=None, ckpts=None, block0s=None):
     """Speculative-decoding verification forward on the page pool.
 
     tokens (B, C) int: each row's pending token plus its drafts, right-
@@ -310,21 +386,27 @@ def verify_chunk(cfg: ModelConfig, params, tokens, pos, pools, table,
     are no checkpoints; rollback is the engine's page truncation. Mamba1
     advances `state` (B rows) in place through all C candidates with K7
     and writes the rollback checkpoints into `ckpts` (`init_verify_ckpts`);
-    pools and tables go unused.
+    pools and tables go unused. MLA attends each row's gathered view and
+    writes its blocks [block0s[b], block0s[b] + nb) back through the table
+    (`layers.mla_verify_apply`); block0s (B,) is the JAX engine's.
     """
     _check_family(cfg)
     if cfg.family == "ssm":
         return _ssm_verify(cfg, params, tokens, state, ckpts)
-    wp, offs = write_pages.long(), write_offsets.long()
     x = params["embed"][tokens.long()]
-    for li, lp in enumerate(params["layers"]):
-        h = L.norm_apply(cfg, lp["attn_norm"], x)
-        x = x + L.attn_verify_apply(cfg, lp["attn"], h, pos=pos,
-                                    k_pool=pools["k"][li], v_pool=pools["v"][li],
-                                    table=table, write_pages=wp, write_offsets=offs)
-        x = _mlp_block(cfg, lp, x)
-    x = L.norm_apply(cfg, params["final_norm"], x)
-    return x @ _head(cfg, params)
+    if cfg.use_mla:
+        def attend(li, p, h):
+            return L.mla_verify_apply(cfg, p, h, pos=pos, ckv_pool=pools["ckv"][li],
+                                      krope_pool=pools["krope"][li], table=table,
+                                      block0s=block0s)
+    else:
+        wp, offs = write_pages.long(), write_offsets.long()
+
+        def attend(li, p, h):
+            return L.attn_verify_apply(cfg, p, h, pos=pos, k_pool=pools["k"][li],
+                                       v_pool=pools["v"][li], table=table,
+                                       write_pages=wp, write_offsets=offs)
+    return _logits(cfg, params, _trunk(cfg, params, x, attend))
 
 
 # ------------------------------------------------------------ slab KV ------
@@ -334,18 +416,24 @@ def init_decode_cache(cfg: ModelConfig, B: int, max_len: int, dtype=None,
                       device=None) -> dict:
     """Slab decode cache sized for `max_len` tokens, as the JAX package's:
     pos a 0-d int32 (the engine makes it (B,)), k/v (L, B, max_len, Hkv,
-    D) zeros in `dtype` (default cfg.dtype); Mamba1 keeps its state
-    (`init_state_cache`) instead of k/v."""
+    D) zeros in `dtype` (default cfg.dtype); MLA keeps ckv (L, B, max_len,
+    r) and krope (L, B, max_len, rd) instead; Mamba1 keeps its state
+    (`init_state_cache`)."""
     _check_family(cfg)
     dev = resolve_device(device)
     dt = dtype or torch_dtype(cfg.dtype)
+    cache = {"pos": torch.zeros((), dtype=torch.int32, device=dev)}
     if cfg.family == "ssm":
-        return {"pos": torch.zeros((), dtype=torch.int32, device=dev),
-                **init_state_cache(cfg, B, dtype=dt, device=dev)}
-    shape = (cfg.num_layers, B, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
-    return {"pos": torch.zeros((), dtype=torch.int32, device=dev),
-            "k": torch.zeros(shape, dtype=dt, device=dev),
-            "v": torch.zeros(shape, dtype=dt, device=dev)}
+        return {**cache, **init_state_cache(cfg, B, dtype=dt, device=dev)}
+    Lc = cfg.num_layers
+    if cfg.use_mla:
+        cache["ckv"] = torch.zeros((Lc, B, max_len, cfg.kv_lora_rank), dtype=dt, device=dev)
+        cache["krope"] = torch.zeros((Lc, B, max_len, cfg.qk_rope_dim), dtype=dt, device=dev)
+        return cache
+    shape = (Lc, B, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
+    cache["k"] = torch.zeros(shape, dtype=dt, device=dev)
+    cache["v"] = torch.zeros(shape, dtype=dt, device=dev)
+    return cache
 
 
 def prefill(cfg: ModelConfig, params, tokens, max_len: int, length=None):
@@ -356,9 +444,10 @@ def prefill(cfg: ModelConfig, params, tokens, max_len: int, length=None):
     engine buckets the prompt (None: all S are real). Every position's K/V
     is written (padded positions hold K/V no query attends before a later
     write replaces it), each layer's causal attention runs kernel K2 over
-    the slab from position 0, and cache["pos"] = length. Mamba1 runs the
-    prompt as one chunk through K7 from the fresh cache's zero state,
-    frozen past `length`.
+    the slab from position 0, and cache["pos"] = length. MLA runs the
+    non-absorbed causal attention over the prompt (`layers.mla_apply`) and
+    writes its c_kv/k_rope. Mamba1 runs the prompt as one chunk through K7
+    from the fresh cache's zero state, frozen past `length`.
     """
     _check_family(cfg)
     B, S = tokens.shape
@@ -372,17 +461,25 @@ def prefill(cfg: ModelConfig, params, tokens, max_len: int, length=None):
         logits = _ssm_chunk(cfg, params, tokens, n, cache)
         cache["pos"] = torch.tensor(n, dtype=torch.int32, device=dev)
         return logits, cache
-    ps = L.slab_page_size(max_len)
-    tables = L.slab_tables(B, max_len, ps, dev)
     x = params["embed"][tokens.long()]
-    for li, lp in enumerate(params["layers"]):
-        h = L.norm_apply(cfg, lp["attn_norm"], x)
-        x = x + L.attn_apply_slab(cfg, lp["attn"], h, k_cache=cache["k"][li],
-                                  v_cache=cache["v"][li], tables=tables)
-        x = _mlp_block(cfg, lp, x)
-    x = L.norm_apply(cfg, params["final_norm"], x[:, n - 1:n])
+    if cfg.use_mla:
+        positions = torch.arange(S, device=dev)[None]
+
+        def attend(li, p, h):
+            out, c_kv, k_rope = L.mla_apply(cfg, p, h, positions=positions)
+            L.cache_write_chunk(cache["ckv"][li], c_kv, 0)
+            L.cache_write_chunk(cache["krope"][li], k_rope, 0)
+            return out
+    else:
+        ps = L.slab_page_size(max_len)
+        tables = L.slab_tables(B, max_len, ps, dev)
+
+        def attend(li, p, h):
+            return L.attn_apply_slab(cfg, p, h, k_cache=cache["k"][li],
+                                     v_cache=cache["v"][li], tables=tables)
+    x = _trunk(cfg, params, x, attend)
     cache["pos"] = torch.tensor(n, dtype=torch.int32, device=dev)
-    return x @ _head(cfg, params), cache
+    return _logits(cfg, params, x[:, n - 1:n]), cache
 
 
 def decode_step_slab(cfg: ModelConfig, params, tokens, cache):
@@ -392,8 +489,9 @@ def decode_step_slab(cfg: ModelConfig, params, tokens, cache):
     position: the B=1 sub-cache of a prompt suffix or the drafter's
     prefill) or (B,) per-row positions. Writes each layer's K/V at pos
     (rows at or past max_len dropped) and attends positions < pos + 1 with
-    kernel K5. Returns (logits (B, 1, V), cache) with pos advanced by one.
-    Mamba1 steps the cache's conv/ssm in place.
+    kernel K5 (MLA: `layers.mla_decode_apply_slab`). Returns (logits (B,
+    1, V), cache) with pos advanced by one. Mamba1 steps the cache's
+    conv/ssm in place.
     """
     _check_family(cfg)
     pos = cache["pos"]
@@ -401,14 +499,17 @@ def decode_step_slab(cfg: ModelConfig, params, tokens, cache):
         cache["pos"] = pos + 1
         return _ssm_decode(cfg, params, tokens, cache), cache
     x = params["embed"][tokens.long()]
-    for li, lp in enumerate(params["layers"]):
-        h = L.norm_apply(cfg, lp["attn_norm"], x)
-        x = x + L.attn_decode_apply_slab(cfg, lp["attn"], h, pos=pos,
-                                         k_cache=cache["k"][li], v_cache=cache["v"][li])
-        x = _mlp_block(cfg, lp, x)
-    x = L.norm_apply(cfg, params["final_norm"], x)
+    if cfg.use_mla:
+        def attend(li, p, h):
+            return L.mla_decode_apply_slab(cfg, p, h, pos=pos, ckv_cache=cache["ckv"][li],
+                                           krope_cache=cache["krope"][li])
+    else:
+        def attend(li, p, h):
+            return L.attn_decode_apply_slab(cfg, p, h, pos=pos, k_cache=cache["k"][li],
+                                            v_cache=cache["v"][li])
+    x = _trunk(cfg, params, x, attend)
     cache["pos"] = pos + 1
-    return x @ _head(cfg, params), cache
+    return _logits(cfg, params, x), cache
 
 
 def verify_chunk_slab(cfg: ModelConfig, params, tokens, cache, ckpts=None):
@@ -419,28 +520,30 @@ def verify_chunk_slab(cfg: ModelConfig, params, tokens, cache, ckpts=None):
     padded; cache["pos"] (B,) int32 -- row b's candidate c sits at
     pos[b] + c. Each layer writes the candidates' K/V (positions at or past
     max_len dropped, as JAX's `mode="drop"`), then kernel K4 attends
-    causally from pos[b] over the slab seen as pages. Returns (logits
-    (B, C, V), cache) with pos advanced by C; the dense family keeps no
-    recurrent state, so rollback is the engine's position reset. Mamba1
-    advances the cache's conv/ssm in place with K7 and fills `ckpts` as
-    `verify_chunk` does.
+    causally from pos[b] over the slab seen as pages (MLA: `layers.
+    mla_chunk_apply_slab`). Returns (logits (B, C, V), cache) with pos
+    advanced by C; the dense family keeps no recurrent state, so rollback
+    is the engine's position reset. Mamba1 advances the cache's conv/ssm in
+    place with K7 and fills `ckpts` as `verify_chunk` does.
     """
     _check_family(cfg)
     pos = cache["pos"]
     if cfg.family == "ssm":
         cache["pos"] = pos + tokens.shape[1]
         return _ssm_verify(cfg, params, tokens, cache, ckpts), cache
-    B, _ = tokens.shape
-    S = cache["k"].shape[2]
-    ps = L.slab_page_size(S)
-    tables = L.slab_tables(B, S, ps, pos.device)
     x = params["embed"][tokens.long()]
-    for li, lp in enumerate(params["layers"]):
-        h = L.norm_apply(cfg, lp["attn_norm"], x)
-        x = x + L.attn_chunk_apply_slab(cfg, lp["attn"], h, start=pos,
-                                        k_cache=cache["k"][li], v_cache=cache["v"][li],
-                                        tables=tables)
-        x = _mlp_block(cfg, lp, x)
-    x = L.norm_apply(cfg, params["final_norm"], x)
+    if cfg.use_mla:
+        def attend(li, p, h):
+            return L.mla_chunk_apply_slab(cfg, p, h, start=pos, ckv_cache=cache["ckv"][li],
+                                          krope_cache=cache["krope"][li])
+    else:
+        S = cache["k"].shape[2]
+        ps = L.slab_page_size(S)
+        tables = L.slab_tables(tokens.shape[0], S, ps, pos.device)
+
+        def attend(li, p, h):
+            return L.attn_chunk_apply_slab(cfg, p, h, start=pos, k_cache=cache["k"][li],
+                                           v_cache=cache["v"][li], tables=tables)
+    x = _trunk(cfg, params, x, attend)
     cache["pos"] = pos + tokens.shape[1]
-    return x @ _head(cfg, params), cache
+    return _logits(cfg, params, x), cache

@@ -12,6 +12,10 @@ carried along), and live slots decode together in batched `decode_step`s.
 On the card both run their attention on the pool itself -- kernel K2 for a
 chunk, kernel K1 for a decode step -- where the JAX engine gathers the
 pages into dense views, runs jnp attention and scatters the pages back.
+MLA (deepseek-v2-lite-16b) keeps the JAX engine's form: it gathers each
+row's view, attends it in plain PyTorch and writes the dirtied blocks
+back, so the sink page holds what the JAX engine's holds -- a dead row
+reads it, and with MoE a dead row's tokens compete for expert capacity.
 A request whose prompt extends a cached prefix (`prefix_cache=True`)
 splices the entry's full page ids into its table (ref-counted), copies the
 partially filled boundary page (copy-on-write) and chunk-prefills only the
@@ -157,7 +161,7 @@ class ServingEngine:
         spec_ngram: longest n-gram the prompt-lookup drafter matches.
         draft_model: (ModelConfig, params) of the draft model, required for
         spec_decode="draft" (dense/moe family, same vocab; the port runs a
-        dense draft); its params must live on `device`.
+        dense or an MLA MoE draft); its params must live on `device`.
         device: where the KV and the model run (None = the CUDA device);
         `params` must already live there.
         mesh and page_allocator are the JAX engine's options that are not
@@ -717,7 +721,7 @@ class ServingEngine:
                                                 device=self.device)
             ckpts = self._ckpts
         if self.paged:
-            ctx = wpages = woffs = None
+            ctx = wpages = woffs = b0s = None
             if self.alloc.pools:
                 # context width bucketed as the JAX engine's gathered view
                 nb_probe = (C + ps - 2) // ps + 1 if ps > 1 else C
@@ -727,9 +731,14 @@ class ServingEngine:
                     need_ctx = max(need_ctx, -(-(p0 + C) // ps), p0 // ps + nb_probe)
                 n_ctx = _pow2_at_least(need_ctx)
                 ctx = np.full((self.slots, n_ctx), PAGE_SINK, np.int32)
+                # first block of the span each row may dirty (0 for a dead
+                # row), as the JAX engine's verify scatter: MLA writes these
+                # blocks of its gathered views back
+                b0s = np.zeros((self.slots,), np.int32)
                 for s in live:
                     pages = self.slot_pages[s]
                     ctx[s, :min(len(pages), n_ctx)] = pages[:n_ctx]
+                    b0s[s] = min(int(pos_h[s]) // ps, n_ctx - nb_probe)
                 # every candidate's page and slot; a position past the row's
                 # table (or past max_len) goes to the sink, where JAX drops
                 # the write
@@ -739,10 +748,12 @@ class ServingEngine:
                                   np.take_along_axis(ctx, np.minimum(blk, n_ctx - 1), 1),
                                   PAGE_SINK)
                 ctx, wpages, woffs = self._ids(ctx), self._ids(wpages), self._ids(cpos % ps)
+                b0s = self._ids(b0s)
             logits = verify_chunk(
                 self.cfg, self.params,
                 torch.as_tensor(toks, device=self.device), self.cache["pos"],
-                self.alloc.pools, ctx, wpages, woffs, state=self.cache, ckpts=ckpts)
+                self.alloc.pools, ctx, wpages, woffs, state=self.cache, ckpts=ckpts,
+                block0s=b0s)
         else:
             logits, self.cache = verify_chunk_slab(
                 self.cfg, self.params, torch.as_tensor(toks, device=self.device),

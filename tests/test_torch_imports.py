@@ -1,8 +1,8 @@
 """Package rules of the port: importing `repro_torch` and every one of its
 modules loads no `jax` and no module of the JAX package `repro`; the
 jax-free modules it keeps as copies stay verbatim copies; the config
-registry serves qwen2.5-3b and falcon-mamba-7b and refuses the families
-not yet ported."""
+registry serves qwen2.5-3b, falcon-mamba-7b and deepseek-v2-lite-16b and
+refuses the families not yet ported."""
 import os
 import subprocess
 import sys
@@ -23,6 +23,7 @@ COPIES = ["core/__init__.py", "core/difficulty.py", "core/executor.py",
           "data/tokens.py", "data/lm_data.py", "data/corpus.py",
           "index/segmenter.py", "extract/oracle.py", "models/config.py",
           "configs/qwen2_5_3b.py", "configs/falcon_mamba_7b.py",
+          "configs/deepseek_v2_lite_16b.py",
           "serving/prefix_cache.py"]
 
 
@@ -67,13 +68,15 @@ def test_config_registry():
     from repro.configs import ARCH_IDS as JAX_ARCH_IDS
     from repro_torch.configs import NOT_YET_PORTED, get_config, get_smoke_config
 
+    import repro.configs.deepseek_v2_lite_16b as jd
     import repro.configs.falcon_mamba_7b as jf
     import repro.configs.qwen2_5_3b as jq
-    for arch, mod in (("qwen2.5-3b", jq), ("falcon-mamba-7b", jf)):
+    ported = (("qwen2.5-3b", jq), ("falcon-mamba-7b", jf), ("deepseek-v2-lite-16b", jd))
+    for arch, mod in ported:
         for get in ("CONFIG", "SMOKE"):
             ours = (get_config if get == "CONFIG" else get_smoke_config)(arch)
             assert vars(ours) == vars(getattr(mod, get))
-    assert sorted(NOT_YET_PORTED + ["qwen2.5-3b", "falcon-mamba-7b"]) == sorted(JAX_ARCH_IDS)
+    assert sorted(NOT_YET_PORTED + [a for a, _ in ported]) == sorted(JAX_ARCH_IDS)
     for arch in NOT_YET_PORTED:
         jax_get_config(arch)                     # known to the reference
         with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
