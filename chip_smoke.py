@@ -62,10 +62,18 @@ package, and goes through its phases, each printing one JSON line:
              paged chunk-prefill attention, K3 L2 top-k, K4 paged verify
              attention, K5 dense-cache decode attention, K6 MoE gating, K7
              selective scan) on the inputs of one of its real launches (K6
-             and K7: a prefill chunk and a verify round), plus edge cases,
+             and K7: a prefill chunk and a verify round; K2 also the slab
+             phase's largest whole-prompt launch; K1 also its captured
+             launch with every length at the full table), plus edge cases
+             (K1 and K2: ~50 each in bf16 and float32, `_paged_edges`),
              held against its plain PyTorch version; times with CUDA events
              beside its bound and a PyTorch library yardstick where one call
-             computes the same function (none does for K7);
+             computes the same function (none does for K7); for K1, K2, K4,
+             K5 and their SDPA yardsticks also the device time per call
+             (`device_ms`: a CUDA graph of 20 calls, every kernel a call
+             launches, the merge included, replayed under CUDA events),
+             since events over back-to-back calls read the host's call
+             rate;
   profile    (only with --profile) torch.profiler over one extraction round
              of each path (main, spec, slab, draft, ssm, moe): device busy
              share, device time by kernel group; on the moe path also the
@@ -149,6 +157,38 @@ def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+DEVICE_MS_METHOD = ("a CUDA graph of 20 calls (every kernel each call launches, the merge "
+                    "included) replayed 10 times under CUDA events, after 3 warm-up calls; / 200")
+
+
+def device_ms(fn, calls: int = 20, replays: int = 10) -> float:
+    """Device time (ms) per call of `fn`, without the host: `calls` calls
+    captured in one CUDA graph, replayed `replays` times between two CUDA
+    events (`DEVICE_MS_METHOD`); the gaps between the graph's kernels are
+    counted, the host's launch overhead is not."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):                  # warm-up off the capture
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (calls * replays)
 
 
 def bound(nbytes: float, flops: float, dtype: str, exps: float = 0.0) -> tuple:
@@ -392,17 +432,22 @@ def phase_spec(main_run, captures: dict) -> dict:
     return out, (session, extractor)
 
 
-def phase_slab(main_run) -> tuple:
-    """The main query on the slab layout, prefix cache and speculation off."""
+def phase_slab(main_run, captures: dict) -> tuple:
+    """The main query on the slab layout, prefix cache and speculation off;
+    keeps K2's largest whole-prompt launch."""
     from repro_torch.configs import get_config
     from repro_torch.data.corpus import make_legal_corpus
+    from repro_torch.kernels import flash_attention as k2
 
     full_params, main_result, _ = main_run
     cfg, params = _cut(get_config("qwen2.5-3b"), full_params)
     corpus = make_legal_corpus(seed=1)
     session, engine, extractor, build_s = _served_query(
         cfg, params, corpus, "cuda", max_new=12, **SLAB)
+    captures["K2_slab"] = Capture(k2, "chunk_prefill_attention",
+                                  lambda q, kp, vp, ctx, start: q.shape[0])
     result, wall, launches = _timed_query(session)
+    captures["K2_slab"].restore()
     st = engine.stats
     gen_tokens = extractor.stats.generated_tokens
     out = {"phase": "slab", "model": cfg.name, "layers": cfg.num_layers,
@@ -669,13 +714,15 @@ def phase_profile(session, extractor, out_dir, path: str) -> dict:
         extractor.extract_batch(items)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    groups = {"K1 paged_decode": "paged_decode_kernel",
-              "K2 chunk_prefill": "chunk_prefill_kernel",
-              "K3 topk_l2": "topk_l2_kernel",
-              "K4 paged_verify": "paged_verify_",      # its span and merge kernels
-              "K5 dense_decode": "dense_decode_",      # its span and merge kernels
-              "K6 moe_gating": "moe_gating_kernel",
-              "K7 ssm_scan": "ssm_scan_kernel"}
+    # each attention kernel's span and merge launches (the merge kernel is
+    # shared; its tag names the caller)
+    groups = {"K1 paged_decode": ("PagedDecode",),
+              "K2 chunk_prefill": ("ChunkPrefill",),
+              "K3 topk_l2": ("topk_l2_kernel",),
+              "K4 paged_verify": ("paged_verify_kernel", "PagedVerify"),
+              "K5 dense_decode": ("dense_decode_kernel", "DenseDecode"),
+              "K6 moe_gating": ("moe_gating_kernel",),
+              "K7 ssm_scan": ("ssm_scan_kernel",)}
     by_group = dict.fromkeys(list(groups) + ["gemm", "other"], 0.0)
     count_by_group = dict.fromkeys(by_group, 0)
     by_span = {}
@@ -692,7 +739,7 @@ def phase_profile(session, extractor, out_dir, path: str) -> dict:
             t = e.self_cuda_time_total
         launches += e.count
         name = e.key
-        g = next((g for g, k in groups.items() if k in name), None)
+        g = next((g for g, keys in groups.items() if any(k in name for k in keys)), None)
         if g is None:
             g = "gemm" if any(w in name.lower() for w in ("gemm", "nvjet", "cutlass", "sm90_xmma")) \
                 else "other"
@@ -730,90 +777,9 @@ def phase_kernels(captures: dict, launches: dict) -> list:
 
     rows = []
 
-    # ------------------------------------------------------------- K1 --
-    q, kp, vp, tbl, lens = captures["K1"].args
-    dt = str(q.dtype).removeprefix("torch.")
-    errs = {}
-    errs[dt] = max_err(k1.paged_decode_attention(q, kp, vp, tbl, lens),
-                       k1.paged_decode_attention_plain(q, kp, vp, tbl, lens))
-    q32, kp32, vp32 = q.float(), kp.float(), vp.float()
-    errs["float32"] = max_err(k1.paged_decode_attention(q32, kp32, vp32, tbl, lens),
-                              k1.paged_decode_attention_plain(q32, kp32, vp32, tbl, lens))
-    # edge cases: a dead row (all-sink table, length past nb * ps) and a
-    # zero length
-    tbl_e, lens_e = tbl.clone(), lens.clone()
-    tbl_e[0] = 0
-    lens_e[0] = tbl.shape[1] * kp.shape[1] * 3
-    lens_e[-1] = 0
-    got = k1.paged_decode_attention(q32, kp32, vp32, tbl_e, lens_e)
-    errs["edge"] = max_err(got, k1.paged_decode_attention_plain(q32, kp32, vp32, tbl_e, lens_e))
-    if float(got[-1].abs().max()) != 0.0:
-        raise AssertionError("K1: lengths == 0 must give zeros")
-    B, H, D = q.shape
-    Hkv, ps = kp.shape[2], kp.shape[1]
-    vis = torch.clamp(lens.long(), max=tbl.shape[1] * ps)
-    nbytes = (2 * int(vis.sum()) * Hkv * D + 2 * B * H * D) * q.element_size() \
-        + tbl.numel() * 4 + lens.numel() * 4
-    flops = 4 * int(vis.sum()) * H * D
-    b_ms, b_by = bound(nbytes, flops, dt)
-    idx = tbl.long()
-    S = tbl.shape[1] * ps
-    kg = kp[idx].reshape(B, S, Hkv, D).transpose(1, 2).repeat_interleave(H // Hkv, 1)
-    vg = vp[idx].reshape(B, S, Hkv, D).transpose(1, 2).repeat_interleave(H // Hkv, 1)
-    mask = (torch.arange(S, device=q.device)[None, :] < lens[:, None])[:, None, None, :]
-    q4 = q[:, :, None, :]
-    rows.append(dict(
-        name="paged_decode_attention", route="cuda",
-        source="src/repro_torch/kernels/csrc/paged_decode_attention.cu",
-        replaces="src/repro/kernels/decode_attention.py:101",
-        launches=launches["K1"], shape=f"q{tuple(q.shape)} table{tuple(tbl.shape)} {dt}",
-        max_abs_err=errs[dt], tol=TOL[dt], max_abs_err_float32=errs["float32"],
-        max_abs_err_edge_float32=errs["edge"], tol_float32=TOL["float32"],
-        ms=cuda_ms(lambda: k1.paged_decode_attention(q, kp, vp, tbl, lens)),
-        plain_ms=cuda_ms(lambda: k1.paged_decode_attention_plain(q, kp, vp, tbl, lens)),
-        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(q4, kg, vg,
-                                                                  attn_mask=mask)),
-        library_call="F.scaled_dot_product_attention over a pre-gathered view",
-        bound_ms=b_ms, bound_by=b_by))
-
-    # ------------------------------------------------------------- K2 --
-    q, kp, vp, ctx, start = captures["K2"].args
-    dt = str(q.dtype).removeprefix("torch.")
-    errs = {dt: max_err(k2.chunk_prefill_attention(q, kp, vp, ctx, start),
-                        k2.chunk_prefill_attention_plain(q, kp, vp, ctx, start))}
-    q32, kp32, vp32 = q.float(), kp.float(), vp.float()
-    errs["float32"] = max_err(k2.chunk_prefill_attention(q32, kp32, vp32, ctx, start),
-                              k2.chunk_prefill_attention_plain(q32, kp32, vp32, ctx, start))
-    # edge case: the first chunk of a sequence (start = 0)
-    errs["edge"] = max_err(k2.chunk_prefill_attention(q32, kp32, vp32, ctx, 0),
-                           k2.chunk_prefill_attention_plain(q32, kp32, vp32, ctx, 0))
-    C, H, D = q.shape
-    Hkv, ps = kp.shape[2], kp.shape[1]
-    pairs = sum(start + i + 1 for i in range(C))
-    nbytes = (2 * (start + C) * Hkv * D + 2 * C * H * D) * q.element_size() + ctx.numel() * 4
-    flops = 4 * pairs * H * D
-    b_ms, b_by = bound(nbytes, flops, dt)
-    S = ctx.shape[0] * ps
-    idx = ctx.long()
-    kg = kp[idx].reshape(S, Hkv, D).transpose(0, 1).repeat_interleave(H // Hkv, 0)[None]
-    vg = vp[idx].reshape(S, Hkv, D).transpose(0, 1).repeat_interleave(H // Hkv, 0)[None]
-    qpos = start + torch.arange(C, device=q.device)
-    mask = (torch.arange(S, device=q.device)[None, :] <= qpos[:, None])[None, None]
-    q4 = q.transpose(0, 1)[None]
-    rows.append(dict(
-        name="chunk_prefill_attention", route="cuda",
-        source="src/repro_torch/kernels/csrc/chunk_prefill_attention.cu",
-        replaces="src/repro/kernels/flash_attention.py:71",
-        launches=launches["K2"],
-        shape=f"q{tuple(q.shape)} start={start} ctx{tuple(ctx.shape)} {dt}",
-        max_abs_err=errs[dt], tol=TOL[dt], max_abs_err_float32=errs["float32"],
-        max_abs_err_edge_float32=errs["edge"], tol_float32=TOL["float32"],
-        ms=cuda_ms(lambda: k2.chunk_prefill_attention(q, kp, vp, ctx, start)),
-        plain_ms=cuda_ms(lambda: k2.chunk_prefill_attention_plain(q, kp, vp, ctx, start)),
-        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(q4, kg, vg,
-                                                                  attn_mask=mask)),
-        library_call="F.scaled_dot_product_attention over a pre-gathered view",
-        bound_ms=b_ms, bound_by=b_by))
+    edges = _paged_edges()
+    rows += _kernel_k1(captures, launches, edges)
+    rows += _kernel_k2(captures, launches, edges)
 
     # ------------------------------------------------------------- K3 --
     db, qq, k = captures["K3"].args
@@ -897,6 +863,12 @@ def phase_kernels(captures: dict, launches: dict) -> list:
     vg = vp[idx].reshape(B, S, Hkv, D).transpose(1, 2).repeat_interleave(H // Hkv, 1)
     qpos = starts.long()[:, None] + torch.arange(C, device=q.device)[None, :]
     mask = (torch.arange(S, device=q.device)[None, None, :] <= qpos[:, :, None])[:, None]
+
+    def k4_kernel():
+        return k4.paged_verify_attention(q, kp, vp, tbl, starts)
+
+    def k4_library():
+        return F.scaled_dot_product_attention(q, kg, vg, attn_mask=mask)
     rows.append(dict(
         name="paged_verify_attention", route="cuda",
         source="src/repro_torch/kernels/csrc/paged_verify_attention.cu",
@@ -906,10 +878,11 @@ def phase_kernels(captures: dict, launches: dict) -> list:
         max_abs_err=errs[dt], tol=TOL[dt], max_abs_err_float32=errs["float32"],
         max_abs_err_edge_float32=errs["edge"], max_abs_err_edge_bf16=errs["edge_bf16"],
         tol_float32=TOL["float32"],
-        ms=cuda_ms(lambda: k4.paged_verify_attention(q, kp, vp, tbl, starts)),
+        ms=cuda_ms(k4_kernel),
         plain_ms=cuda_ms(lambda: k4.paged_verify_attention_plain(q, kp, vp, tbl, starts)),
-        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(q, kg, vg,
-                                                                  attn_mask=mask)),
+        library_ms=cuda_ms(k4_library),
+        device_ms=device_ms(k4_kernel), library_device_ms=device_ms(k4_library),
+        device_ms_method=DEVICE_MS_METHOD,
         library_call="F.scaled_dot_product_attention over a pre-gathered view "
                      "with the per-candidate causal mask",
         bound_ms=b_ms, bound_by=b_by))
@@ -948,6 +921,12 @@ def phase_kernels(captures: dict, launches: dict) -> list:
     vg = vc.transpose(1, 2).repeat_interleave(G, 1)
     mask = (torch.arange(S, device=q.device)[None, :] < lens[:, None])[:, None, None, :]
     q4 = q[:, :, None, :]
+
+    def k5_kernel():
+        return k1.decode_attention(q, kc, vc, lens)
+
+    def k5_library():
+        return F.scaled_dot_product_attention(q4, kg, vg, attn_mask=mask)
     rows.append(dict(
         name="dense_decode_attention", route="cuda",
         source="src/repro_torch/kernels/csrc/dense_decode_attention.cu",
@@ -957,10 +936,11 @@ def phase_kernels(captures: dict, launches: dict) -> list:
         max_abs_err=errs[dt], tol=TOL[dt], max_abs_err_float32=errs["float32"],
         max_abs_err_edge_float32=errs["edge"], max_abs_err_edge_bf16=errs["edge_bf16"],
         tol_float32=TOL["float32"],
-        ms=cuda_ms(lambda: k1.decode_attention(q, kc, vc, lens)),
+        ms=cuda_ms(k5_kernel),
         plain_ms=cuda_ms(lambda: k1.decode_attention_plain(q, kc, vc, lens)),
-        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(q4, kg, vg,
-                                                                  attn_mask=mask)),
+        library_ms=cuda_ms(k5_library),
+        device_ms=device_ms(k5_kernel), library_device_ms=device_ms(k5_library),
+        device_ms_method=DEVICE_MS_METHOD,
         library_call="F.scaled_dot_product_attention over the slab in (B, H, S, D) "
                      "with a per-row length mask",
         bound_ms=b_ms, bound_by=b_by))
@@ -971,11 +951,207 @@ def phase_kernels(captures: dict, launches: dict) -> list:
     for r in rows:
         r["kernel_ms"] = r["ms"]
         emit({"phase": "kernels", **r})
-        for key in ("max_abs_err", "max_abs_err_float32", "max_abs_err_edge_float32"):
-            tol = r["tol"] if key == "max_abs_err" else r.get("tol_float32", r["tol"])
+        for key in ("max_abs_err", "max_abs_err_float32", "max_abs_err_edge_float32",
+                    "max_abs_err_edge_bf16"):
+            tol = r["tol"] if key == "max_abs_err" else \
+                r.get("tol_bf16", TOL["bfloat16"]) if key.endswith("bf16") else \
+                r.get("tol_float32", r["tol"])
             if key in r and not r[key] <= tol:
                 raise AssertionError(f"{r['name']}: {key}={r[key]} > {tol}")
     return rows
+
+
+def _paged_edges() -> tuple:
+    """K1 and K2 against their plain versions, bf16 and float32, on seeded
+    inputs at edge cases: the JAX package's K1 and K2 test shapes; every
+    G = 1, 2, 4, 8 x D = 32, 64, 128 x ps = 8, 16, 32, 256; for K1 a dead
+    row (all-sink table, length three times the table) and a zero length
+    (whose zeros are asserted) in every case, and in the grid's cases a
+    length of 1 (every key span but the first empty); for K2 a 37-token chunk (a
+    ragged tile) at a start that is not page-aligned in every case. Returns
+    ({(kernel, dtype): max error}, {kernel: number of cases})."""
+    import torch
+    from repro_torch.kernels import decode_attention as k1
+    from repro_torch.kernels import flash_attention as k2
+    gen = torch.Generator(device="cuda").manual_seed(16)
+
+    def r(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    grid = [(G, D, ps) for G in (1, 2, 4, 8) for D in (32, 64, 128) for ps in (8, 16, 32, 256)]
+    # (B, H, Hkv, D, P, ps, nb): tests/test_torch_kernels.py's K1 shapes, then the grid
+    k1_cases = [(2, 4, 2, 64, 16, 16, 4), (3, 8, 1, 32, 12, 8, 3)] + \
+        [(4, 2 * G, 2, D, 4 * max(2, 512 // ps) + 3, ps, max(2, 512 // ps)) for G, D, ps in grid]
+    # (C, H, Hkv, D, ps, n_ctx, start, identity table): its K2 shapes, then the grid
+    k2_cases = [(64, 4, 2, 32, 16, 4, 0, True), (128, 2, 1, 64, 32, 4, 0, True),
+                (8, 4, 2, 16, 8, 8, 0, False), (8, 4, 2, 16, 8, 8, 21, False),
+                (16, 4, 2, 16, 8, 8, 40, False)] + \
+        [(37, 2 * G, 2, D, ps, (ps + ps // 2 + 1 + 37) // ps + 2, ps + ps // 2 + 1, False)
+         for G, D, ps in grid]
+    errs = {}
+    for dt in (torch.float32, torch.bfloat16):
+        name = str(dt).removeprefix("torch.")
+        for B, H, Hkv, D, P, ps, nb in k1_cases:
+            q, kp, vp = r(B, H, D).to(dt), r(P, ps, Hkv, D).to(dt), r(P, ps, Hkv, D).to(dt)
+            tbl = torch.randperm(P, generator=gen, device="cuda")[: B * nb].reshape(B, nb).int()
+            lens = torch.randint(1, nb * ps + 1, (B,), generator=gen, device="cuda",
+                                 dtype=torch.int32)
+            tbl[B - 2], lens[B - 2] = 0, nb * ps * 3      # dead: all-sink, past its table
+            lens[B - 1] = 0
+            if B == 4:
+                lens[1] = 1                                # one key: later spans empty
+            got = k1.paged_decode_attention(q, kp, vp, tbl, lens)
+            err = max_err(got, k1.paged_decode_attention_plain(q, kp, vp, tbl, lens))
+            errs["K1", name] = max(errs.get(("K1", name), 0.0), err)
+            if float(got[B - 1].float().abs().max()) != 0.0:
+                raise AssertionError(f"K1: lengths == 0 must give zeros ({name}, D={D})")
+        for C, H, Hkv, D, ps, n_ctx, start, ident in k2_cases:
+            P = n_ctx + 3
+            q, kp, vp = r(C, H, D).to(dt), r(P, ps, Hkv, D).to(dt), r(P, ps, Hkv, D).to(dt)
+            ctx = (torch.arange(n_ctx, device="cuda") if ident else
+                   torch.randperm(P, generator=gen, device="cuda")[:n_ctx]).int()
+            err = max_err(k2.chunk_prefill_attention(q, kp, vp, ctx, start),
+                          k2.chunk_prefill_attention_plain(q, kp, vp, ctx, start))
+            errs["K2", name] = max(errs.get(("K2", name), 0.0), err)
+    return errs, {"K1": len(k1_cases), "K2": len(k2_cases)}
+
+
+def _k1_row(q, kp, vp, tbl, lens, launches: int, variant: str) -> dict:
+    """K1 at one launch's inputs: errors (its dtype and float32), event and
+    device times, bound, and SDPA over a pre-gathered view as yardstick."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as k1
+    dt = str(q.dtype).removeprefix("torch.")
+    errs = {dt: max_err(k1.paged_decode_attention(q, kp, vp, tbl, lens),
+                        k1.paged_decode_attention_plain(q, kp, vp, tbl, lens))}
+    q32, kp32, vp32 = q.float(), kp.float(), vp.float()
+    errs["float32"] = max_err(k1.paged_decode_attention(q32, kp32, vp32, tbl, lens),
+                              k1.paged_decode_attention_plain(q32, kp32, vp32, tbl, lens))
+    B, H, D = q.shape
+    Hkv, ps = kp.shape[2], kp.shape[1]
+    S = tbl.shape[1] * ps
+    vis = torch.clamp(lens.long(), max=S)
+    nbytes = (2 * int(vis.sum()) * Hkv * D + 2 * B * H * D) * q.element_size() \
+        + tbl.numel() * 4 + lens.numel() * 4
+    b_ms, b_by = bound(nbytes, 4 * int(vis.sum()) * H * D, dt)
+    idx = tbl.long()
+    kg = kp[idx].reshape(B, S, Hkv, D).transpose(1, 2).repeat_interleave(H // Hkv, 1)
+    vg = vp[idx].reshape(B, S, Hkv, D).transpose(1, 2).repeat_interleave(H // Hkv, 1)
+    mask = (torch.arange(S, device=q.device)[None, :] < lens[:, None])[:, None, None, :]
+    q4 = q[:, :, None, :]
+
+    def kernel():
+        return k1.paged_decode_attention(q, kp, vp, tbl, lens)
+
+    def library():
+        return F.scaled_dot_product_attention(q4, kg, vg, attn_mask=mask)
+    return dict(
+        name="paged_decode_attention" + variant, route="cuda",
+        source="src/repro_torch/kernels/csrc/paged_decode_attention.cu",
+        replaces="src/repro/kernels/decode_attention.py:101", launches=launches,
+        shape=f"q{tuple(q.shape)} table{tuple(tbl.shape)} lengths {lens.tolist()} {dt}",
+        max_abs_err=errs[dt], tol=TOL[dt], max_abs_err_float32=errs["float32"],
+        tol_float32=TOL["float32"],
+        ms=cuda_ms(kernel), plain_ms=cuda_ms(lambda: k1.paged_decode_attention_plain(
+            q, kp, vp, tbl, lens)),
+        library_ms=cuda_ms(library),
+        device_ms=device_ms(kernel), library_device_ms=device_ms(library),
+        device_ms_method=DEVICE_MS_METHOD,
+        library_call="F.scaled_dot_product_attention over a pre-gathered view",
+        bound_ms=b_ms, bound_by=b_by)
+
+
+def _with_edges(row: dict, kernel: str, edges: tuple, captured_edge: float) -> dict:
+    """The edge cases' errors on a kernel's row: `_paged_edges`' and the
+    float32 error of an edge case on the captured inputs."""
+    errs, n_cases = edges
+    row.update(max_abs_err_edge_float32=max(errs[kernel, "float32"], captured_edge),
+               max_abs_err_edge_bf16=errs[kernel, "bfloat16"], edge_cases=n_cases[kernel],
+               tol_bf16=TOL["bfloat16"])
+    return row
+
+
+def _kernel_k1(captures: dict, launches: dict, edges: tuple) -> list:
+    """K1 at its captured launch (the first decode step of the main path)
+    and with every row's length at the full table (nb * ps), with the edge
+    cases of `_paged_edges` and, on the captured pools in float32, a dead
+    row (all-sink table, length past nb * ps) and a zero length."""
+    import torch
+    from repro_torch.kernels import decode_attention as k1
+    q, kp, vp, tbl, lens = captures["K1"].args
+    q32, kp32, vp32 = q.float(), kp.float(), vp.float()
+    tbl_e, lens_e = tbl.clone(), lens.clone()
+    tbl_e[0] = 0
+    lens_e[0] = tbl.shape[1] * kp.shape[1] * 3
+    lens_e[-1] = 0
+    got = k1.paged_decode_attention(q32, kp32, vp32, tbl_e, lens_e)
+    edge = max_err(got, k1.paged_decode_attention_plain(q32, kp32, vp32, tbl_e, lens_e))
+    if float(got[-1].abs().max()) != 0.0:
+        raise AssertionError("K1: lengths == 0 must give zeros")
+    full = torch.full_like(lens, tbl.shape[1] * kp.shape[1])
+    return [_with_edges(_k1_row(q, kp, vp, tbl, lens, launches["K1"], ""), "K1", edges, edge),
+            _k1_row(q, kp, vp, tbl, full, launches["K1"], " [full table]")]
+
+
+def _k2_row(q, kp, vp, ctx, start, launches: int, variant: str) -> dict:
+    """K2 at one launch's inputs, as `_k1_row`."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as k2
+    dt = str(q.dtype).removeprefix("torch.")
+    errs = {dt: max_err(k2.chunk_prefill_attention(q, kp, vp, ctx, start),
+                        k2.chunk_prefill_attention_plain(q, kp, vp, ctx, start))}
+    q32, kp32, vp32 = q.float(), kp.float(), vp.float()
+    errs["float32"] = max_err(k2.chunk_prefill_attention(q32, kp32, vp32, ctx, start),
+                              k2.chunk_prefill_attention_plain(q32, kp32, vp32, ctx, start))
+    C, H, D = q.shape
+    Hkv, ps = kp.shape[2], kp.shape[1]
+    pairs = sum(start + i + 1 for i in range(C))
+    nbytes = (2 * (start + C) * Hkv * D + 2 * C * H * D) * q.element_size() + ctx.numel() * 4
+    b_ms, b_by = bound(nbytes, 4 * pairs * H * D, dt)
+    S = ctx.shape[0] * ps
+    idx = ctx.long()
+    kg = kp[idx].reshape(S, Hkv, D).transpose(0, 1).repeat_interleave(H // Hkv, 0)[None]
+    vg = vp[idx].reshape(S, Hkv, D).transpose(0, 1).repeat_interleave(H // Hkv, 0)[None]
+    qpos = start + torch.arange(C, device=q.device)
+    mask = (torch.arange(S, device=q.device)[None, :] <= qpos[:, None])[None, None]
+    q4 = q.transpose(0, 1)[None]
+
+    def kernel():
+        return k2.chunk_prefill_attention(q, kp, vp, ctx, start)
+
+    def library():
+        return F.scaled_dot_product_attention(q4, kg, vg, attn_mask=mask)
+    return dict(
+        name="chunk_prefill_attention" + variant, route="cuda",
+        source="src/repro_torch/kernels/csrc/chunk_prefill_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:71", launches=launches,
+        shape=f"q{tuple(q.shape)} start={start} ctx{tuple(ctx.shape)} pages of {ps} {dt}",
+        max_abs_err=errs[dt], tol=TOL[dt], max_abs_err_float32=errs["float32"],
+        tol_float32=TOL["float32"],
+        ms=cuda_ms(kernel),
+        plain_ms=cuda_ms(lambda: k2.chunk_prefill_attention_plain(q, kp, vp, ctx, start)),
+        library_ms=cuda_ms(library),
+        device_ms=device_ms(kernel), library_device_ms=device_ms(library),
+        device_ms_method=DEVICE_MS_METHOD,
+        library_call="F.scaled_dot_product_attention over a pre-gathered view",
+        bound_ms=b_ms, bound_by=b_by)
+
+
+def _kernel_k2(captures: dict, launches: dict, edges: tuple) -> list:
+    """K2 at its captured main-path chunk (the latest start) and at the slab
+    path's largest whole-prompt launch, with `_paged_edges`' K2 cases and,
+    on the captured pools in float32, the first chunk of the sequence
+    (start = 0)."""
+    from repro_torch.kernels import flash_attention as k2
+    q, kp, vp, ctx, start = captures["K2"].args
+    q32, kp32, vp32 = q.float(), kp.float(), vp.float()
+    edge = max_err(k2.chunk_prefill_attention(q32, kp32, vp32, ctx, 0),
+                   k2.chunk_prefill_attention_plain(q32, kp32, vp32, ctx, 0))
+    chunk = _k2_row(q, kp, vp, ctx, start, launches["K2"], "")
+    return [_with_edges(chunk, "K2", edges, edge),
+            _k2_row(*captures["K2_slab"].args, launches["K2_slab"], " [slab]")]
 
 
 def _kernel_k6(captures: dict, launches: dict) -> dict:
@@ -1374,7 +1550,7 @@ def main() -> int:
         lap("main")
         report["spec"], served_spec = phase_spec(main_run, captures)
         lap("spec")
-        report["slab"], served_slab, slab_tokens = phase_slab(main_run)
+        report["slab"], served_slab, slab_tokens = phase_slab(main_run, captures)
         lap("slab")
         report["draft"], served_draft = phase_draft(main_run, captures, slab_tokens)
         lap("draft")
@@ -1406,6 +1582,7 @@ def main() -> int:
         launches = {**report["main"]["launches"], "K4": report["spec"]["launches"]["K4"],
                     "K5": report["draft"]["launches"]["K5"],
                     "K5_slab": report["slab"]["launches"]["K5"],
+                    "K2_slab": report["slab"]["launches"]["K2"],
                     "K6": report["moe"]["launches"]["K6"],
                     "K7": report["ssm"]["launches"]["K7"]}
         report["kernels"] = phase_kernels(captures, launches)
@@ -1429,8 +1606,9 @@ def main() -> int:
                 json.dumps(report, indent=1, default=str))
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "tol",
-            "ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    emit({"kernels": [{k: r[k] for k in keys} for r in report["kernels"]]})
+            "ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "device_ms", "library_device_ms")
+    emit({"kernels": [{k: r.get(k) for k in keys} for r in report["kernels"]]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -48,89 +48,112 @@ inline cudaError_t allow_smem(K kernel, size_t bytes) {
 }
 
 // ---------------------------------------------------------------------------
-// Paged attention core, shared by paged decode (K1) and chunk prefill (K2).
+// The span merge of the flash-decoding split (K1, K2, K4, K5).
 //
-// A block serves one KV head. Each warp of the block owns one query vector
-// (one query head of the GQA group for decode, one query row of the tile
-// for prefill) and sees the keys at logical positions [0, n_vis). The block
-// walks the page-table row `table[0 .. n_pages)`, stages each page's K and
-// V (ps x D, this KV head) in shared memory once for all of its warps, and
-// every warp folds the page into its fp32 online-softmax state.
+// A kernel that splits the key positions of a query row into spans writes,
+// for every (row, span), the span's unnormalised online-softmax state to a
+// float32 workspace: its running max and denominator at
+// part_ml[2 * (row * nparts + s)] and its accumulator (D values) at
+// part_acc[(row * nparts + s) * D]. A span that saw no key reports max
+// -inf. The merge rescales the spans to their common max and writes
+// acc / l in the output's dtype; a row whose spans all saw no key gets
+// zeros. One warp per row; the row index is the flat index of the output
+// row, so out[row * D + d].
 //
-// Lane l holds elements d = l + 32 * i (i < DPL) of the query and of the
-// output accumulator, so D <= 32 * DPL.
-template <typename T, int DPL>
-struct WarpQuery {
-  float q[DPL];     // pre-scaled by 1/sqrt(D)
-  float acc[DPL];
-  float m;          // running max
-  float l;          // running denominator
-};
+// The tag (an empty type per caller) names each caller's kernels in a
+// profile: repro::PagedDecode (K1), ChunkPrefill (K2), PagedVerify (K4),
+// DenseDecode (K5).
+struct PagedDecode;
+struct ChunkPrefill;
+struct PagedVerify;
+struct DenseDecode;
 
-template <typename T, int DPL>
-__device__ __forceinline__ void load_query(WarpQuery<T, DPL>& st, const T* q, int D,
-                                           float scale, int lane) {
-#pragma unroll
-  for (int i = 0; i < DPL; ++i) {
-    const int d = lane + 32 * i;
-    st.q[i] = d < D ? to_float(q[d]) * scale : 0.f;
-    st.acc[i] = 0.f;
-  }
-  st.m = -INFINITY;
-  st.l = 0.f;
-}
+namespace {  // one copy per translation unit: no kernel symbol is shared
 
-template <typename T, int DPL>
-__device__ void attend_pages(WarpQuery<T, DPL>& st, bool active, int n_vis,
-                             const T* __restrict__ k_pool, const T* __restrict__ v_pool,
-                             const int* __restrict__ table, int n_pages, int ps, int Hkv,
-                             int kvh, int D, float* sk, float* sv) {
+constexpr int kMergeWarps = 4;    // rows per block: one warp a row
+
+// COLS: columns a lane holds (lane + 32 c), D <= 32 COLS; BATCH: spans
+// whose accumulators a lane loads at once.
+template <class Tag, typename T, int COLS, int BATCH>
+__global__ void __launch_bounds__(kMergeWarps * 32)
+    merge_spans_kernel(const float* __restrict__ part_ml, const float* __restrict__ part_acc,
+                       T* __restrict__ out, size_t rows, int D, int nparts) {
   const int lane = threadIdx.x & 31;
-  const int tile = ps * D;
-  for (int j = 0; j < n_pages; ++j) {
-    const size_t page = static_cast<size_t>(table[j]);
-    __syncthreads();  // previous page fully consumed
-    for (int e = threadIdx.x; e < tile; e += blockDim.x) {
-      const int t = e / D, d = e - t * D;
-      const size_t off = ((page * ps + t) * Hkv + kvh) * static_cast<size_t>(D) + d;
-      sk[e] = to_float(k_pool[off]);
-      sv[e] = to_float(v_pool[off]);
-    }
-    __syncthreads();
-    if (!active) continue;
-    const int t_end = min(ps, n_vis - j * ps);  // warp-uniform
-    for (int t = 0; t < t_end; ++t) {
-      float part = 0.f;
+  const size_t row = static_cast<size_t>(blockIdx.x) * kMergeWarps + (threadIdx.x >> 5);
+  if (row >= rows) return;
+  const float* ml = part_ml + 2 * row * nparts;
+  const float* acc = part_acc + row * nparts * D;
+  float v[BATCH][COLS];  // a batch of spans' accumulators; an empty span's are never used
+  auto load = [&](int s0) {
 #pragma unroll
-      for (int i = 0; i < DPL; ++i) {
-        const int d = lane + 32 * i;
-        if (d < D) part += st.q[i] * sk[t * D + d];
-      }
-      const float s = warp_allreduce_sum(part);
-      const float m_new = fmaxf(st.m, s);
-      const float alpha = expf(st.m - m_new);
-      const float p = expf(s - m_new);
-      st.l = st.l * alpha + p;
+    for (int j = 0; j < BATCH; ++j)
 #pragma unroll
-      for (int i = 0; i < DPL; ++i) {
-        const int d = lane + 32 * i;
-        if (d < D) st.acc[i] = st.acc[i] * alpha + p * sv[t * D + d];
+      for (int c = 0; c < COLS; ++c) {
+        const int d = lane + 32 * c;
+        v[j][c] = s0 + j < nparts && d < D ? acc[static_cast<size_t>(s0 + j) * D + d] : 0.f;
       }
-      st.m = m_new;
+  };
+  load(0);  // in flight with the max and denominator's loads
+  float m = -INFINITY;
+#pragma unroll 8
+  for (int s = 0; s < nparts; ++s) m = fmaxf(m, ml[2 * s]);
+  float l = 0.f;
+#pragma unroll 8
+  for (int s = 0; s < nparts; ++s)
+    if (ml[2 * s] != -INFINITY) l += ml[2 * s + 1] * expf(ml[2 * s] - m);
+  const float inv = 1.f / fmaxf(l, 1e-30f);   // no visible key: l == 0, a == 0
+  // each column sums its spans in span order, as a serial merge would
+  float a[COLS];
+#pragma unroll
+  for (int c = 0; c < COLS; ++c) a[c] = 0.f;
+  for (int s0 = 0; s0 < nparts; s0 += BATCH) {
+    if (s0 > 0) load(s0);
+#pragma unroll
+    for (int j = 0; j < BATCH; ++j) {
+      const int s = s0 + j;
+      if (s < nparts && ml[2 * s] != -INFINITY) {
+        const float w = expf(ml[2 * s] - m);
+#pragma unroll
+        for (int c = 0; c < COLS; ++c) a[c] += v[j][c] * w;
+      }
     }
+  }
+#pragma unroll
+  for (int c = 0; c < COLS; ++c) {
+    const int d = lane + 32 * c;
+    if (d < D) out[row * D + d] = from_float<T>(a[c] * inv);
   }
 }
 
-template <typename T, int DPL>
-__device__ __forceinline__ void store_output(const WarpQuery<T, DPL>& st, T* out, int D,
-                                             int lane) {
-  // no visible key: l == 0 and acc == 0, so the row is zeros
-  const float inv = 1.f / fmaxf(st.l, 1e-30f);
-#pragma unroll
-  for (int i = 0; i < DPL; ++i) {
-    const int d = lane + 32 * i;
-    if (d < D) out[d] = from_float<T>(st.acc[i] * inv);
-  }
+template <class Tag, typename T, int COLS>
+void launch_merge(const float* part_ml, const float* part_acc, T* out, size_t rows, int D,
+                  int nparts, cudaStream_t stream) {
+  const unsigned blocks = static_cast<unsigned>((rows + kMergeWarps - 1) / kMergeWarps);
+  // Few spans (K2's whole-prompt launch: 2) take a 4-span batch: fewer
+  // registers, more rows in flight; on an H100 that merge ran ~4 us faster
+  // than with 16-span batches, which suit K1, K4 and K5 (16 spans a row).
+  if (nparts <= 4)
+    merge_spans_kernel<Tag, T, COLS, 4><<<blocks, kMergeWarps * 32, 0, stream>>>(
+        part_ml, part_acc, out, rows, D, nparts);
+  else
+    merge_spans_kernel<Tag, T, COLS, 16><<<blocks, kMergeWarps * 32, 0, stream>>>(
+        part_ml, part_acc, out, rows, D, nparts);
 }
+
+// Launch the merge of `rows` output rows (D <= 256) on `stream`; returns the
+// launch's error.
+template <class Tag, typename T>
+cudaError_t merge_spans(const float* part_ml, const float* part_acc, void* out, size_t rows,
+                        int D, int nparts, cudaStream_t stream) {
+  T* o = static_cast<T*>(out);
+  if (D <= 32) launch_merge<Tag, T, 1>(part_ml, part_acc, o, rows, D, nparts, stream);
+  else if (D <= 64) launch_merge<Tag, T, 2>(part_ml, part_acc, o, rows, D, nparts, stream);
+  else if (D <= 128) launch_merge<Tag, T, 4>(part_ml, part_acc, o, rows, D, nparts, stream);
+  else if (D <= 256) launch_merge<Tag, T, 8>(part_ml, part_acc, o, rows, D, nparts, stream);
+  else return cudaErrorInvalidValue;
+  return cudaGetLastError();
+}
+
+}  // namespace
 
 }  // namespace repro

@@ -23,8 +23,8 @@
 // (query head x key) in shared memory, one warp per query head for the
 // online softmax, then each thread folds the tile's P V into its fp32
 // accumulators in registers. A span writes its unnormalised (max,
-// denominator, acc) to a float32 workspace; a second kernel merges the
-// spans of each query head. A span at or past min(length, S) reports an
+// denominator, acc) to a float32 workspace; the shared merge kernel
+// (common.cuh) merges the spans of each query head. A span at or past min(length, S) reports an
 // empty state, so a zero length gives zeros (the Pallas kernel's finite
 // -1e30 mask would average V instead). Products run on the CUDA cores:
 // simple first, fast later.
@@ -162,27 +162,6 @@ __global__ void __launch_bounds__(kDecThreads)
   }
 }
 
-// Merge the spans of each query head: one block per row of (B, H, D).
-template <typename T>
-__global__ void dense_decode_combine_kernel(const float* __restrict__ part_ml,
-                                            const float* __restrict__ part_acc,
-                                            T* __restrict__ out, int D, int nsplit) {
-  const size_t row = blockIdx.x;
-  const float* ml = part_ml + 2 * row * nsplit;
-  float m = -INFINITY;
-  for (int s = 0; s < nsplit; ++s) m = fmaxf(m, ml[2 * s]);
-  float l = 0.f;
-  for (int s = 0; s < nsplit; ++s)
-    if (ml[2 * s] != -INFINITY) l += ml[2 * s + 1] * expf(ml[2 * s] - m);
-  const float inv = 1.f / fmaxf(l, 1e-30f);   // no visible key: l == 0, a == 0
-  for (int d = threadIdx.x; d < D; d += blockDim.x) {
-    float a = 0.f;
-    for (int s = 0; s < nsplit; ++s)
-      if (ml[2 * s] != -INFINITY) a += part_acc[(row * nsplit + s) * D + d] * expf(ml[2 * s] - m);
-    out[row * D + d] = from_float<T>(a * inv);
-  }
-}
-
 static size_t dec_smem_bytes(int G, int D) {
   const size_t floats = static_cast<size_t>(G) * D +
                         static_cast<size_t>(kDecTile) * (2 * D + 1) +
@@ -210,9 +189,8 @@ static cudaError_t dec_launch(const void* q, const void* kc, const void* vc,
       part_ml, part_acc, S, H, Hkv, D, span, 1.f / sqrtf(static_cast<float>(D)));
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  dense_decode_combine_kernel<T><<<static_cast<unsigned>(rows), 128, 0, stream>>>(
-      part_ml, part_acc, static_cast<T*>(out), D, nsplit);
-  return cudaGetLastError();
+  // merge the spans of each query head: the workspace rows are those of (B, H, D)
+  return merge_spans<DenseDecode, T>(part_ml, part_acc, out, rows, D, nsplit, stream);
 }
 
 }  // namespace repro

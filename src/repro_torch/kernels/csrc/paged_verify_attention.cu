@@ -27,11 +27,11 @@
 // key) in shared memory, one warp per query row for the online softmax,
 // then each thread folds the tile's P V into its fp32 accumulators in
 // registers. A span writes its unnormalised (max, denominator, acc) to a
-// float32 workspace; a second kernel merges the spans of each query row.
-// The walk stops at min(nb * ps, starts[b] + C), so a dead row (all-sink
-// table, stale start) stays inside its table, and a span past a row's end
-// reports an empty state; key 0 is visible to every candidate, so no row
-// sees zero keys. Products run on the CUDA cores: simple first, fast later.
+// float32 workspace; the shared merge kernel (common.cuh) merges the
+// spans of each query row. The walk stops at min(nb * ps, starts[b] + C),
+// so a dead row (all-sink table, stale start) stays inside its table, and
+// a span past a row's end reports an empty state; key 0 is visible to
+// every candidate, so no row sees zero keys. Products run on the CUDA cores: simple first, fast later.
 #include <algorithm>
 
 #include "common.cuh"
@@ -175,28 +175,6 @@ __global__ void __launch_bounds__(kVerifyThreads)
   }
 }
 
-// Merge the spans of each query row: one block per row of (B, H, C, D),
-// whose flat index equals its workspace row.
-template <typename T>
-__global__ void paged_verify_combine_kernel(const float* __restrict__ part_ml,
-                                            const float* __restrict__ part_acc,
-                                            T* __restrict__ out, int D, int nsplit) {
-  const size_t row = blockIdx.x;
-  const float* ml = part_ml + 2 * row * nsplit;
-  float m = -INFINITY;
-  for (int s = 0; s < nsplit; ++s) m = fmaxf(m, ml[2 * s]);
-  float l = 0.f;
-  for (int s = 0; s < nsplit; ++s)
-    if (ml[2 * s] != -INFINITY) l += ml[2 * s + 1] * expf(ml[2 * s] - m);
-  const float inv = 1.f / fmaxf(l, 1e-30f);
-  for (int d = threadIdx.x; d < D; d += blockDim.x) {
-    float a = 0.f;
-    for (int s = 0; s < nsplit; ++s)
-      if (ml[2 * s] != -INFINITY) a += part_acc[(row * nsplit + s) * D + d] * expf(ml[2 * s] - m);
-    out[row * D + d] = from_float<T>(a * inv);
-  }
-}
-
 // Query rows per block: all G x C of a KV head where the accumulators allow.
 static int rows_per_block(int G, int C, int D) {
   return std::min(G * C, std::min(kVerifyMaxRows, kVerifyThreads * kVerifyAcc / D));
@@ -230,9 +208,8 @@ static cudaError_t launch(const void* q, const void* kp, const void* vp, const i
       1.f / sqrtf(static_cast<float>(D)));
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  paged_verify_combine_kernel<T><<<static_cast<unsigned>(rows), 128, 0, stream>>>(
-      part_ml, part_acc, static_cast<T*>(out), D, nsplit);
-  return cudaGetLastError();
+  // merge the spans of each query row: the workspace rows are those of (B, H, C, D)
+  return merge_spans<PagedVerify, T>(part_ml, part_acc, out, rows, D, nsplit, stream);
 }
 
 }  // namespace repro

@@ -1,24 +1,30 @@
 """K1: paged decode attention on the shared KV page pool, and K5:
 flash-decoding over a dense per-row cache (the slab layout). The JAX
-module holds both TPU kernels too.
+module holds both TPU kernels too. This module also plans the key spans
+of the paged-attention core that K1 and K2 share (`plan_spans`).
 
 K1 replaces `repro.kernels.decode_attention.paged_decode_attention_pallas`
 (src/repro/kernels/decode_attention.py:101). CUDA source:
-`csrc/paged_decode_attention.cu`.
+`csrc/paged_decode_attention.cu`, on the core `csrc/paged_attention.cuh`.
 
 Bound on the H100: device-memory bytes. Each (row, KV head) reads its
 `length` positions of K and V once (bf16, 2 x 128 x 2 bytes per position
 at qwen2.5-3b width) for the G = 8 query heads that share it, i.e. 8
 flops per byte it reads -- far under the ~295 flop/byte ridge -- so the
-least time is the KV bytes over 3.35 TB/s. Design: one block per (row, KV head) with one warp
-per query head of the GQA group, so each page's K/V tile crosses from
-device memory into shared memory once for all G heads that share it
-(G = 8 at full width); scores and the online softmax stay in registers in
-fp32; nothing is gathered into a dense copy of the cache, which is the
-copy the JAX engine's gather + jnp path pays.
+least time is the KV bytes over 3.35 TB/s. Design: the core with one query
+position per row. A row's G query heads form one 16-row tile of tensor-
+core products (bf16 in, fp32 accumulate; P kept to ~16 bits as two bf16
+halves), the block's four warps each take a quarter of every 64-position
+K/V tile, which cp.async stages in bf16 through the page table while the
+previous tile is multiplied, and the row's keys are split into spans over
+blocks (`plan_spans`), merged by a second kernel, so the 8 (row, KV head)
+pairs of a full-width decode step spread over the 132 SMs. float32 inputs
+take the same blocks with the products in fp32 FMA. Nothing is gathered
+into a dense copy of the cache, which is the copy the JAX engine's gather +
+jnp path pays.
 
-Semantics: positions >= lengths[b] are masked; the page loop is bounded by
-the table width (a dead slot's length keeps growing while its table row is
+Semantics: positions >= lengths[b] are masked; the walk is bounded by the
+table width (a dead slot's length keeps growing while its table row is
 all sink pages); a row with lengths[b] == 0 sees no key and returns zeros
 (the Pallas kernel, whose mask value is a finite -1e30, would return the
 mean of V over the table instead; the engine never issues a zero length).
@@ -42,13 +48,49 @@ length can pass S); a zero length gives zeros, as K1.
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from . import _build
 
-SMEM_LIMIT = 227 * 1024
+KEY_TILE = 64          # key positions per staged tile (paged_attention.cuh's kPaKeyTile)
+BLOCK_ROWS = 64        # query rows per block when each of its 4 warps owns 16 (kPaRows)
+TARGET_BLOCKS = 264    # two blocks per SM of the H100's 132
 
 launches = 0
+
+
+class SpanPlan(NamedTuple):
+    """How the paged-attention core splits one launch: `key_groups` (1 or
+    4) key shares per block, which the block combines, and `nsplit` spans
+    of `span` key positions, one partial state each per query row in the
+    workspace."""
+    key_groups: int
+    nsplit: int
+    span: int
+
+
+def plan_spans(rows: int, groups: int, n_keys: int) -> SpanPlan:
+    """The launch plan of the paged-attention core (K1, K2). `rows`: query
+    rows per (sequence, KV head), G x C; `groups`: sequences x KV heads;
+    `n_keys`: the key positions the walk may visit (K1 nb * ps, K2 start +
+    C). When one 16-row MMA tile holds all rows (decode), the block's four
+    warps split each key tile (key_groups 4), else each owns 16 rows of a
+    64-row tile. Spans are whole key tiles, as many as bring the blocks to
+    TARGET_BLOCKS (no more than there are tiles), and the last one starts before
+    n_keys -- the C entry points refuse any other plan."""
+    key_groups = 4 if rows <= 16 else 1
+    qtiles = -(-rows // (BLOCK_ROWS // key_groups))
+    tiles = -(-n_keys // KEY_TILE)
+    nsplit = max(1, min(tiles, -(-TARGET_BLOCKS // (groups * qtiles))))
+    span_tiles = -(-tiles // nsplit)
+    return SpanPlan(key_groups, -(-tiles // span_tiles), span_tiles * KEY_TILE)
+
+
+def _aligned(t) -> bool:
+    """The core copies rows 16 bytes at a time."""
+    return t.data_ptr() % 16 == 0
 
 
 def paged_decode_attention_plain(q, k_pool, v_pool, page_table, lengths):
@@ -89,9 +131,11 @@ def _check(q, k_pool, v_pool, page_table, lengths):
     ps, Hkv = k_pool.shape[1], k_pool.shape[2]
     if page_table.ndim != 2 or page_table.shape[0] != B or lengths.shape != (B,):
         raise ValueError("paged_decode_attention: page_table (B, nb), lengths (B,)")
-    if H % Hkv or H // Hkv > 32 or D > 256 or 2 * ps * D * 4 > SMEM_LIMIT:
+    if H % Hkv or D > 256 or D % (16 // q.element_size()):
         raise ValueError(f"paged_decode_attention: unsupported H={H} Hkv={Hkv} "
-                         f"D={D} ps={ps}")
+                         f"D={D} ({q.dtype} rows must be whole 16-byte chunks)")
+    if not (_aligned(k_pool) and _aligned(v_pool)):
+        raise ValueError("paged_decode_attention: pools must start on a 16-byte boundary")
 
 
 def paged_decode_attention(q, k_pool, v_pool, page_table, lengths):
@@ -105,16 +149,22 @@ def paged_decode_attention(q, k_pool, v_pool, page_table, lengths):
     if q.device.type != "cuda":
         raise ValueError(f"paged_decode_attention: device {q.device}")
     q = q.contiguous()
+    if not _aligned(q):
+        q = q.clone()
     _check(q, k_pool, v_pool, page_table, lengths)
     B, H, D = q.shape
     _, ps, Hkv, _ = k_pool.shape
+    nb = page_table.shape[1]
     out = torch.empty_like(q)
-    if B == 0 or page_table.shape[1] == 0:
+    if B == 0 or nb == 0:
         return out.zero_()
+    plan = plan_spans(H // Hkv, B * Hkv, nb * ps)
+    ws = torch.empty((B * H * plan.nsplit * (D + 2),), dtype=torch.float32, device=q.device)
     lib = _build.library()
     rc = lib.repro_paged_decode_attention(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), page_table.data_ptr(),
-        lengths.data_ptr(), out.data_ptr(), B, H, Hkv, D, ps, page_table.shape[1],
+        lengths.data_ptr(), out.data_ptr(), ws.data_ptr(), B, H, Hkv, D, ps, nb,
+        plan.key_groups, plan.nsplit, plan.span,
         _build.DTYPE_CODES[str(q.dtype).removeprefix("torch.")],
         _build.stream_handle(q.device))
     _build.check(rc, "paged_decode_attention")
@@ -126,7 +176,6 @@ def paged_decode_attention(q, k_pool, v_pool, page_table, lengths):
 
 DENSE_KEY_TILE = 64    # key positions per shared-memory tile (the .cu's kDecTile)
 DENSE_MAX_ACC = 4096   # G * D the block's accumulators hold (256 threads x 16)
-TARGET_BLOCKS = 264    # two blocks per SM of the H100's 132
 
 dense_launches = 0
 

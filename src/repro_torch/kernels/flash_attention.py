@@ -3,26 +3,33 @@
 Replaces `repro.kernels.flash_attention.flash_attention_pallas`
 (src/repro/kernels/flash_attention.py:71) in the form the serving engine's
 chunked prefill needs: a query offset `start` and context read through a
-page table. CUDA source: `csrc/chunk_prefill_attention.cu`.
+page table. CUDA source: `csrc/chunk_prefill_attention.cu`, on the
+paged-attention core `csrc/paged_attention.cuh` that K1 shares.
 
 Bound on the H100: close to the ridge. A 32-token chunk of qwen2.5-3b
 (16 query heads, 2 KV heads, head_dim 128) does 4 x 16 x 128 flops per
 (query, visible key) pair and reads 2 x 2 x 128 x 2 bytes per visible
 position: at most ~256 flops per byte, just under the ~295 flop/byte bf16
-ridge, so the visible K/V bytes over 3.35 TB/s bind, narrowly. Design:
-one block per (query head, 16-row query tile), one warp per query row;
-each page's K/V tile is staged in shared memory once for the whole tile,
-only the pages some row of the tile can see are visited (the TPU kernel's
-diagonal skip), scores and the online softmax stay in fp32 registers, and
-nothing is gathered into a dense context copy. The products run on the
-CUDA cores, not the tensor cores (wgmma): simple first, fast later.
+ridge, so the visible K/V bytes over 3.35 TB/s bind, narrowly; a whole
+prompt from position 0 (the slab layout's prefill) is bound by the tensor
+cores. Design: the core with one sequence. The 8 query heads x C positions
+of a KV head are packed into 64-row tiles (4 warps x 16 rows, rows that
+share a position side by side), so each 64-position K/V tile is staged in
+shared memory once for all 8 heads that read it, by cp.async in bf16
+through the page table while the previous tile is multiplied; both
+products run on the tensor cores (bf16 in, fp32 accumulate, P kept to ~16
+bits as two bf16 halves); the key positions are split into spans over
+blocks (`decode_attention.plan_spans`) and merged by a second kernel; a
+tile skips the spans past its last row and a warp the keys past its rows
+(the TPU kernel's diagonal skip). float32 inputs take the same blocks with
+the products in fp32 FMA. Nothing is gathered into a dense context copy.
 """
 from __future__ import annotations
 
 import torch
 
 from . import _build
-from .decode_attention import SMEM_LIMIT
+from .decode_attention import _aligned, plan_spans
 
 launches = 0
 
@@ -70,17 +77,26 @@ def chunk_prefill_attention(q, k_pool, v_pool, ctx_table, start: int):
         raise ValueError(f"chunk_prefill_attention: pools {tuple(k_pool.shape)}")
     _, ps, Hkv, _ = k_pool.shape
     n_ctx = ctx_table.shape[0]
-    if H % Hkv or D > 256 or 2 * ps * D * 4 > SMEM_LIMIT or start < 0 \
+    if H % Hkv or D > 256 or D % (16 // q.element_size()) or start < 0 \
             or start + C > n_ctx * ps:
         raise ValueError(f"chunk_prefill_attention: unsupported H={H} Hkv={Hkv} "
-                         f"D={D} ps={ps} start={start} C={C} n_ctx={n_ctx}")
+                         f"D={D} ps={ps} start={start} C={C} n_ctx={n_ctx} ({q.dtype} "
+                         f"rows must be whole 16-byte chunks)")
+    if not (_aligned(k_pool) and _aligned(v_pool)):
+        raise ValueError("chunk_prefill_attention: pools must start on a 16-byte boundary")
+    if not _aligned(q):
+        q = q.clone()
     out = torch.empty_like(q)
     if C == 0:
         return out
+    start = int(start)
+    plan = plan_spans((H // Hkv) * C, Hkv, start + C)
+    ws = torch.empty((C * H * plan.nsplit * (D + 2),), dtype=torch.float32, device=q.device)
     lib = _build.library()
     rc = lib.repro_chunk_prefill_attention(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), ctx_table.data_ptr(),
-        out.data_ptr(), C, H, Hkv, D, ps, n_ctx, int(start),
+        out.data_ptr(), ws.data_ptr(), C, H, Hkv, D, ps, n_ctx, start,
+        plan.key_groups, plan.nsplit, plan.span,
         _build.DTYPE_CODES[str(q.dtype).removeprefix("torch.")],
         _build.stream_handle(q.device))
     _build.check(rc, "chunk_prefill_attention")

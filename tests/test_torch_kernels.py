@@ -2,8 +2,10 @@
 K2 paged chunk-prefill attention, K3 L2 top-k, K4 paged verify attention)
 against the JAX package's
 Pallas kernels in interpret mode and its jnp references, on the same
-numpy inputs. The CUDA kernels themselves are held against these plain
-versions on the card by `chip_smoke.py`."""
+numpy inputs; and the span plan of the paged-attention core that K1 and
+K2 share, with a float32 emulation of its split and merge. The CUDA
+kernels themselves are held against these plain versions on the card by
+`chip_smoke.py`."""
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -145,6 +147,201 @@ def test_chunk_prefill_plain_offset_paged(start, C):
         jnp.asarray(vg), causal=True, q_offset=start)).reshape(C, H, D)
     got = k2.chunk_prefill_attention(_t(q), _t(kp), _t(vp), _t(ctx), start).numpy()
     np.testing.assert_allclose(got, want, atol=F32_TOL, rtol=F32_TOL)
+
+
+# ------------------------- K1/K2 in bf16 at the kernels' GQA packing ------
+# G = 8 query heads per KV head, head_dim 128, pages of 16: the shapes the
+# paged-attention core packs into one 16-row tile (K1) or 64-row tiles (K2).
+BF16_TOL = 2e-2
+
+
+def _bf16(rng, shape):
+    """Seeded normals rounded to bf16, as float32 numpy (exact in bf16)."""
+    return np.asarray(jnp.asarray(_rand(rng, shape)).astype(jnp.bfloat16), np.float32)
+
+
+def test_paged_decode_plain_bf16_matches_pallas():
+    rng = np.random.default_rng(9)
+    B, H, Hkv, D, P, ps, nb = 3, 16, 2, 128, 14, 16, 4
+    q, kp, vp = _bf16(rng, (B, H, D)), _bf16(rng, (P, ps, Hkv, D)), _bf16(rng, (P, ps, Hkv, D))
+    table = rng.permutation(P)[: B * nb].reshape(B, nb).astype(np.int32)
+    lengths = np.asarray([1, 37, nb * ps], np.int32)
+    jargs = [jnp.asarray(a).astype(jnp.bfloat16) for a in (q, kp, vp)]
+    want = np.asarray(paged_decode_attention_pallas(
+        *jargs, jnp.asarray(table), jnp.asarray(lengths), interpret=True), np.float32)
+    want_ref = np.asarray(paged_decode_attention_ref(
+        *jargs, jnp.asarray(table), jnp.asarray(lengths)), np.float32)
+    got = k1.paged_decode_attention(*[_t(a).bfloat16() for a in (q, kp, vp)], _t(table),
+                                    _t(lengths))
+    assert got.dtype == torch.bfloat16 and k1.launches == 0
+    np.testing.assert_allclose(got.float().numpy(), want, atol=BF16_TOL, rtol=BF16_TOL)
+    np.testing.assert_allclose(got.float().numpy(), want_ref, atol=BF16_TOL, rtol=BF16_TOL)
+
+
+def test_chunk_prefill_plain_bf16_matches_flash_pallas():
+    """start = 0 over an identity table: flash_attention_pallas(causal=True)."""
+    rng = np.random.default_rng(10)
+    S, H, Hkv, D, ps = 64, 16, 2, 128, 16
+    q, k, v = _bf16(rng, (1, S, H, D)), _bf16(rng, (1, S, Hkv, D)), _bf16(rng, (1, S, Hkv, D))
+    jq, jk, jv = [jnp.asarray(a).astype(jnp.bfloat16) for a in (q, k, v)]
+    want = np.asarray(flash_attention_pallas(jq, jk, jv, causal=True, bq=32, bk=32,
+                                             interpret=True), np.float32)[0]
+    want_ref = np.asarray(ref.flash_attention_ref(jq, jk, jv, causal=True), np.float32)[0]
+    kp, vp = k[0].reshape(S // ps, ps, Hkv, D), v[0].reshape(S // ps, ps, Hkv, D)
+    ident = np.arange(S // ps, dtype=np.int32)
+    got = k2.chunk_prefill_attention(_t(q[0]).bfloat16(), _t(kp).bfloat16(),
+                                     _t(vp).bfloat16(), _t(ident), 0)
+    assert got.dtype == torch.bfloat16 and k2.launches == 0
+    np.testing.assert_allclose(got.float().numpy(), want, atol=BF16_TOL, rtol=BF16_TOL)
+    np.testing.assert_allclose(got.float().numpy(), want_ref, atol=BF16_TOL, rtol=BF16_TOL)
+
+
+def test_chunk_prefill_plain_bf16_ragged_offset():
+    """C = 37 (a ragged last tile) at a start that is not page-aligned, over
+    scattered pages, against the JAX engine's `layers.sdpa` in bf16."""
+    rng = np.random.default_rng(11)
+    start, C, H, Hkv, D, ps, P, n_ctx = 21, 37, 16, 2, 128, 16, 9, 4
+    q, kp, vp = _bf16(rng, (C, H, D)), _bf16(rng, (P, ps, Hkv, D)), _bf16(rng, (P, ps, Hkv, D))
+    ctx = rng.permutation(P)[:n_ctx].astype(np.int32)
+    kg = jnp.asarray(kp[ctx].reshape(1, n_ctx * ps, Hkv, D)).astype(jnp.bfloat16)
+    vg = jnp.asarray(vp[ctx].reshape(1, n_ctx * ps, Hkv, D)).astype(jnp.bfloat16)
+    want = np.asarray(jl.sdpa(jnp.asarray(q).astype(jnp.bfloat16).reshape(1, C, Hkv, H // Hkv, D),
+                              kg, vg, causal=True, q_offset=start), np.float32).reshape(C, H, D)
+    got = k2.chunk_prefill_attention(_t(q).bfloat16(), _t(kp).bfloat16(), _t(vp).bfloat16(),
+                                     _t(ctx), start)
+    np.testing.assert_allclose(got.float().numpy(), want, atol=BF16_TOL, rtol=BF16_TOL)
+
+
+# ------------------------------ the paged-attention core's span plan ------
+
+
+def _span_keys(plan, split, limit, cap):
+    """The key positions span `split` visits for a query row that sees the
+    positions < `limit`, as paged_attention.cuh walks them: from k_begin =
+    split * span to span_end = min(k_begin + span, cap), where cap is the
+    table's nb * ps, and not past the row's limit (K1: its raw length)."""
+    return range(split * plan.span, min((split + 1) * plan.span, cap, limit))
+
+
+@pytest.mark.parametrize("G,C,groups,n_keys", [
+    (8, 1, 8, 1024),      # K1 at qwen2.5-3b width: 4 rows x 2 KV heads, 64 pages of 16
+    (1, 1, 1, 5),
+    (2, 1, 24, 192),
+    (32, 1, 2, 4096),
+    (8, 32, 2, 896),      # K2: a 32-token chunk at start 864
+    (8, 512, 2, 512),     # K2: a whole 512-token prompt (the slab layout)
+    (4, 37, 2, 358),      # K2: a ragged chunk at a start that is not page-aligned
+    (8, 2, 1, 64),
+])
+def test_span_plan_partitions_visible_keys(G, C, groups, n_keys):
+    plan = k1.plan_spans(G * C, groups, n_keys)
+    tiles = -(-n_keys // k1.KEY_TILE)
+    assert plan.key_groups == (4 if G * C <= 16 else 1)
+    assert plan.span % k1.KEY_TILE == 0 and plan.span > 0
+    # the limits the C entry points check: every key covered, no idle span
+    assert 1 <= plan.nsplit <= tiles
+    assert plan.nsplit * plan.span >= n_keys > (plan.nsplit - 1) * plan.span
+    qtiles = -(-G * C // (k1.BLOCK_ROWS // plan.key_groups))
+    assert groups * qtiles * plan.nsplit < k1.TARGET_BLOCKS + groups * qtiles
+    # every visible key in exactly one span, none at or past the walk's end
+    for limit in sorted({0, 1, n_keys // 3, n_keys - 1, n_keys}):
+        seen = [k for s in range(plan.nsplit) for k in _span_keys(plan, s, limit, n_keys)]
+        assert sorted(seen) == list(range(limit))
+    # a dead row (length far past its table) visits each key of its table
+    # once and stops at nb * ps; a zero length gives no work
+    dead = [k for s in range(plan.nsplit) for k in _span_keys(plan, s, n_keys * 3, n_keys)]
+    assert sorted(dead) == list(range(n_keys))
+    assert not any(_span_keys(plan, s, 0, n_keys) for s in range(plan.nsplit))
+
+
+def _state(q, k, v, scale):
+    """(max, denominator, acc) of one query row over some keys."""
+    if not len(k):
+        return -float("inf"), 0.0, torch.zeros_like(q)
+    sc = (k @ q) * scale
+    m = float(sc.max())
+    p = torch.exp(sc - m)
+    return m, float(p.sum()), p @ v
+
+
+def _rescaled(states):
+    """Combine (max, denominator, acc) states as the kernels do: rescale
+    each to the common max, in order; empty states (max -inf) add nothing."""
+    m = max(sm for sm, _, _ in states)
+    live = [(sm, sl, sa) for sm, sl, sa in states if sm != -float("inf")]
+    w = [np.float32(np.exp(np.float32(sm - m))) for sm, _, _ in live]
+    l = sum(float(sl) * float(x) for (_, sl, _), x in zip(live, w))
+    acc = sum((sa * float(x) for (_, _, sa), x in zip(live, w)), torch.zeros_like(states[0][2]))
+    return m, l, acc
+
+
+def _split_merge(q, k, v, limits, plan, scale):
+    """float32 emulation of the core on one (sequence, KV head): q (R, D)
+    query rows with their key limits, k/v (S, D) the row's keys by logical
+    position, S the walk's cap. In each span, key group kw (of plan.key_groups) takes
+    positions 16 kw .. 16 kw + 15 of each 64-position tile when there are
+    four; the block combines its groups' (max, denominator, acc) into the
+    span's, and the merge combines the spans' and divides."""
+    share = k1.KEY_TILE // plan.key_groups
+    out = torch.zeros_like(q)
+    for r in range(q.shape[0]):
+        spans = []
+        for s in range(plan.nsplit):
+            keys = list(_span_keys(plan, s, int(limits[r]), k.shape[0]))
+            groups = [[p for p in keys if (p % k1.KEY_TILE) // share == kw]
+                      for kw in range(plan.key_groups)]
+            spans.append(_rescaled([_state(q[r], k[g], v[g], scale) for g in groups]))
+        _, l, acc = _rescaled(spans)
+        out[r] = acc / max(l, 1e-30)
+    return out
+
+
+def test_split_merge_emulation_matches_paged_decode_plain():
+    """K1's plan at a dead row, a zero length and lengths inside and across
+    tiles, split over spans and key groups, merged: equals the plain
+    version."""
+    rng = np.random.default_rng(12)
+    B, H, Hkv, D, P, ps, nb = 4, 8, 2, 32, 40, 8, 24
+    q, kp, vp = _rand(rng, (B, H, D)), _rand(rng, (P, ps, Hkv, D)), _rand(rng, (P, ps, Hkv, D))
+    table = rng.integers(1, P, (B, nb)).astype(np.int32)
+    table[1] = 0                                            # all-sink
+    lengths = np.asarray([77, nb * ps * 3, 0, 150], np.int32)
+    plan = k1.plan_spans(H // Hkv, B * Hkv, nb * ps)
+    assert plan.nsplit > 1 and plan.key_groups == 4
+    want = k1.paged_decode_attention_plain(_t(q), _t(kp), _t(vp), _t(table), _t(lengths))
+    G, scale = H // Hkv, D ** -0.5
+    got = torch.zeros_like(want)
+    for b in range(B):
+        limit = max(int(lengths[b]), 0)
+        for kvh in range(Hkv):
+            k = _t(kp)[_t(table[b]).long(), :, kvh].reshape(nb * ps, D)
+            v = _t(vp)[_t(table[b]).long(), :, kvh].reshape(nb * ps, D)
+            rows = slice(kvh * G, (kvh + 1) * G)
+            got[b, rows] = _split_merge(_t(q)[b, rows], k, v, [limit] * G, plan, scale)
+    np.testing.assert_array_equal(got[2].numpy(), np.zeros((H, D), np.float32))
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-6, rtol=1e-6)
+
+
+def test_split_merge_emulation_matches_chunk_prefill_plain():
+    """K2's plan for a ragged 37-token chunk at start 45 (not page-aligned):
+    each query row's causal limit start + c + 1."""
+    rng = np.random.default_rng(13)
+    start, C, H, Hkv, D, ps, P, n_ctx = 45, 37, 4, 2, 16, 8, 14, 11
+    q, kp, vp = _rand(rng, (C, H, D)), _rand(rng, (P, ps, Hkv, D)), _rand(rng, (P, ps, Hkv, D))
+    ctx = rng.permutation(P)[:n_ctx].astype(np.int32)
+    G = H // Hkv
+    plan = k1.plan_spans(G * C, Hkv, start + C)
+    assert plan.nsplit > 1
+    want = k2.chunk_prefill_attention_plain(_t(q), _t(kp), _t(vp), _t(ctx), start)
+    got = torch.zeros_like(want)
+    for kvh in range(Hkv):
+        k = _t(kp)[_t(ctx).long(), :, kvh].reshape(n_ctx * ps, D)
+        v = _t(vp)[_t(ctx).long(), :, kvh].reshape(n_ctx * ps, D)
+        rows = _t(q)[:, kvh * G:(kvh + 1) * G].reshape(C * G, D)      # row = c * G + g
+        limits = [start + r // G + 1 for r in range(C * G)]
+        got[:, kvh * G:(kvh + 1) * G] = _split_merge(rows, k, v, limits, plan,
+                                                     D ** -0.5).reshape(C, G, D)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-6, rtol=1e-6)
 
 
 # ------------------------------------------------- K4 paged verify -------
