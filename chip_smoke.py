@@ -7,7 +7,9 @@ Runs from the root of a checkout, imports nothing of JAX or of the JAX
 package, and goes through its phases, each printing one JSON line:
 
   device     the card's name and power limit (nvidia-smi);
-  build      nvcc build of the port's CUDA kernels from the checkout's sources;
+  build      nvcc build of the port's CUDA kernels from the checkout's sources,
+             with ptxas' registers and shared memory of the paged-attention
+             core's K4 and K5 instantiations;
   main       one QUEST query on qwen2.5-3b at its published width
              (d_model 2048, bf16, random weights from --seed), cut to its
              first MAIN_LAYERS = 12 of 36 layers to fit the time limit,
@@ -64,9 +66,10 @@ package, and goes through its phases, each printing one JSON line:
              selective scan) on the inputs of one of its real launches (K6
              and K7: a prefill chunk and a verify round; K2 also the slab
              phase's largest whole-prompt launch; K1 also its captured
-             launch with every length at the full table), plus edge cases
-             (K1 and K2: ~50 each in bf16 and float32, `_paged_edges`),
-             held against its plain PyTorch version; times with CUDA events
+             launch with every length at the full table; K4 in the engine's
+             layout and as a contiguous input), plus edge cases (K1, K2, K4
+             and K5: ~50 each in bf16 and float32, `_paged_edges`), held
+             against its plain PyTorch version; times with CUDA events
              beside its bound and a PyTorch library yardstick where one call
              computes the same function (none does for K7); for K1, K2, K4,
              K5 and their SDPA yardsticks also the device time per call
@@ -130,6 +133,40 @@ STATE_TOL = 1e-4
 # C++ documentation, the arithmetic instruction throughput table, compute
 # capability 9.0) x 132 SMs x the H100 SXM's 1,980 MHz boost clock
 SFU_OPS_S = 16 * 132 * 1.98e9
+
+
+def core_ptxas(log: str, tags) -> dict:
+    """The paged-attention core's instantiations for the given tags, from
+    nvcc's `-Xptxas -v` log: "<tag> <dtype> DP=<head width> KW=<key
+    groups>" -> registers, spill bytes, static and dynamic shared memory
+    (the dynamic part is paged_attention.cuh's `smem_bytes`)."""
+    import re
+    out, name, spill = {}, None, ""
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            name, spill = m.group(1), ""
+            continue
+        m = re.search(r"(\d+) bytes spill stores", ln)
+        if m:
+            spill = m.group(1)
+            continue
+        m = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", ln)
+        k = re.search(r"paged_attention_kernelI.*?(\w+?)E(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E",
+                      name or "")
+        if not (m and k):
+            continue
+        tag = next((t for t in tags if k.group(1).endswith(t)), None)
+        if tag is None:
+            continue
+        size = 4 if k.group(2) == "f" else 2
+        dp, kw = int(k.group(3)), int(k.group(4))
+        stages = 1 if size == 4 and dp > 128 else 2
+        dyn = (64 // kw + 2 * stages * 64) * (dp + 16 // size) * size
+        out[f"{tag} {'float32' if size == 4 else 'bf16'} DP={dp} KW={kw}"] = (
+            f"{m.group(1)} registers, spill {spill or '?'} B, smem {m.group(2)} B static "
+            f"+ {dyn} B dynamic")
+    return out
 
 
 def emit(obj) -> None:
@@ -719,8 +756,8 @@ def phase_profile(session, extractor, out_dir, path: str) -> dict:
     groups = {"K1 paged_decode": ("PagedDecode",),
               "K2 chunk_prefill": ("ChunkPrefill",),
               "K3 topk_l2": ("topk_l2_kernel",),
-              "K4 paged_verify": ("paged_verify_kernel", "PagedVerify"),
-              "K5 dense_decode": ("dense_decode_kernel", "DenseDecode"),
+              "K4 paged_verify": ("PagedVerify",),
+              "K5 dense_decode": ("DenseDecode",),
               "K6 moe_gating": ("moe_gating_kernel",),
               "K7 ssm_scan": ("ssm_scan_kernel",)}
     by_group = dict.fromkeys(list(groups) + ["gemm", "other"], 0.0)
@@ -769,11 +806,7 @@ def phase_profile(session, extractor, out_dir, path: str) -> dict:
 
 def phase_kernels(captures: dict, launches: dict) -> list:
     import torch
-    import torch.nn.functional as F
-    from repro_torch.kernels import decode_attention as k1
-    from repro_torch.kernels import flash_attention as k2
     from repro_torch.kernels import topk_l2 as k3
-    from repro_torch.kernels import verify_attention as k4
 
     rows = []
 
@@ -813,147 +846,17 @@ def phase_kernels(captures: dict, launches: dict) -> list:
         library_call="torch.cdist + torch.sort(stable=True)",
         bound_ms=b_ms, bound_by=b_by))
 
-    # ------------------------------------------------------------- K4 --
-    q, kp, vp, tbl, starts = captures["K4"].args
-    dt = str(q.dtype).removeprefix("torch.")
-    errs = {dt: max_err(k4.paged_verify_attention(q, kp, vp, tbl, starts),
-                        k4.paged_verify_attention_plain(q, kp, vp, tbl, starts))}
-    q32, kp32, vp32 = q.float(), kp.float(), vp.float()
-    errs["float32"] = max_err(k4.paged_verify_attention(q32, kp32, vp32, tbl, starts),
-                              k4.paged_verify_attention_plain(q32, kp32, vp32, tbl, starts))
-    # edge cases on the captured pools: a start that is not page-aligned
-    # with candidates crossing a page, a dead all-sink row with a stale
-    # start, start 0; then the JAX package's own K4 test shapes (ps = 256
-    # at D = 128 among them) on seeded inputs
-    B, H, C, D = q.shape
-    Hkv, ps = kp.shape[2], kp.shape[1]
-    nb = tbl.shape[1]
-    tbl_e, st_e = tbl.clone(), starts.clone()
-    st_e[0] = ps - C // 2 - 1 + ps * (nb // 2 - 1)
-    tbl_e[1 % B] = 0
-    st_e[1 % B] = nb * ps * 3
-    st_e[-1] = 0
-    errs["edge"] = max_err(k4.paged_verify_attention(q32, kp32, vp32, tbl_e, st_e),
-                           k4.paged_verify_attention_plain(q32, kp32, vp32, tbl_e, st_e))
-    gen = torch.Generator(device="cuda").manual_seed(7)
-    for (b, h, hkv, c, d, p, pgs, n) in ((2, 4, 2, 5, 64, 16, 128, 4),
-                                         (3, 2, 1, 3, 128, 9, 256, 2)):
-        for tdt in (torch.float32, torch.bfloat16):
-            qe = torch.randn((b, h, c, d), generator=gen, device="cuda").to(tdt)
-            ke = torch.randn((p, pgs, hkv, d), generator=gen, device="cuda").to(tdt)
-            ve = torch.randn((p, pgs, hkv, d), generator=gen, device="cuda").to(tdt)
-            te = torch.randperm(p, generator=gen, device="cuda")[: b * n].reshape(b, n).int()
-            se = torch.tensor([(n * pgs * (i + 1)) // (b + 1) - c // 2 for i in range(b)],
-                              dtype=torch.int32, device="cuda")
-            err = max_err(k4.paged_verify_attention(qe, ke, ve, te, se),
-                          k4.paged_verify_attention_plain(qe, ke, ve, te, se))
-            key = "edge" if tdt == torch.float32 else "edge_bf16"
-            errs[key] = max(errs.get(key, 0.0), err)
-    if errs["edge_bf16"] > TOL["bfloat16"]:
-        raise AssertionError(f"K4: bf16 error {errs['edge_bf16']} at the test shapes")
-    vis = torch.clamp(starts.long() + C, max=nb * ps)
-    pairs = int(sum(torch.clamp(starts.long() + c + 1, max=nb * ps).sum() for c in range(C)))
-    nbytes = (2 * int(vis.sum()) * Hkv * D + 2 * B * H * C * D) * q.element_size() \
-        + tbl.numel() * 4 + starts.numel() * 4
-    flops = 4 * pairs * H * D
-    b_ms, b_by = bound(nbytes, flops, dt)
-    idx = tbl.long()
-    S = nb * ps
-    kg = kp[idx].reshape(B, S, Hkv, D).transpose(1, 2).repeat_interleave(H // Hkv, 1)
-    vg = vp[idx].reshape(B, S, Hkv, D).transpose(1, 2).repeat_interleave(H // Hkv, 1)
-    qpos = starts.long()[:, None] + torch.arange(C, device=q.device)[None, :]
-    mask = (torch.arange(S, device=q.device)[None, None, :] <= qpos[:, :, None])[:, None]
-
-    def k4_kernel():
-        return k4.paged_verify_attention(q, kp, vp, tbl, starts)
-
-    def k4_library():
-        return F.scaled_dot_product_attention(q, kg, vg, attn_mask=mask)
-    rows.append(dict(
-        name="paged_verify_attention", route="cuda",
-        source="src/repro_torch/kernels/csrc/paged_verify_attention.cu",
-        replaces="src/repro/kernels/decode_attention.py:185",
-        launches=launches["K4"],
-        shape=f"q{tuple(q.shape)} table{tuple(tbl.shape)} starts {starts.tolist()} {dt}",
-        max_abs_err=errs[dt], tol=TOL[dt], max_abs_err_float32=errs["float32"],
-        max_abs_err_edge_float32=errs["edge"], max_abs_err_edge_bf16=errs["edge_bf16"],
-        tol_float32=TOL["float32"],
-        ms=cuda_ms(k4_kernel),
-        plain_ms=cuda_ms(lambda: k4.paged_verify_attention_plain(q, kp, vp, tbl, starts)),
-        library_ms=cuda_ms(k4_library),
-        device_ms=device_ms(k4_kernel), library_device_ms=device_ms(k4_library),
-        device_ms_method=DEVICE_MS_METHOD,
-        library_call="F.scaled_dot_product_attention over a pre-gathered view "
-                     "with the per-candidate causal mask",
-        bound_ms=b_ms, bound_by=b_by))
-
-    # ------------------------------------------------------------- K5 --
-    q, kc, vc, lens = captures["K5"].args
-    dt = str(q.dtype).removeprefix("torch.")
-    B, H, D = q.shape
-    S, Hkv = kc.shape[1], kc.shape[2]
-    errs = {dt: max_err(k1.decode_attention(q, kc, vc, lens),
-                        k1.decode_attention_plain(q, kc, vc, lens))}
-    q32, kc32, vc32 = q.float(), kc.float(), vc.float()
-    errs["float32"] = max_err(k1.decode_attention(q32, kc32, vc32, lens),
-                              k1.decode_attention_plain(q32, kc32, vc32, lens))
-    # edge cases on the captured slab: per-row lengths 1, S and one past S
-    # (a slot that is not live), then a zero length (zeros) and a scalar
-    lens_e = torch.tensor([1, S, S + 1, 0][:B] + [S // 2] * max(0, B - 4),
-                          dtype=torch.int32, device=q.device)
-    got = k1.decode_attention(q32, kc32, vc32, lens_e)
-    errs["edge"] = max(max_err(got, k1.decode_attention_plain(q32, kc32, vc32, lens_e)),
-                       max_err(k1.decode_attention(q32, kc32, vc32, S // 3),
-                               k1.decode_attention_plain(q32, kc32, vc32, S // 3)))
-    got_bf = k1.decode_attention(q, kc, vc, lens_e)
-    errs["edge_bf16"] = max_err(got_bf, k1.decode_attention_plain(q, kc, vc, lens_e))
-    if B >= 4 and (float(got[3].abs().max()) != 0.0 or float(got_bf[3].abs().max()) != 0.0):
-        raise AssertionError("K5: a zero length must give zeros")
-    if errs["edge_bf16"] > TOL["bfloat16"]:
-        raise AssertionError(f"K5: bf16 edge error {errs['edge_bf16']}")
-    vis = torch.clamp(lens.long(), 0, S)
-    nbytes = (2 * int(vis.sum()) * Hkv * D + 2 * B * H * D) * q.element_size() \
-        + lens.numel() * 4
-    flops = 4 * int(vis.sum()) * H * D
-    b_ms, b_by = bound(nbytes, flops, dt)
-    G = H // Hkv
-    kg = kc.transpose(1, 2).repeat_interleave(G, 1)
-    vg = vc.transpose(1, 2).repeat_interleave(G, 1)
-    mask = (torch.arange(S, device=q.device)[None, :] < lens[:, None])[:, None, None, :]
-    q4 = q[:, :, None, :]
-
-    def k5_kernel():
-        return k1.decode_attention(q, kc, vc, lens)
-
-    def k5_library():
-        return F.scaled_dot_product_attention(q4, kg, vg, attn_mask=mask)
-    rows.append(dict(
-        name="dense_decode_attention", route="cuda",
-        source="src/repro_torch/kernels/csrc/dense_decode_attention.cu",
-        replaces="src/repro/kernels/decode_attention.py:274",
-        launches=launches["K5"], launches_slab=launches.get("K5_slab"),
-        shape=f"q{tuple(q.shape)} cache{tuple(kc.shape)} lengths {lens.tolist()} {dt}",
-        max_abs_err=errs[dt], tol=TOL[dt], max_abs_err_float32=errs["float32"],
-        max_abs_err_edge_float32=errs["edge"], max_abs_err_edge_bf16=errs["edge_bf16"],
-        tol_float32=TOL["float32"],
-        ms=cuda_ms(k5_kernel),
-        plain_ms=cuda_ms(lambda: k1.decode_attention_plain(q, kc, vc, lens)),
-        library_ms=cuda_ms(k5_library),
-        device_ms=device_ms(k5_kernel), library_device_ms=device_ms(k5_library),
-        device_ms_method=DEVICE_MS_METHOD,
-        library_call="F.scaled_dot_product_attention over the slab in (B, H, S, D) "
-                     "with a per-row length mask",
-        bound_ms=b_ms, bound_by=b_by))
-
+    rows.append(_kernel_k4(captures, launches, edges))
+    rows.append(_kernel_k5(captures, launches, edges))
     rows.append(_kernel_k6(captures, launches))
     rows.append(_kernel_k7(captures, launches))
 
     for r in rows:
         r["kernel_ms"] = r["ms"]
         emit({"phase": "kernels", **r})
-        for key in ("max_abs_err", "max_abs_err_float32", "max_abs_err_edge_float32",
-                    "max_abs_err_edge_bf16"):
-            tol = r["tol"] if key == "max_abs_err" else \
+        for key in ("max_abs_err", "max_abs_err_contiguous", "max_abs_err_float32",
+                    "max_abs_err_edge_float32", "max_abs_err_edge_bf16"):
+            tol = r["tol"] if key in ("max_abs_err", "max_abs_err_contiguous") else \
                 r.get("tol_bf16", TOL["bfloat16"]) if key.endswith("bf16") else \
                 r.get("tol_float32", r["tol"])
             if key in r and not r[key] <= tol:
@@ -962,17 +865,26 @@ def phase_kernels(captures: dict, launches: dict) -> list:
 
 
 def _paged_edges() -> tuple:
-    """K1 and K2 against their plain versions, bf16 and float32, on seeded
-    inputs at edge cases: the JAX package's K1 and K2 test shapes; every
-    G = 1, 2, 4, 8 x D = 32, 64, 128 x ps = 8, 16, 32, 256; for K1 a dead
-    row (all-sink table, length three times the table) and a zero length
-    (whose zeros are asserted) in every case, and in the grid's cases a
-    length of 1 (every key span but the first empty); for K2 a 37-token chunk (a
-    ragged tile) at a start that is not page-aligned in every case. Returns
-    ({(kernel, dtype): max error}, {kernel: number of cases})."""
+    """K1, K2, K4 and K5 -- the kernels on the paged-attention core --
+    against their plain versions, bf16 and float32, on seeded inputs at edge
+    cases: the JAX package's K1, K2 and K4 test shapes; every G = 1, 2, 4, 8
+    x D = 32, 64, 128 x ps = 8, 16, 32, 256 for K1 and K2; for K1 a dead row
+    (all-sink table, length three times the table) and a zero length (whose
+    zeros are asserted) in every case, and in the grid's cases a length of 1
+    (every key span but the first empty); for K2 a 37-token chunk (a ragged
+    tile) at a start that is not page-aligned in every case. K4: G = 1, 2,
+    8, 16 x C = 1, 3, 5 x (D, ps) = (32, 8), (64, 256), (128, 16), (256,
+    32) -- G = 16 at C = 5 is 80 rows, two query tiles -- each with a start
+    whose candidates cross a page, a dead all-sink row at a stale start,
+    start 0 and a random start. K5: G = 1, 2, 8, 32 x D = 32, 64, 128, 256
+    (G x D up to 8,192, twice the old kernel's limit) x S = 64, 700, 1,000
+    (not multiples of the 64-position key tile among them), lengths 1, S, S
+    + 1 and 0 (whose zeros are asserted). Returns ({(kernel, dtype): max
+    error}, {kernel: number of cases})."""
     import torch
     from repro_torch.kernels import decode_attention as k1
     from repro_torch.kernels import flash_attention as k2
+    from repro_torch.kernels import verify_attention as k4
     gen = torch.Generator(device="cuda").manual_seed(16)
 
     def r(*shape):
@@ -988,7 +900,18 @@ def _paged_edges() -> tuple:
                 (16, 4, 2, 16, 8, 8, 40, False)] + \
         [(37, 2 * G, 2, D, ps, (ps + ps // 2 + 1 + 37) // ps + 2, ps + ps // 2 + 1, False)
          for G, D, ps in grid]
+    # (B, H, Hkv, C, D, P, ps, nb): its K4 shapes, then the grid
+    k4_cases = [(2, 4, 2, 5, 64, 16, 128, 4), (3, 2, 1, 3, 128, 9, 256, 2)] + \
+        [(4, 2 * G, 2, C, D, 4 * max(2, 512 // ps) + 3, ps, max(2, 512 // ps))
+         for G in (1, 2, 8, 16) for C in (1, 3, 5)
+         for D, ps in ((32, 8), (64, 256), (128, 16), (256, 32))]
+    # (B, H, Hkv, D, S)
+    k5_cases = [(4, 2 * G, 2, D, S) for G in (1, 2, 8, 32) for D in (32, 64, 128, 256)
+                for S in (64, 700, 1000)]
     errs = {}
+
+    def note(kernel, name, err):
+        errs[kernel, name] = max(errs.get((kernel, name), 0.0), err)
     for dt in (torch.float32, torch.bfloat16):
         name = str(dt).removeprefix("torch.")
         for B, H, Hkv, D, P, ps, nb in k1_cases:
@@ -1001,8 +924,7 @@ def _paged_edges() -> tuple:
             if B == 4:
                 lens[1] = 1                                # one key: later spans empty
             got = k1.paged_decode_attention(q, kp, vp, tbl, lens)
-            err = max_err(got, k1.paged_decode_attention_plain(q, kp, vp, tbl, lens))
-            errs["K1", name] = max(errs.get(("K1", name), 0.0), err)
+            note("K1", name, max_err(got, k1.paged_decode_attention_plain(q, kp, vp, tbl, lens)))
             if float(got[B - 1].float().abs().max()) != 0.0:
                 raise AssertionError(f"K1: lengths == 0 must give zeros ({name}, D={D})")
         for C, H, Hkv, D, ps, n_ctx, start, ident in k2_cases:
@@ -1010,10 +932,28 @@ def _paged_edges() -> tuple:
             q, kp, vp = r(C, H, D).to(dt), r(P, ps, Hkv, D).to(dt), r(P, ps, Hkv, D).to(dt)
             ctx = (torch.arange(n_ctx, device="cuda") if ident else
                    torch.randperm(P, generator=gen, device="cuda")[:n_ctx]).int()
-            err = max_err(k2.chunk_prefill_attention(q, kp, vp, ctx, start),
-                          k2.chunk_prefill_attention_plain(q, kp, vp, ctx, start))
-            errs["K2", name] = max(errs.get(("K2", name), 0.0), err)
-    return errs, {"K1": len(k1_cases), "K2": len(k2_cases)}
+            note("K2", name, max_err(k2.chunk_prefill_attention(q, kp, vp, ctx, start),
+                                     k2.chunk_prefill_attention_plain(q, kp, vp, ctx, start)))
+        for B, H, Hkv, C, D, P, ps, nb in k4_cases:
+            q, kp, vp = r(B, H, C, D).to(dt), r(P, ps, Hkv, D).to(dt), r(P, ps, Hkv, D).to(dt)
+            tbl = torch.randperm(P, generator=gen, device="cuda")[: B * nb].reshape(B, nb).int()
+            starts = torch.randint(0, nb * ps - C + 1, (B,), generator=gen, device="cuda",
+                                   dtype=torch.int32)
+            if B == 4:
+                starts[0] = ps * (nb // 2) - C // 2 - 1   # candidates cross a page
+                tbl[1], starts[1] = 0, nb * ps * 3        # dead: all-sink, stale start
+                starts[2] = 0
+            note("K4", name, max_err(k4.paged_verify_attention(q, kp, vp, tbl, starts),
+                                     k4.paged_verify_attention_plain(q, kp, vp, tbl, starts)))
+        for B, H, Hkv, D, S in k5_cases:
+            q, kc, vc = r(B, H, D).to(dt), r(B, S, Hkv, D).to(dt), r(B, S, Hkv, D).to(dt)
+            lens = torch.tensor([1, S, S + 1, 0], dtype=torch.int32, device="cuda")
+            got = k1.decode_attention(q, kc, vc, lens)
+            note("K5", name, max_err(got, k1.decode_attention_plain(q, kc, vc, lens)))
+            if float(got[3].float().abs().max()) != 0.0:
+                raise AssertionError(f"K5: a zero length must give zeros ({name}, D={D})")
+    return errs, {"K1": len(k1_cases), "K2": len(k2_cases), "K4": len(k4_cases),
+                  "K5": len(k5_cases)}
 
 
 def _k1_row(q, kp, vp, tbl, lens, launches: int, variant: str) -> dict:
@@ -1049,6 +989,7 @@ def _k1_row(q, kp, vp, tbl, lens, launches: int, variant: str) -> dict:
     return dict(
         name="paged_decode_attention" + variant, route="cuda",
         source="src/repro_torch/kernels/csrc/paged_decode_attention.cu",
+        core="src/repro_torch/kernels/csrc/paged_attention.cuh",
         replaces="src/repro/kernels/decode_attention.py:101", launches=launches,
         shape=f"q{tuple(q.shape)} table{tuple(tbl.shape)} lengths {lens.tolist()} {dt}",
         max_abs_err=errs[dt], tol=TOL[dt], max_abs_err_float32=errs["float32"],
@@ -1126,6 +1067,7 @@ def _k2_row(q, kp, vp, ctx, start, launches: int, variant: str) -> dict:
     return dict(
         name="chunk_prefill_attention" + variant, route="cuda",
         source="src/repro_torch/kernels/csrc/chunk_prefill_attention.cu",
+        core="src/repro_torch/kernels/csrc/paged_attention.cuh",
         replaces="src/repro/kernels/flash_attention.py:71", launches=launches,
         shape=f"q{tuple(q.shape)} start={start} ctx{tuple(ctx.shape)} pages of {ps} {dt}",
         max_abs_err=errs[dt], tol=TOL[dt], max_abs_err_float32=errs["float32"],
@@ -1152,6 +1094,143 @@ def _kernel_k2(captures: dict, launches: dict, edges: tuple) -> list:
     chunk = _k2_row(q, kp, vp, ctx, start, launches["K2"], "")
     return [_with_edges(chunk, "K2", edges, edge),
             _k2_row(*captures["K2_slab"].args, launches["K2_slab"], " [slab]")]
+
+
+def _kernel_k4(captures: dict, launches: dict, edges: tuple) -> dict:
+    """K4 at its captured spec-path launch, in the engine's layout (a
+    transposed view of a (B, C, H, D) tensor, which the wrapper reads
+    without a copy) and as a contiguous (B, H, C, D) input, with
+    `_paged_edges`' K4 cases and, on the captured pools, a start whose
+    candidates cross a page, a dead all-sink row at a stale start and start
+    0 (float32), and the captured launch cut to C = 1 and C = 3 (both
+    dtypes)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import verify_attention as k4
+    q, kp, vp, tbl, starts = captures["K4"].args
+    q = q.transpose(1, 2).contiguous().transpose(1, 2)    # the engine's layout
+    qc = q.contiguous()
+    dt = str(q.dtype).removeprefix("torch.")
+
+    def err(q_, kp_, vp_, tbl_, st_):
+        return max_err(k4.paged_verify_attention(q_, kp_, vp_, tbl_, st_),
+                       k4.paged_verify_attention_plain(q_, kp_, vp_, tbl_, st_))
+    q32, kp32, vp32 = q.float(), kp.float(), vp.float()
+    B, H, C, D = q.shape
+    Hkv, ps = kp.shape[2], kp.shape[1]
+    nb = tbl.shape[1]
+    tbl_e, st_e = tbl.clone(), starts.clone()
+    st_e[0] = ps - C // 2 - 1 + ps * (nb // 2 - 1)
+    tbl_e[1 % B] = 0
+    st_e[1 % B] = nb * ps * 3
+    st_e[-1] = 0
+    edge = err(q32, kp32, vp32, tbl_e, st_e)
+    edge_bf16 = 0.0
+    for c in (1, 3):
+        edge = max(edge, err(q32[:, :, :c], kp32, vp32, tbl, starts))
+        edge_bf16 = max(edge_bf16, err(q[:, :, :c], kp, vp, tbl, starts))
+    vis = torch.clamp(starts.long() + C, max=nb * ps)
+    pairs = int(sum(torch.clamp(starts.long() + c + 1, max=nb * ps).sum() for c in range(C)))
+    nbytes = (2 * int(vis.sum()) * Hkv * D + 2 * B * H * C * D) * q.element_size() \
+        + tbl.numel() * 4 + starts.numel() * 4
+    b_ms, b_by = bound(nbytes, 4 * pairs * H * D, dt)
+    idx = tbl.long()
+    S = nb * ps
+    kg = kp[idx].reshape(B, S, Hkv, D).transpose(1, 2).repeat_interleave(H // Hkv, 1)
+    vg = vp[idx].reshape(B, S, Hkv, D).transpose(1, 2).repeat_interleave(H // Hkv, 1)
+    qpos = starts.long()[:, None] + torch.arange(C, device=q.device)[None, :]
+    mask = (torch.arange(S, device=q.device)[None, None, :] <= qpos[:, :, None])[:, None]
+
+    def kernel():
+        return k4.paged_verify_attention(q, kp, vp, tbl, starts)
+
+    def library():
+        return F.scaled_dot_product_attention(q, kg, vg, attn_mask=mask)
+    row = dict(
+        name="paged_verify_attention", route="cuda",
+        source="src/repro_torch/kernels/csrc/paged_verify_attention.cu",
+        core="src/repro_torch/kernels/csrc/paged_attention.cuh",
+        replaces="src/repro/kernels/decode_attention.py:185",
+        launches=launches["K4"],
+        shape=f"q{tuple(q.shape)} (a view of (B, C, H, D)) table{tuple(tbl.shape)} "
+              f"starts {starts.tolist()} {dt}",
+        max_abs_err=err(q, kp, vp, tbl, starts), tol=TOL[dt],
+        max_abs_err_contiguous=err(qc, kp, vp, tbl, starts),
+        max_abs_err_float32=err(q32, kp32, vp32, tbl, starts), tol_float32=TOL["float32"],
+        ms=cuda_ms(kernel),
+        plain_ms=cuda_ms(lambda: k4.paged_verify_attention_plain(q, kp, vp, tbl, starts)),
+        library_ms=cuda_ms(library),
+        device_ms=device_ms(kernel), library_device_ms=device_ms(library),
+        device_ms_method=DEVICE_MS_METHOD,
+        library_call="F.scaled_dot_product_attention over a pre-gathered view "
+                     "with the per-candidate causal mask",
+        bound_ms=b_ms, bound_by=b_by)
+    row = _with_edges(row, "K4", edges, edge)
+    row["max_abs_err_edge_bf16"] = max(row["max_abs_err_edge_bf16"], edge_bf16)
+    return row
+
+
+def _kernel_k5(captures: dict, launches: dict, edges: tuple) -> dict:
+    """K5 at its captured drafter launch, with `_paged_edges`' K5 cases
+    and, on the captured slab, per-row lengths 1, S and one past S (a slot
+    that is not live), a zero length (whose zeros are asserted) and a
+    scalar length."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as k1
+    q, kc, vc, lens = captures["K5"].args
+    dt = str(q.dtype).removeprefix("torch.")
+    B, H, D = q.shape
+    S, Hkv = kc.shape[1], kc.shape[2]
+
+    def err(q_, kc_, vc_, lens_):
+        return max_err(k1.decode_attention(q_, kc_, vc_, lens_),
+                       k1.decode_attention_plain(q_, kc_, vc_, lens_))
+    q32, kc32, vc32 = q.float(), kc.float(), vc.float()
+    lens_e = torch.tensor([1, S, S + 1, 0][:B] + [S // 2] * max(0, B - 4),
+                          dtype=torch.int32, device=q.device)
+    got = k1.decode_attention(q32, kc32, vc32, lens_e)
+    edge = max(max_err(got, k1.decode_attention_plain(q32, kc32, vc32, lens_e)),
+               err(q32, kc32, vc32, S // 3))
+    got_bf = k1.decode_attention(q, kc, vc, lens_e)
+    edge_bf16 = max_err(got_bf, k1.decode_attention_plain(q, kc, vc, lens_e))
+    if B >= 4 and (float(got[3].abs().max()) != 0.0 or float(got_bf[3].abs().max()) != 0.0):
+        raise AssertionError("K5: a zero length must give zeros")
+    vis = torch.clamp(lens.long(), 0, S)
+    nbytes = (2 * int(vis.sum()) * Hkv * D + 2 * B * H * D) * q.element_size() \
+        + lens.numel() * 4
+    b_ms, b_by = bound(nbytes, 4 * int(vis.sum()) * H * D, dt)
+    G = H // Hkv
+    kg = kc.transpose(1, 2).repeat_interleave(G, 1)
+    vg = vc.transpose(1, 2).repeat_interleave(G, 1)
+    mask = (torch.arange(S, device=q.device)[None, :] < lens[:, None])[:, None, None, :]
+    q4 = q[:, :, None, :]
+
+    def kernel():
+        return k1.decode_attention(q, kc, vc, lens)
+
+    def library():
+        return F.scaled_dot_product_attention(q4, kg, vg, attn_mask=mask)
+    row = dict(
+        name="dense_decode_attention", route="cuda",
+        source="src/repro_torch/kernels/csrc/dense_decode_attention.cu",
+        core="src/repro_torch/kernels/csrc/paged_attention.cuh",
+        replaces="src/repro/kernels/decode_attention.py:274",
+        launches=launches["K5"], launches_slab=launches.get("K5_slab"),
+        shape=f"q{tuple(q.shape)} cache{tuple(kc.shape)} lengths {lens.tolist()} {dt}",
+        max_abs_err=err(q, kc, vc, lens), tol=TOL[dt],
+        max_abs_err_float32=err(q32, kc32, vc32, lens), tol_float32=TOL["float32"],
+        ms=cuda_ms(kernel),
+        plain_ms=cuda_ms(lambda: k1.decode_attention_plain(q, kc, vc, lens)),
+        library_ms=cuda_ms(library),
+        device_ms=device_ms(kernel), library_device_ms=device_ms(library),
+        device_ms_method=DEVICE_MS_METHOD,
+        library_call="F.scaled_dot_product_attention over the slab in (B, H, S, D) "
+                     "with a per-row length mask",
+        bound_ms=b_ms, bound_by=b_by)
+    row = _with_edges(row, "K5", edges, edge)
+    row["max_abs_err_edge_bf16"] = max(row["max_abs_err_edge_bf16"], edge_bf16)
+    return row
 
 
 def _kernel_k6(captures: dict, launches: dict) -> dict:
@@ -1535,7 +1614,9 @@ def main() -> int:
                  if "registers" in ln or "spill" in ln]
         report["build"] = {"phase": "build", "seconds": time.perf_counter() - t0,
                            "nvcc_seconds": _build.build_info["seconds"],
-                           "cached": _build.build_info["cached"], "ptxas": ptxas[:12]}
+                           "cached": _build.build_info["cached"], "ptxas": ptxas[:12],
+                           "ptxas_core": core_ptxas(_build.build_info.get("ptxas", ""),
+                                                    ("PagedVerify", "DenseDecode"))}
         emit(report["build"])
 
         captures: dict = {}

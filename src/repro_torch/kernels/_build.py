@@ -33,8 +33,8 @@ _SIGNATURES = {
     "repro_topk_l2": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "repro_paged_decode_attention": [_P] * 7 + [_I] * 10 + [_P],
     "repro_chunk_prefill_attention": [_P] * 6 + [_I] * 11 + [_P],
-    "repro_paged_verify_attention": [_P] * 7 + [_I] * 9 + [_P],
-    "repro_dense_decode_attention": [_P] * 6 + [_I] * 7 + [_P],
+    "repro_paged_verify_attention": [_P] * 7 + [_I] * 11 + [_P],
+    "repro_dense_decode_attention": [_P] * 6 + [_I] * 9 + [_P],
     "repro_ssm_scan": [_P] * 10 + [_I] * 5 + [_P],
     "repro_moe_gating": [_P, _P, _P, _I, _I, _I, _P],
 }

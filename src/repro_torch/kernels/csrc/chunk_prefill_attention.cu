@@ -38,9 +38,9 @@ extern "C" int repro_chunk_prefill_attention(const void* q, const void* k_pool,
       n_ctx > (1 << 30) / ps || start > n_ctx * ps - C)
     return cudaErrorInvalidValue;
   float* w = static_cast<float*>(ws);
-  repro::PagedArgs a{q, k_pool, v_pool, static_cast<const int*>(ctx), nullptr, out, w,
+  repro::PagedArgs a{q, k_pool, v_pool, static_cast<const int*>(ctx), nullptr, start, out, w,
                      w + 2 * static_cast<size_t>(C) * H * nsplit, 1, C, H, Hkv, D, ps, n_ctx,
-                     start, span, 1.f / sqrtf(static_cast<float>(D))};
+                     span, 1.f / sqrtf(static_cast<float>(D))};
   return repro::paged_attention<repro::ChunkPrefill>(a, start + C, key_groups, nsplit, dtype,
                                                      static_cast<cudaStream_t>(stream));
 }

@@ -1,16 +1,21 @@
-// Paged attention core shared by paged decode (K1) and paged chunk prefill (K2).
+// Paged attention core shared by paged decode (K1), paged chunk prefill
+// (K2), paged verify (K4) and dense-cache decode (K5).
 //
 // What one launch computes. B sequences, each with C query positions and H
 // query heads over Hkv KV heads (G = H / Hkv). Query row (b, c, h) sits at
-// position base_b + c -- base_b = lengths[b] - 1 for K1 (C = 1), the
-// scalar `start` for K2 (B = 1) -- and attends the keys at logical
+// position base_b + c, base_b = max(row_base[b], 0) + base_offset -- K1 and
+// K5: lengths with -1 (C = 1); K4: the candidates' starts with 0; K2: no
+// array, its scalar start (B = 1) -- and attends the keys at logical
 // positions < min(base_b + c + 1, nb * ps) that row b's page table maps,
-// with KV head h / G. Layouts: q, out (B, C, H, D); pools (P, ps, Hkv, D);
-// table (B, nb). fp32 online softmax; output in q's dtype.
+// with KV head h / G. Without a table the layout is the identity: position
+// pos of row b is pool row b * nb * ps + pos (K5's slab (B, S, Hkv, D) as
+// one page of S a row). Layouts: q, out (B, C, H, D); pools (P, ps, Hkv,
+// D); table (B, nb). fp32 online softmax; output in q's dtype.
 //
 // Bound on the H100: device-memory bytes at the paths' shapes. The K/V of a
-// (sequence, KV head) are read once for its G x C query rows: K1 does ~8
-// flops a byte, a 32-token chunk ~256, the bf16 ridge is ~295.
+// (sequence, KV head) are read once for its G x C query rows: K1 and K5 do
+// ~8 flops a byte, K4's 5 candidates ~40, a 32-token chunk ~256; the bf16
+// ridge is ~295.
 //
 // Design. A block of four warps serves one (sequence, KV head, query tile,
 // key span):
@@ -32,9 +37,10 @@
 //   work; the query tiles with the most keys are launched first.
 // - Staging: K/V stay in the input dtype in shared memory, copied by
 //   cp.async 16 bytes a thread, each of the tile's 64 positions looked up
-//   through the page table on its own (any ps, any start), the lookups one
-//   tile ahead in a small index ring; a ring of two tiles keeps the next
-//   tile's copy in flight while this tile's math runs.
+//   through the page table on its own (any ps, any start; without a table
+//   the identity), the lookups one tile ahead in a small index ring; a
+//   ring of two tiles keeps the next tile's copy in flight while this
+//   tile's math runs.
 //   Rows are padded by 16 bytes, so the ldmatrix reads are free of bank
 //   conflicts. Positions past the span and columns past D are zero-filled.
 // - bf16: both products on the tensor cores, mma.sync m16n8k16 with fp32
@@ -65,12 +71,13 @@ struct PagedArgs {
   const void* q;        // (B, C, H, D)
   const void* k_pool;   // (P, ps, Hkv, D)
   const void* v_pool;
-  const int* table;     // (B, nb) page ids
-  const int* lengths;   // (B,), or null: every sequence's base is `start`
+  const int* table;     // (B, nb) page ids, or null: the identity layout
+  const int* row_base;  // (B,), or null: every sequence's base is base_offset
+  int base_offset;      // added to max(row_base[b], 0)
   void* out;            // (B, C, H, D), written here when nsplit == 1
   float* part_ml;       // (B * C * H, nsplit, 2)
   float* part_acc;      // (B * C * H, nsplit, D)
-  int B, C, H, Hkv, D, ps, nb, start, span;
+  int B, C, H, Hkv, D, ps, nb, span;
   float scale;
 };
 
@@ -297,7 +304,8 @@ __global__ void __launch_bounds__(kPaThreads) paged_attention_kernel(const Paged
   const T* qg = static_cast<const T*>(a.q);
   const T* kg = static_cast<const T*>(a.k_pool);
   const T* vg = static_cast<const T*>(a.v_pool);
-  const int* trow = a.table + static_cast<size_t>(b) * a.nb;
+  const int* trow = a.table ? a.table + static_cast<size_t>(b) * a.nb : nullptr;
+  const int row0 = trow ? 0 : b * cap;  // the identity layout's first pool row of b
   const int dch = a.D / EPC;  // chunks of a row that hold data
   // flat (B, C, H) index of block row i: the output and workspace row
   auto out_row = [&](int i) -> size_t {
@@ -305,10 +313,11 @@ __global__ void __launch_bounds__(kPaThreads) paged_attention_kernel(const Paged
     return (static_cast<size_t>(b) * a.C + c) * a.H + kvh * G + (r - c * G);
   };
   auto lookup = [&](int pos, int end) {  // the pool row of a logical position
-    return pos < end ? trow[pos / a.ps] * a.ps + pos % a.ps : -1;
+    if (pos >= end) return -1;
+    return trow ? trow[pos / a.ps] * a.ps + pos % a.ps : row0 + pos;
   };
 
-  // What does not wait for the rows' lengths goes first: the queries' copies
+  // What does not wait for the rows' bases goes first: the queries' copies
   // and the page-table entries of the span's first NS tiles.
   for (int e = tid; e < QB * CPR; e += kPaThreads) {
     const int i = e / CPR, ch = e - i * CPR;
@@ -319,9 +328,13 @@ __global__ void __launch_bounds__(kPaThreads) paged_attention_kernel(const Paged
 #pragma unroll
   for (int s = 0; s < NS; ++s)
     pre[s] = tid < kPaKeyTile ? lookup(k_begin + s * kPaKeyTile + tid, span_end) : -1;
-  const int base = a.lengths ? max(a.lengths[b], 0) - 1 : a.start;
+  // 64 bits: a dead row's base (a stale start or length, far past its
+  // table) plus c + 1 must not wrap
+  const long long base =
+      (a.row_base ? max(a.row_base[b], 0) : 0) + static_cast<long long>(a.base_offset);
   // the block's rows see keys < min(base + c + 1, cap); its last row most
-  const int k_end = min(span_end, base + (r0 + nq - 1) / G + 1);
+  const int k_end =
+      static_cast<int>(min(static_cast<long long>(span_end), base + (r0 + nq - 1) / G + 1));
 
   if (k_begin >= k_end) {  // no row of the block sees a key of this span
     if (nparts == 1) {      // ... nor any key at all: zeros
@@ -360,7 +373,8 @@ __global__ void __launch_bounds__(kPaThreads) paged_attention_kernel(const Paged
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int i = wrow + (lane >> 2) + 8 * h;
-    lim[h] = i < nq ? min(min(base + (r0 + i) / G + 1, cap), k_end) : 0;
+    lim[h] = i < nq ? static_cast<int>(min(base + (r0 + i) / G + 1, static_cast<long long>(k_end)))
+                    : 0;
   }
   const int warp_lim = __reduce_max_sync(0xffffffffu, max(lim[0], lim[1]));
   const float scale =
@@ -567,9 +581,9 @@ cudaError_t launch_dp(const PagedArgs& a, int key_groups, int nsplit, cudaStream
 
 // Check a launch plan and run the core, then (nsplit > 1) the merge, on
 // `stream`.
-// n_keys: the positions the walk may visit (K1 nb * ps, K2 start + C); the
-// plan must cover them with nsplit spans of `a.span` positions (a multiple
-// of the key tile), and no span may start past them.
+// n_keys: the positions the walk may visit (K1, K4 and K5 nb * ps, K2
+// start + C); the plan must cover them with nsplit spans of `a.span`
+// positions (a multiple of the key tile), and no span may start past them.
 template <class Tag>
 cudaError_t paged_attention(const PagedArgs& a, int n_keys, int key_groups, int nsplit,
                             int dtype, cudaStream_t s) {

@@ -36,8 +36,8 @@ extern "C" int repro_paged_decode_attention(const void* q, const void* k_pool,
     return cudaErrorInvalidValue;
   float* w = static_cast<float*>(ws);
   repro::PagedArgs a{q, k_pool, v_pool, static_cast<const int*>(table),
-                     static_cast<const int*>(lengths), out, w,
-                     w + 2 * static_cast<size_t>(B) * H * nsplit, B, 1, H, Hkv, D, ps, nb, 0,
+                     static_cast<const int*>(lengths), -1, out, w,
+                     w + 2 * static_cast<size_t>(B) * H * nsplit, B, 1, H, Hkv, D, ps, nb,
                      span, 1.f / sqrtf(static_cast<float>(D))};
   return repro::paged_attention<repro::PagedDecode>(a, nb * ps, key_groups, nsplit, dtype,
                                                     static_cast<cudaStream_t>(stream));

@@ -1,7 +1,7 @@
 """K1: paged decode attention on the shared KV page pool, and K5:
 flash-decoding over a dense per-row cache (the slab layout). The JAX
 module holds both TPU kernels too. This module also plans the key spans
-of the paged-attention core that K1 and K2 share (`plan_spans`).
+of the paged-attention core that K1, K2, K4 and K5 share (`plan_spans`).
 
 K1 replaces `repro.kernels.decode_attention.paged_decode_attention_pallas`
 (src/repro/kernels/decode_attention.py:101). CUDA source:
@@ -31,20 +31,21 @@ mean of V over the table instead; the engine never issues a zero length).
 
 K5 replaces `repro.kernels.decode_attention.decode_attention_pallas`
 (src/repro/kernels/decode_attention.py:274, body `_kernel` :24). CUDA
-source: `csrc/dense_decode_attention.cu`. It serves every decode step of
+source: `csrc/dense_decode_attention.cu`, on the core
+`csrc/paged_attention.cuh`. It serves every decode step of
 the slab layout and of the draft model. The slab engine passes per-row
 lengths (pos + 1), so K5 takes lengths (B,) int32 where the Pallas kernel
 takes a scalar; the wrapper broadcasts a scalar.
 
 Bound on the H100: device-memory bytes, as K1: the K/V bytes of
 min(length, S) positions per (row, KV head), read once for its G query
-heads, over 3.35 TB/s. Design: the flash-decoding split of K4 -- one block
-per (row, KV head, span of key positions) serving all G query heads from
-each 64-position K/V tile staged in shared memory once, fp32 online
-softmax, and a second kernel merging the spans -- so the 8 (row, KV head)
-pairs of a full-width decode step spread over the 132 SMs. The walk is
-bounded by S (a slot that is not live keeps advancing its position, so its
-length can pass S); a zero length gives zeros, as K1.
+heads, over 3.35 TB/s. Design: K1's launch on the core without a page
+table -- the slab is B pages of S positions, row b's page is b (the
+core's identity layout, so no table is made per call) -- planned by
+`plan_spans(G, B * Hkv, S)`: at G = 8 one 16-row tensor-core tile a
+(row, KV head, span), four key groups. The walk is bounded by S (a slot
+that is not live keeps advancing its position, so its length can pass
+S); a zero length gives zeros, as K1.
 """
 from __future__ import annotations
 
@@ -72,14 +73,15 @@ class SpanPlan(NamedTuple):
 
 
 def plan_spans(rows: int, groups: int, n_keys: int) -> SpanPlan:
-    """The launch plan of the paged-attention core (K1, K2). `rows`: query
-    rows per (sequence, KV head), G x C; `groups`: sequences x KV heads;
-    `n_keys`: the key positions the walk may visit (K1 nb * ps, K2 start +
-    C). When one 16-row MMA tile holds all rows (decode), the block's four
-    warps split each key tile (key_groups 4), else each owns 16 rows of a
-    64-row tile. Spans are whole key tiles, as many as bring the blocks to
-    TARGET_BLOCKS (no more than there are tiles), and the last one starts before
-    n_keys -- the C entry points refuse any other plan."""
+    """The launch plan of the paged-attention core (K1, K2, K4, K5).
+    `rows`: query rows per (sequence, KV head), G x C; `groups`: sequences
+    x KV heads; `n_keys`: the key positions the walk may visit (K1 and K4
+    nb * ps, K5 S, K2 start + C). When one 16-row MMA tile holds all rows
+    (decode), the block's four warps split each key tile (key_groups 4),
+    else each owns 16 rows of a 64-row tile. Spans are whole key tiles, as
+    many as bring the blocks to TARGET_BLOCKS (no more than there are
+    tiles), and the last one starts before n_keys -- the C entry points
+    refuse any other plan."""
     key_groups = 4 if rows <= 16 else 1
     qtiles = -(-rows // (BLOCK_ROWS // key_groups))
     tiles = -(-n_keys // KEY_TILE)
@@ -111,31 +113,42 @@ def paged_decode_attention_plain(q, k_pool, v_pool, page_table, lengths):
     return torch.where(seen, out, torch.zeros_like(out)).reshape(B, H, D).to(q.dtype)
 
 
-def _check(q, k_pool, v_pool, page_table, lengths):
+def _check_paged(fn, q, k_pool, v_pool, page_table, rows, rows_name):
+    """What the core requires of a paged launch (K1, K4): q (B, ..., H, D)
+    contiguous, pools (P, ps, Hkv, D) in q's dtype, int32 page_table
+    (B, nb) and per-row `rows` (B,), all on q's device; rows of whole
+    16-byte chunks; pools on 16-byte boundaries. Raises where it would
+    refuse."""
     dev = q.device
     for name, t in (("k_pool", k_pool), ("v_pool", v_pool),
-                    ("page_table", page_table), ("lengths", lengths)):
+                    ("page_table", page_table), (rows_name, rows)):
         if t.device != dev:
-            raise ValueError(f"paged_decode_attention: {name} on {t.device}, q on {dev}")
+            raise ValueError(f"{fn}: {name} on {t.device}, q on {dev}")
         if not t.is_contiguous():
-            raise ValueError(f"paged_decode_attention: {name} is not contiguous")
+            raise ValueError(f"{fn}: {name} is not contiguous")
     if q.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"paged_decode_attention: q dtype {q.dtype}")
+        raise TypeError(f"{fn}: q dtype {q.dtype}")
     if k_pool.dtype != q.dtype or v_pool.dtype != q.dtype:
-        raise TypeError("paged_decode_attention: pools must share q's dtype")
-    if page_table.dtype != torch.int32 or lengths.dtype != torch.int32:
-        raise TypeError("paged_decode_attention: page_table/lengths must be int32")
-    B, H, D = q.shape
+        raise TypeError(f"{fn}: pools must share q's dtype")
+    if page_table.dtype != torch.int32 or rows.dtype != torch.int32:
+        raise TypeError(f"{fn}: page_table/{rows_name} must be int32")
+    B, H, D = q.shape[0], q.shape[-2], q.shape[-1]
     if k_pool.ndim != 4 or k_pool.shape != v_pool.shape or k_pool.shape[3] != D:
-        raise ValueError(f"paged_decode_attention: pools {tuple(k_pool.shape)}")
-    ps, Hkv = k_pool.shape[1], k_pool.shape[2]
-    if page_table.ndim != 2 or page_table.shape[0] != B or lengths.shape != (B,):
-        raise ValueError("paged_decode_attention: page_table (B, nb), lengths (B,)")
-    if H % Hkv or D > 256 or D % (16 // q.element_size()):
-        raise ValueError(f"paged_decode_attention: unsupported H={H} Hkv={Hkv} "
-                         f"D={D} ({q.dtype} rows must be whole 16-byte chunks)")
+        raise ValueError(f"{fn}: pools {tuple(k_pool.shape)}")
+    Hkv = k_pool.shape[2]
+    if page_table.ndim != 2 or page_table.shape[0] != B or rows.shape != (B,):
+        raise ValueError(f"{fn}: page_table (B, nb), {rows_name} (B,)")
+    _check_rows(fn, q, H, Hkv, D)
     if not (_aligned(k_pool) and _aligned(v_pool)):
-        raise ValueError("paged_decode_attention: pools must start on a 16-byte boundary")
+        raise ValueError(f"{fn}: pools must start on a 16-byte boundary")
+
+
+def _check_rows(fn, q, H: int, Hkv: int, D: int) -> None:
+    """The core's limits on heads and head width: whole KV groups, D <= 256
+    in whole 16-byte chunks (8 bf16 or 4 float32 values)."""
+    if H % Hkv or D > 256 or D % (16 // q.element_size()):
+        raise ValueError(f"{fn}: unsupported H={H} Hkv={Hkv} D={D} "
+                         f"({q.dtype} rows must be whole 16-byte chunks)")
 
 
 def paged_decode_attention(q, k_pool, v_pool, page_table, lengths):
@@ -151,7 +164,7 @@ def paged_decode_attention(q, k_pool, v_pool, page_table, lengths):
     q = q.contiguous()
     if not _aligned(q):
         q = q.clone()
-    _check(q, k_pool, v_pool, page_table, lengths)
+    _check_paged("paged_decode_attention", q, k_pool, v_pool, page_table, lengths, "lengths")
     B, H, D = q.shape
     _, ps, Hkv, _ = k_pool.shape
     nb = page_table.shape[1]
@@ -173,9 +186,6 @@ def paged_decode_attention(q, k_pool, v_pool, page_table, lengths):
 
 
 # ------------------------------------------------------------------ K5 --
-
-DENSE_KEY_TILE = 64    # key positions per shared-memory tile (the .cu's kDecTile)
-DENSE_MAX_ACC = 4096   # G * D the block's accumulators hold (256 threads x 16)
 
 dense_launches = 0
 
@@ -220,9 +230,9 @@ def _check_dense(q, k_cache, v_cache, lengths):
     if k_cache.ndim != 4 or k_cache.shape != v_cache.shape or k_cache.shape[0] != B \
             or k_cache.shape[3] != D or k_cache.shape[1] == 0:
         raise ValueError(f"decode_attention: caches {tuple(k_cache.shape)}")
-    Hkv = k_cache.shape[2]
-    if H % Hkv or D > 256 or (H // Hkv) * D > DENSE_MAX_ACC:
-        raise ValueError(f"decode_attention: unsupported H={H} Hkv={Hkv} D={D}")
+    _check_rows("decode_attention", q, H, k_cache.shape[2], D)
+    if not (_aligned(k_cache) and _aligned(v_cache)):
+        raise ValueError("decode_attention: caches must start on a 16-byte boundary")
 
 
 def decode_attention(q, k_cache, v_cache, lengths):
@@ -235,6 +245,8 @@ def decode_attention(q, k_cache, v_cache, lengths):
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention: device {q.device}")
     q = q.contiguous()
+    if not _aligned(q):
+        q = q.clone()
     B, H, D = q.shape
     lens = _lengths_vector(lengths, B, q.device)
     _check_dense(q, k_cache, v_cache, lens)
@@ -242,15 +254,14 @@ def decode_attention(q, k_cache, v_cache, lengths):
     out = torch.empty_like(q)
     if B == 0:
         return out
-    # split the key walk into spans of whole tiles, enough to fill the card
-    tiles = -(-S // DENSE_KEY_TILE)
-    nsplit = max(1, min(tiles, -(-TARGET_BLOCKS // (B * Hkv))))
-    ws = torch.empty((B * H * nsplit * (D + 2),), dtype=torch.float32, device=q.device)
+    # the core over the slab as B pages of S positions, without a table
+    plan = plan_spans(H // Hkv, B * Hkv, S)
+    ws = torch.empty((B * H * plan.nsplit * (D + 2),), dtype=torch.float32, device=q.device)
     lib = _build.library()
     rc = lib.repro_dense_decode_attention(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), lens.data_ptr(),
-        out.data_ptr(), ws.data_ptr(), B, S, H, Hkv, D, nsplit,
-        _build.DTYPE_CODES[str(q.dtype).removeprefix("torch.")],
+        out.data_ptr(), ws.data_ptr(), B, S, H, Hkv, D, plan.key_groups, plan.nsplit,
+        plan.span, _build.DTYPE_CODES[str(q.dtype).removeprefix("torch.")],
         _build.stream_handle(q.device))
     _build.check(rc, "decode_attention")
     dense_launches += 1

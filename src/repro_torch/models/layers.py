@@ -221,6 +221,8 @@ def attn_verify_apply(cfg: ModelConfig, p, x, *, pos, k_pool, v_pool, table,
         k = apply_rope(k, q_pos, cfg.rope_theta)
     k_pool[write_pages, write_offsets] = k.to(k_pool.dtype)
     v_pool[write_pages, write_offsets] = v.to(v_pool.dtype)
+    # K4 reads q and writes its output in (B, C, H, D): on the card both
+    # transposes are views, and no copy kernel runs around the launch
     out = _k4.paged_verify_attention(q.transpose(1, 2), k_pool, v_pool, table, pos)
     out = out.transpose(1, 2).reshape(B, C, nq, hd)
     return torch.einsum("bshe,hed->bsd", out, p["wo"])

@@ -2,8 +2,8 @@
 K2 paged chunk-prefill attention, K3 L2 top-k, K4 paged verify attention)
 against the JAX package's
 Pallas kernels in interpret mode and its jnp references, on the same
-numpy inputs; and the span plan of the paged-attention core that K1 and
-K2 share, with a float32 emulation of its split and merge. The CUDA
+numpy inputs; and the span plan of the paged-attention core that K1, K2,
+K4 and K5 share, with a float32 emulation of its split and merge. The CUDA
 kernels themselves are held against these plain versions on the card by
 `chip_smoke.py`."""
 import pytest
@@ -232,6 +232,8 @@ def _span_keys(plan, split, limit, cap):
     (8, 512, 2, 512),     # K2: a whole 512-token prompt (the slab layout)
     (4, 37, 2, 358),      # K2: a ragged chunk at a start that is not page-aligned
     (8, 2, 1, 64),
+    (8, 5, 8, 1024),      # K4 at qwen2.5-3b width: 5 candidates, 4 rows x 2 KV heads
+    (16, 5, 2, 700),      # K4: 80 rows, two query tiles, the last ragged
 ])
 def test_span_plan_partitions_visible_keys(G, C, groups, n_keys):
     plan = k1.plan_spans(G * C, groups, n_keys)
@@ -341,6 +343,58 @@ def test_split_merge_emulation_matches_chunk_prefill_plain():
         limits = [start + r // G + 1 for r in range(C * G)]
         got[:, kvh * G:(kvh + 1) * G] = _split_merge(rows, k, v, limits, plan,
                                                      D ** -0.5).reshape(C, G, D)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-6, rtol=1e-6)
+
+
+def test_split_merge_emulation_matches_paged_verify_plain():
+    """K4's plan: per-row starts -- one not page-aligned with its candidates
+    crossing a page, a dead all-sink row at a stale start, start 0 -- rows
+    ordered c * G + g, candidate c of row b limited to min(starts[b] + c +
+    1, nb * ps), split over spans, merged: equals the plain version."""
+    rng = np.random.default_rng(14)
+    B, H, Hkv, C, D, P, ps, nb = 4, 8, 2, 5, 32, 40, 8, 24
+    q, kp, vp = _rand(rng, (B, H, C, D)), _rand(rng, (P, ps, Hkv, D)), _rand(rng, (P, ps, Hkv, D))
+    table = rng.integers(1, P, (B, nb)).astype(np.int32)
+    table[1] = 0                                            # all-sink
+    starts = np.asarray([77, nb * ps * 3, 0, 150], np.int32)  # 77..81 cross page 10
+    G, cap = H // Hkv, nb * ps
+    plan = k1.plan_spans(G * C, B * Hkv, cap)
+    assert plan.nsplit > 1 and plan.key_groups == 1
+    want = k4.paged_verify_attention_plain(_t(q), _t(kp), _t(vp), _t(table), _t(starts))
+    got = torch.zeros_like(want)
+    for b in range(B):
+        limits = [min(int(starts[b]) + r // G + 1, cap) for r in range(C * G)]
+        for kvh in range(Hkv):
+            k = _t(kp)[_t(table[b]).long(), :, kvh].reshape(cap, D)
+            v = _t(vp)[_t(table[b]).long(), :, kvh].reshape(cap, D)
+            heads = slice(kvh * G, (kvh + 1) * G)
+            rows = _t(q)[b, heads].transpose(0, 1).reshape(C * G, D)  # row = c * G + g
+            got[b, heads] = _split_merge(rows, k, v, limits, plan, D ** -0.5) \
+                .reshape(C, G, D).transpose(0, 1)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-6, rtol=1e-6)
+
+
+def test_split_merge_emulation_matches_dense_decode_plain():
+    """K5's plan on the identity layout (row b's keys are its own slab row,
+    one page of S) at an S that is not a multiple of the key tile, lengths
+    1, S, S + 1 and 0: equals the plain version, the zero length exactly
+    zeros."""
+    rng = np.random.default_rng(15)
+    B, H, Hkv, S, D = 4, 8, 2, 150, 32
+    q, kc, vc = _rand(rng, (B, H, D)), _rand(rng, (B, S, Hkv, D)), _rand(rng, (B, S, Hkv, D))
+    lengths = np.asarray([1, S, S + 1, 0], np.int32)
+    G = H // Hkv
+    plan = k1.plan_spans(G, B * Hkv, S)
+    assert plan.nsplit > 1 and plan.key_groups == 4
+    want = k1.decode_attention_plain(_t(q), _t(kc), _t(vc), _t(lengths))
+    got = torch.zeros_like(want)
+    for b in range(B):
+        limit = min(int(lengths[b]), S)
+        for kvh in range(Hkv):
+            heads = slice(kvh * G, (kvh + 1) * G)
+            got[b, heads] = _split_merge(_t(q)[b, heads], _t(kc)[b, :, kvh], _t(vc)[b, :, kvh],
+                                         [limit] * G, plan, D ** -0.5)
+    np.testing.assert_array_equal(got[3].numpy(), np.zeros((H, D), np.float32))
     np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-6, rtol=1e-6)
 
 
