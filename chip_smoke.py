@@ -8,8 +8,9 @@ package, and goes through its phases, each printing one JSON line:
 
   device     the card's name and power limit (nvidia-smi);
   build      nvcc build of the port's CUDA kernels from the checkout's sources,
-             with ptxas' registers and shared memory of the paged-attention
-             core's K4 and K5 instantiations;
+             with ptxas' registers, spills and shared memory of the
+             paged-attention core's K4 and K5 instantiations (`ptxas_core`)
+             and of K7's (`ptxas_scan`);
   main       one QUEST query on qwen2.5-3b at its published width
              (d_model 2048, bf16, random weights from --seed), cut to its
              first MAIN_LAYERS = 12 of 36 layers to fit the time limit,
@@ -68,11 +69,15 @@ package, and goes through its phases, each printing one JSON line:
              phase's largest whole-prompt launch; K1 also its captured
              launch with every length at the full table; K4 in the engine's
              layout and as a contiguous input), plus edge cases (K1, K2, K4
-             and K5: ~50 each in bf16 and float32, `_paged_edges`), held
-             against its plain PyTorch version; times with CUDA events
-             beside its bound and a PyTorch library yardstick where one call
-             computes the same function (none does for K7); for K1, K2, K4,
-             K5 and their SDPA yardsticks also the device time per call
+             and K5: ~50 each in bf16 and float32, `_paged_edges`; K6 8; K7
+             11 shapes in both dtypes), held against its plain PyTorch
+             version (K7's states exactly); K7 also at each R (states a
+             thread) and group (steps walked together) its kernel has,
+             whose outputs must equal the wrapper's bit for bit. Times: CUDA
+             events (`ms`) beside its bound and a PyTorch library yardstick
+             where one call computes the same function (none does for K7);
+             and for every kernel (K6 and K7 at both launches, K7 at each R
+             and group) and the library yardsticks the device time per call
              (`device_ms`: a CUDA graph of 20 calls, every kernel a call
              launches, the merge included, replayed under CUDA events),
              since events over back-to-back calls read the host's call
@@ -135,28 +140,37 @@ STATE_TOL = 1e-4
 SFU_OPS_S = 16 * 132 * 1.98e9
 
 
+def _ptxas_entries(log: str):
+    """(mangled kernel name, spill-store bytes, registers, static smem bytes)
+    of every entry function in nvcc's `-Xptxas -v` log."""
+    import re
+    name, spill = None, "?"
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            name, spill = m.group(1), "?"
+            continue
+        m = re.search(r"(\d+) bytes spill stores", ln)
+        if m:
+            spill = m.group(1)
+            continue
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name:
+            smem = re.search(r"(\d+) bytes smem", ln)
+            yield name, spill, m.group(1), smem.group(1) if smem else "0"
+
+
 def core_ptxas(log: str, tags) -> dict:
     """The paged-attention core's instantiations for the given tags, from
     nvcc's `-Xptxas -v` log: "<tag> <dtype> DP=<head width> KW=<key
     groups>" -> registers, spill bytes, static and dynamic shared memory
     (the dynamic part is paged_attention.cuh's `smem_bytes`)."""
     import re
-    out, name, spill = {}, None, ""
-    for ln in log.splitlines():
-        m = re.search(r"Compiling entry function '(\S+)'", ln)
-        if m:
-            name, spill = m.group(1), ""
-            continue
-        m = re.search(r"(\d+) bytes spill stores", ln)
-        if m:
-            spill = m.group(1)
-            continue
-        m = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", ln)
+    out = {}
+    for name, spill, regs, smem in _ptxas_entries(log):
         k = re.search(r"paged_attention_kernelI.*?(\w+?)E(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E",
-                      name or "")
-        if not (m and k):
-            continue
-        tag = next((t for t in tags if k.group(1).endswith(t)), None)
+                      name)
+        tag = k and next((t for t in tags if k.group(1).endswith(t)), None)
         if tag is None:
             continue
         size = 4 if k.group(2) == "f" else 2
@@ -164,8 +178,25 @@ def core_ptxas(log: str, tags) -> dict:
         stages = 1 if size == 4 and dp > 128 else 2
         dyn = (64 // kw + 2 * stages * 64) * (dp + 16 // size) * size
         out[f"{tag} {'float32' if size == 4 else 'bf16'} DP={dp} KW={kw}"] = (
-            f"{m.group(1)} registers, spill {spill or '?'} B, smem {m.group(2)} B static "
-            f"+ {dyn} B dynamic")
+            f"{regs} registers, spill {spill} B, smem {smem} B static + {dyn} B dynamic")
+    return out
+
+
+def scan_ptxas(log: str) -> dict:
+    """K7's instantiations from nvcc's `-Xptxas -v` log: "<dtype>" and its
+    template integers (R=<states a thread> L=<lanes a channel> G=<steps
+    walked together>) -> registers, spill bytes, static shared memory (the
+    tiles are dynamic shared memory, sized per launch)."""
+    import re
+    out = {}
+    for name, spill, regs, smem in _ptxas_entries(log):
+        k = re.search(r"ssm_scan_kernelI(f|13__nv_bfloat16)((?:Li\d+E)*)", name)
+        if k is None:
+            continue
+        ints = re.findall(r"Li(\d+)E", k.group(2))
+        tag = ("float32" if k.group(1) == "f" else "bf16") + "".join(
+            f" {n}={v}" for n, v in zip(("R", "L", "G"), ints))
+        out[tag] = f"{regs} registers, spill {spill} B, smem {smem} B static"
     return out
 
 
@@ -239,6 +270,20 @@ def bound(nbytes: float, flops: float, dtype: str, exps: float = 0.0) -> tuple:
 
 def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max()) if a.numel() else 0.0
+
+
+def _sha(*tensors) -> str:
+    """The first 16 hex digits of the sha256 of the tensors' bytes (None
+    skipped): equal digests mean bit-identical tensors."""
+    import hashlib
+
+    import torch
+    h = hashlib.sha256()
+    for t in tensors:
+        if t is not None:
+            t = t.detach().contiguous().cpu()
+            h.update((t.view(torch.int16) if t.dtype == torch.bfloat16 else t).numpy().tobytes())
+    return h.hexdigest()[:16]
 
 
 # ------------------------------------------------------------- capture ---
@@ -835,14 +880,21 @@ def phase_kernels(captures: dict, launches: dict) -> list:
     N = db.shape[0]
     nbytes = (N * D + M * D) * 4 + M * k * 8
     b_ms, b_by = bound(nbytes, 3 * M * N * D, "float32")
+
+    def kernel():
+        return k3.topk_l2(db, qq, k)
+
+    def library():
+        return torch.sort(torch.cdist(qq, db), dim=1, stable=True)
     rows.append(dict(
         name="topk_l2", route="cuda", source="src/repro_torch/kernels/csrc/topk_l2.cu",
         replaces="src/repro/kernels/topk_l2.py:55", launches=launches["K3"],
         shape=f"db{tuple(db.shape)} q{tuple(qq.shape)} k={k} float32",
         max_abs_err=err, tol=TOL["topk"],
-        ms=cuda_ms(lambda: k3.topk_l2(db, qq, k)),
-        plain_ms=cuda_ms(lambda: k3.topk_l2_plain(db, qq, k)),
-        library_ms=cuda_ms(lambda: torch.sort(torch.cdist(qq, db), dim=1, stable=True)),
+        ms=cuda_ms(kernel), plain_ms=cuda_ms(lambda: k3.topk_l2_plain(db, qq, k)),
+        library_ms=cuda_ms(library),
+        device_ms=device_ms(kernel), library_device_ms=device_ms(library),
+        device_ms_method=DEVICE_MS_METHOD,
         library_call="torch.cdist + torch.sort(stable=True)",
         bound_ms=b_ms, bound_by=b_by))
 
@@ -1293,6 +1345,11 @@ def _kernel_k6(captures: dict, launches: dict) -> dict:
         ms_verify=cuda_ms(lambda: k6.moe_gating(*ver)),
         plain_ms_verify=cuda_ms(lambda: k6.moe_gating_plain(*ver)),
         library_ms=cuda_ms(lambda: library(*pre)),
+        device_ms=device_ms(lambda: k6.moe_gating(*pre)),
+        device_ms_verify=device_ms(lambda: k6.moe_gating(*ver)),
+        library_device_ms=device_ms(lambda: library(*pre)),
+        library_device_ms_verify=device_ms(lambda: library(*ver)),
+        device_ms_method=DEVICE_MS_METHOD,
         library_call="torch.softmax + torch.topk + renormalise",
         bound_ms=b_ms, bound_by=b_by, bound_ms_verify=vb_ms, bound_by_verify=vb_by,
         bound_bytes=nbytes)
@@ -1313,27 +1370,32 @@ def _kernel_k7(captures: dict, launches: dict) -> dict:
     """K7 on the inputs of a captured prefill chunk and verify round, and on
     edge cases, against `ssm_scan_plain`. Tolerances: y in bf16 at 2e-2
     (one bf16 rounding of an fp32 value the kernel and the plain version
-    sum in another order), as the other kernels; in float32, y and the fp32
-    states at 2e-5 (the state update rounds as the plain version's
-    unfused ops; only the order of y's sum over N differs). With random
+    sum in another order), as the other kernels; in float32, y at 2e-5
+    (only the order of y's sum over N differs). With random
     weights y is mostly D * x and the captured launches' scan term
     sum_n h C is far below either tolerance (reported, not relied on), so
     the edge cases run at unit scale at the captured widths, where the
     scan term must exceed ten times the float32 tolerance: a y without
-    it fails there."""
+    it fails there. The states (final and per position, every case) must
+    equal the plain version's exactly: both round each multiply and add
+    of the update on its own."""
     import torch
     from repro_torch.kernels import ssm_scan as k7
 
-    def errs_of(args, states=None):
-        """(y error, final-state error, states error) of kernel vs plain."""
+    def run(args, states=None):
+        """((y, h, states) of the kernel, the same of the plain version)."""
         x, dt, A, Bm, Cm, D, h0 = (list(args) + [None])[:7]
         st_k = st_p = None
         if states is not None:
             st_k, st_p = torch.empty_like(states), torch.empty_like(states)
         yk, hk = k7.ssm_scan(x, dt, A, Bm, Cm, D, h0, st_k)
         yp, hp = k7.ssm_scan_plain(x, dt, A, Bm, Cm, D, h0, st_p)
-        return (max_err(yk, yp), max_err(hk, hp),
-                max_err(st_k, st_p) if states is not None else 0.0)
+        return (yk, hk, st_k), (yp, hp, st_p)
+
+    def errs_of(args, states=None):
+        """(y error, final-state error, states error) of kernel vs plain."""
+        got, want = run(args, states)
+        return tuple(0.0 if a is None else max_err(a, b) for a, b in zip(got, want))
 
     def f32(args):
         return tuple(a.float() if a is not None and a.dtype == torch.bfloat16 else a
@@ -1351,6 +1413,15 @@ def _kernel_k7(captures: dict, launches: dict) -> dict:
     y32, h32, _ = errs_of(f32(pre))
     vy32, vh32, vs32 = errs_of(f32(ver[:7]), ver[7])
     errs["float32"] = max(y32, h32, vy32, vh32, vs32)
+    # the final states and per-position states, captured and edge cases:
+    # the kernel's update rounds as the plain version's unfused tensor ops,
+    # so they must agree exactly
+    state_all = max(errs["state"], h32, vh32, vs32)
+    # the captured inputs and the kernel's outputs on them, hashed, so two
+    # runs of this script (two kernel bodies) can be compared bit for bit
+    digests = {"chunk_inputs": _sha(*pre), "chunk_outputs": _sha(*run(pre)[0]),
+               "verify_inputs": _sha(*ver[:7]),
+               "verify_outputs": _sha(*run(ver[:7], ver[7])[0])}
 
     def scan_term(args):
         """max |y - D x| of the plain version in float32: the part of y
@@ -1360,9 +1431,12 @@ def _kernel_k7(captures: dict, launches: dict) -> dict:
         return (yp - Df * xf).abs().max().item()
     errs["scan_term"] = max(scan_term(pre), scan_term(ver))
     # edge cases at unit scale (the JAX package's K7 test distributions) on
-    # the captured widths and on SMOKE's: h0 = None, S = 1, a verify-shaped
-    # S = 5 from a carried state, dt zeroed past a true length (the state
-    # must freeze), N = 8 with di = 128
+    # the captured widths and on small ones: h0 = None, S = 1, verify
+    # shapes (B = 4 and 8, S = 5) from a carried state, dt zeroed past a
+    # true length (the state must freeze), N = 32, N = 8 and N = 4, a di
+    # that is not a multiple of a block's channels (200, 96), a di whose
+    # rows are not 16-byte aligned (100: staged without cp.async), and S = 0
+    # (y empty, h = h0 exactly)
     gen = torch.Generator(device="cuda").manual_seed(11)
 
     def unit(B, S, di, n, dtype):
@@ -1376,10 +1450,13 @@ def _kernel_k7(captures: dict, launches: dict) -> dict:
                 r(B, di, n)]
     di = x.shape[2]
     edge32, edge_bf, edge_scan = 0.0, 0.0, float("inf")
-    for B, S, width, n, h0_none, cut in ((1, 128, di, N, True, None), (4, 1, di, N, False, None),
-                                         (4, 5, di, N, False, None),
-                                         (1, 128, di, N, False, 77), (2, 37, 128, 8, False, 20),
-                                         (3, 5, 96, 4, True, None)):
+    cases = ((1, 128, di, N, True, None), (4, 1, di, N, False, None),
+             (4, 5, di, N, False, None), (8, 5, di, N, False, None),
+             (1, 128, di, N, False, 77), (1, 64, di, 32, False, None),
+             (2, 37, 200, N, False, None), (2, 37, 128, 8, False, 20),
+             (3, 5, 96, 4, True, None), (2, 19, 100, 8, False, None),
+             (2, 0, di, N, False, None))
+    for B, S, width, n, h0_none, cut in cases:
         for dtype in (torch.float32, torch.bfloat16):
             args = unit(B, S, width, n, dtype)
             if cut is not None:
@@ -1388,23 +1465,60 @@ def _kernel_k7(captures: dict, launches: dict) -> dict:
                 args[6] = None
             states = torch.empty((B, S, width, n), device="cuda")
             ey, eh, es = errs_of(args, states)
+            state_all = max(state_all, eh, es)
             if dtype == torch.float32:
                 edge32 = max(edge32, ey, eh, es)
-                edge_scan = min(edge_scan, scan_term(args))
+                if S:
+                    edge_scan = min(edge_scan, scan_term(args))
             else:
                 edge_bf = max(edge_bf, ey)
                 edge32 = max(edge32, eh, es)
+            if S == 0:                                # nothing to walk
+                y0, hk = k7.ssm_scan(*args[:7])
+                if y0.shape != (B, 0, width) or not torch.equal(hk, args[6]):
+                    raise AssertionError("K7: S = 0 must give an empty y and h = h0")
             if cut is not None:                       # frozen past the length
                 st_k = torch.empty_like(states)
                 k7.ssm_scan(*args[:7], st_k)
                 if not torch.equal(st_k[:, cut:], st_k[:, cut - 1:cut].expand_as(st_k[:, cut:])):
                     raise AssertionError("K7: the state moved where dt is zero")
     errs["edge"], errs["edge_bf16"] = edge32, edge_bf
+    # the body at each R (states a thread) and group (steps walked
+    # together) the kernel has, on the captured launches and on unit-scale
+    # ones at their shapes: outputs equal to the wrapper's bit for bit (y's
+    # sum tree depends on neither), and the device time of each
+    def with_plan(r, g, args, states=None):
+        y_ = torch.empty_like(args[0])
+        h_ = torch.empty((args[0].shape[0], args[0].shape[2], N), device="cuda")
+        k7._launch(k7.plan_for(r, g, *args[0].shape, N), *args[:7], y_, h_, states)
+        return y_, h_, states
+
+    def same_with_plan(r, g, args, states=None):
+        want = run(args, states)[0]
+        got = with_plan(r, g, args, None if states is None else torch.empty_like(states))
+        return all(a is None or torch.equal(a, b) for a, b in zip(want, got))
+    unit_pre = unit(1, x.shape[1], di, N, x.dtype)
+    unit_ver = unit(*ver[0].shape[:2], di, N, x.dtype)
+    by_plan, differ_r = {}, []
+    for r in k7.R_CHOICES:
+        for g in k7.GROUP_CHOICES:
+            for name, args, states in (("chunk", pre, None), ("verify", ver[:7], ver[7]),
+                                       ("unit chunk", unit_pre, None),
+                                       ("unit verify", unit_ver, ver[7])):
+                if not same_with_plan(r, g, args, states):
+                    differ_r.append(f"R={r} group={g} {name}")
+            by_plan[f"R={r} group={g}"] = {
+                "chunk": device_ms(lambda: with_plan(r, g, pre)),
+                "verify": device_ms(lambda: with_plan(r, g, ver[:7], ver[7]))}
+    if differ_r:
+        raise AssertionError(f"K7: outputs differ from the wrapper's at {differ_r}")
     for key, tol in ((dtn, TOL[dtn]), ("verify", TOL[dtn]), ("edge_bf16", TOL["bfloat16"]),
                      ("state", TOL["float32"]), ("float32", TOL["float32"]),
                      ("edge", TOL["float32"])):
         if not errs[key] <= tol:
             raise AssertionError(f"K7: {key} error {errs[key]} > {tol}")
+    if state_all != 0.0:
+        raise AssertionError(f"K7: a state differs from the plain version's by {state_all}")
     if not edge_scan > 10 * TOL["float32"]:
         raise AssertionError(f"K7: the edge cases' scan term {edge_scan} is too small for "
                              f"the float32 check to see it")
@@ -1419,14 +1533,20 @@ def _kernel_k7(captures: dict, launches: dict) -> dict:
         shape=f"x{tuple(x.shape)} N={N} h0 {dtn} (a prefill chunk)",
         shape_verify=f"x{tuple(vx.shape)} N={N} h0 + states {dtn} (a verify round)",
         max_abs_err=errs[dtn], tol=TOL[dtn], max_abs_err_verify=errs["verify"],
-        max_abs_err_state=errs["state"], max_abs_err_float32=errs["float32"],
+        max_abs_err_state=errs["state"], max_abs_err_state_all=state_all,
+        max_abs_err_float32=errs["float32"],
         max_abs_err_edge_float32=errs["edge"], max_abs_err_edge_bf16=errs["edge_bf16"],
         tol_float32=TOL["float32"], scan_term_max_abs=errs["scan_term"],
-        edge_scan_term_min=edge_scan,
+        edge_scan_term_min=edge_scan, edge_cases=len(cases) * 2, sha256=digests,
         ms=cuda_ms(lambda: k7.ssm_scan(*pre)),
         plain_ms=cuda_ms(lambda: k7.ssm_scan_plain(*pre), iters=10, warmup=2),
         ms_verify=cuda_ms(lambda: k7.ssm_scan(*ver)),
         plain_ms_verify=cuda_ms(lambda: k7.ssm_scan_plain(*ver), iters=10, warmup=2),
+        device_ms=device_ms(lambda: k7.ssm_scan(*pre)),
+        device_ms_verify=device_ms(lambda: k7.ssm_scan(*ver)),
+        device_ms_by_plan=by_plan, plan=k7.scan_plan(*x.shape, N)._asdict(),
+        plan_verify=k7.scan_plan(*vx.shape, N)._asdict(),
+        device_ms_method=DEVICE_MS_METHOD,
         library_ms=None, library_call="none: no single PyTorch call computes a selective scan",
         bound_ms=b_ms, bound_by=b_by, bound_ms_verify=vb_ms, bound_by_verify=vb_by,
         bound_bytes=nbytes, bound_exps=exps)
@@ -1616,7 +1736,8 @@ def main() -> int:
                            "nvcc_seconds": _build.build_info["seconds"],
                            "cached": _build.build_info["cached"], "ptxas": ptxas[:12],
                            "ptxas_core": core_ptxas(_build.build_info.get("ptxas", ""),
-                                                    ("PagedVerify", "DenseDecode"))}
+                                                    ("PagedVerify", "DenseDecode")),
+                           "ptxas_scan": scan_ptxas(_build.build_info.get("ptxas", ""))}
         emit(report["build"])
 
         captures: dict = {}

@@ -35,12 +35,13 @@ _SIGNATURES = {
     "repro_chunk_prefill_attention": [_P] * 6 + [_I] * 11 + [_P],
     "repro_paged_verify_attention": [_P] * 7 + [_I] * 11 + [_P],
     "repro_dense_decode_attention": [_P] * 6 + [_I] * 9 + [_P],
-    "repro_ssm_scan": [_P] * 10 + [_I] * 5 + [_P],
+    "repro_ssm_scan": [_P] * 10 + [_I] * 7 + [_P],
     "repro_moe_gating": [_P, _P, _P, _I, _I, _I, _P],
 }
 
 _lib = None
-build_info: dict = {}      # seconds, cached, ptxas report of the last load
+build_info: dict = {}      # seconds, cached, ptxas report of the last load (kept
+                           # beside the library, so a cached load reports it too)
 
 
 def _nvcc() -> str:
@@ -66,8 +67,10 @@ def _digest() -> str:
 def build() -> Path:
     """Compile (if needed) and return the path of the shared library."""
     out = BUILD_DIR / f"librepro_kernels-{_digest()}.so"
+    log = out.with_suffix(".ptxas.txt")
     if out.exists():
-        build_info.update(seconds=0.0, cached=True, ptxas="")
+        build_info.update(seconds=0.0, cached=True,
+                          ptxas=log.read_text() if log.exists() else "")
         return out
     nvcc = _nvcc()
     work = BUILD_DIR / f"obj-{os.getpid()}"
@@ -93,6 +96,7 @@ def build() -> Path:
                           capture_output=True, text=True)
     if link.returncode != 0:
         raise RuntimeError(f"nvcc link failed:\n{link.stdout}{link.stderr}")
+    log.write_text("\n".join(logs))
     os.replace(tmp, out)
     shutil.rmtree(work, ignore_errors=True)
     build_info.update(seconds=time.perf_counter() - t0, cached=False,

@@ -149,6 +149,83 @@ def test_ssm_scan_checks_and_no_silent_cpu_fallback():
     assert k7.launches == 0
 
 
+def _butterfly(p):
+    """A one-state-a-thread body's sum over a channel's N lanes in float32:
+    lane n adds lane n ^ off for off = N/2 .. 1; lane 0's value."""
+    idx, off = np.arange(p.shape[1]), p.shape[1] // 2
+    while off:
+        p = p + p[:, idx ^ off]
+        off //= 2
+    return p[:, 0]
+
+
+def _strided_sum(p, R):
+    """K7's sum with R states a thread (csrc/ssm_scan.cu): lane l of the
+    channel's L = N / R lanes holds n = l + L j in slot j; slots j and j +
+    half are added inside the thread for half = R/2 .. 1, then lanes l and
+    l ^ off for off = L/2 .. 1; lane 0's value."""
+    rows, N = p.shape
+    L = N // R
+    part = p.reshape(rows, R, L).transpose(0, 2, 1).copy()    # [:, l, j] = p[:, l + L j]
+    half = R // 2
+    while half:
+        part[:, :, :half] = part[:, :, :half] + part[:, :, half:2 * half]
+        half //= 2
+    q, idx, off = part[:, :, 0], np.arange(L), L // 2
+    while off:
+        q = q + q[:, idx ^ off]
+        off //= 2
+    return q[:, 0]
+
+
+@pytest.mark.parametrize("N,R", [(N, R) for N in (4, 8, 16, 32) for R in (2, 4)])
+def test_scan_sum_tree_matches_one_state_butterfly(N, R):
+    """The sum over n of K7's R-states-a-thread body equals, bit for bit in
+    float32, the butterfly of one state a thread, on products h C of a wide
+    range of magnitudes; where a channel has more than one lane, a
+    contiguous slot assignment (n = l R + j) would not (the test can see a
+    change of tree)."""
+    assert k7.plan_for(R, 1, 1, 128, 8192, N).r == R
+    rng = np.random.default_rng(N * 10 + R)
+    p = (rng.standard_normal((4096, N)) * 10.0 ** rng.uniform(-4, 4, (4096, N))).astype(
+        np.float32)
+    want = _butterfly(p)
+    got = _strided_sum(p, R)
+    assert got.dtype == np.float32
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    if N > R:
+        contiguous = p.reshape(-1, N // R, R).transpose(0, 2, 1).reshape(-1, N)
+        assert (_strided_sum(contiguous, R).view(np.int32) != want.view(np.int32)).any()
+
+
+def test_scan_plan():
+    """The launch plan at falcon-mamba-7b's two launch shapes (a 128-token
+    chunk, a verify round of 4 x 5), at a ragged di and small N, and its
+    refusals."""
+    P = k7.ScanPlan
+    assert k7.scan_plan(1, 128, 8192, 16) == P(4, 8, 4, 32, (256, 1), 32)
+    assert k7.scan_plan(4, 5, 8192, 16) == P(4, 1, 4, 32, (256, 4), 5)
+    assert k7.plan_for(2, 8, 1, 128, 8192, 16) == P(2, 8, 8, 16, (512, 1), 32)
+    assert k7.plan_for(2, 1, 4, 5, 8192, 16) == P(2, 1, 8, 16, (512, 4), 5)
+    assert k7.scan_plan(2, 37, 200, 16) == P(4, 8, 4, 32, (7, 2), 32)
+    assert k7.scan_plan(1, 31, 200, 32) == P(4, 1, 8, 16, (13, 1), 31)
+    assert k7.scan_plan(3, 5, 96, 4) == P(4, 1, 1, 128, (1, 3), 5)
+    assert k7.scan_plan(1, 9, 10, 2) == P(2, 1, 1, 128, (1, 1), 9)
+    assert k7.scan_plan(1, 9, 10, 1) == P(1, 1, 1, 128, (1, 1), 9)
+    assert k7.scan_plan(2, 0, 8192, 16).tile == 1
+    for plan in (k7.scan_plan(1, 128, 8192, 16), k7.plan_for(2, 1, 1, 128, 8192, 16)):
+        assert plan.lanes * plan.channels == k7.THREADS and plan.r * plan.lanes == 16
+    for N in (0, 3, 6, 64):
+        with pytest.raises(ValueError, match="power of two"):
+            k7.scan_plan(1, 8, 64, N)
+    for r, N in ((4, 2), (1, 16), (8, 32), (3, 16)):
+        with pytest.raises(ValueError, match="states a thread"):
+            k7.plan_for(r, 1, 1, 8, 64, N)
+    for group in (0, 2, 4, 16):
+        with pytest.raises(ValueError, match="walked together"):
+            k7.plan_for(4, group, 1, 8, 64, 16)
+
+
 # ------------------------------------------------------ Mamba1 functions --
 
 
