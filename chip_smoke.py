@@ -69,13 +69,16 @@ package, and goes through its phases, each printing one JSON line:
              phase's largest whole-prompt launch; K1 also its captured
              launch with every length at the full table; K4 in the engine's
              layout and as a contiguous input), plus edge cases (K1, K2, K4
-             and K5: ~50 each in bf16 and float32, `_paged_edges`; K6 8; K7
-             11 shapes in both dtypes), held against its plain PyTorch
-             version (K7's states exactly); K7 also at each R (states a
-             thread) and group (steps walked together) its kernel has,
+             and K5: ~50 each in bf16 and float32, `_paged_edges`; K3 12
+             shapes, N up to 16,384 and exact ties; K6 16, with the capacity
+             numbering; K7 11 shapes in both dtypes), held against its plain
+             PyTorch version (K3's indices where the distances are unique,
+             K6's indices and slots, K7's states exactly); K7 also at each
+             R (states a thread) and group (steps walked together) its kernel has,
              whose outputs must equal the wrapper's bit for bit. Times: CUDA
              events (`ms`) beside its bound and a PyTorch library yardstick
-             where one call computes the same function (none does for K7);
+             where one call computes the same function (none does for K7;
+             K6's is the sequence it replaced in `moe_apply`);
              and for every kernel (K6 and K7 at both launches, K7 at each R
              and group) and the library yardsticks the device time per call
              (`device_ms`: a CUDA graph of 20 calls, every kernel a call
@@ -84,8 +87,10 @@ package, and goes through its phases, each printing one JSON line:
              rate;
   profile    (only with --profile) torch.profiler over one extraction round
              of each path (main, spec, slab, draft, ssm, moe): device busy
-             share, device time by kernel group; on the moe path also the
-             device time of MLA attention and of the expert products;
+             share, device time by kernel group; on the ssm and moe paths
+             also the round's forwards and device kernels a forward; on the
+             moe path the device time of MLA attention and of the expert
+             products;
   reference  the same served query code at a small size (SMOKE configs,
              float32, 20 legal documents) on the card and on the CPU's plain
              path: qwen2.5-3b in four modes (speculation and the prefix
@@ -128,6 +133,10 @@ SRC = ROOT / "src"
 HBM_BYTES_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 TOL = {"bfloat16": 2e-2, "float32": 2e-5, "topk": 1e-4}
+# K3's indices against its plain version's are compared where the plain
+# distance is farther than this from its neighbours (the two sum d^2 in
+# different orders, so values within a few ulps may swap)
+K3_MARGIN = 1e-3
 # K6's weights against its plain version: float32 throughout, the softmax's
 # exponentials and sum rounded in another order (the indices must be equal)
 K6_TOL = 1e-6
@@ -179,6 +188,22 @@ def core_ptxas(log: str, tags) -> dict:
         dyn = (64 // kw + 2 * stages * 64) * (dp + 16 // size) * size
         out[f"{tag} {'float32' if size == 4 else 'bf16'} DP={dp} KW={kw}"] = (
             f"{regs} registers, spill {spill} B, smem {smem} B static + {dyn} B dynamic")
+    return out
+
+
+def gating_topk_ptxas(log: str) -> dict:
+    """K3's kernels and K6's instantiations (input type, experts a lane)
+    from nvcc's `-Xptxas -v` log -> registers and spill bytes."""
+    import re
+    out = {}
+    for name, spill, regs, _smem in _ptxas_entries(log):
+        k3 = re.search(r"(topk_l2_\w+?_kernel)", name)
+        k6 = re.search(r"moe_gating_kernelI(f|13__nv_bfloat16)Li(\d+)E", name)
+        if k3:
+            out[k3.group(1)] = f"{regs} registers, spill {spill} B"
+        elif k6:
+            dtype = "float32" if k6.group(1) == "f" else "bf16"
+            out[f"moe_gating {dtype} EPL={k6.group(2)}"] = f"{regs} registers, spill {spill} B"
     return out
 
 
@@ -434,7 +459,7 @@ def phase_main(seed: int, captures: dict) -> dict:
                              lambda q, kp, vp, tbl, lens: tbl.shape[1] * q.shape[0])
     captures["K2"] = Capture(k2, "chunk_prefill_attention",
                              lambda q, kp, vp, ctx, start: start)
-    captures["K3"] = Capture(k3, "topk_l2", lambda db, q, k: db.shape[0] * q.shape[0])
+    captures["K3"] = Capture(k3, "topk_l2_packed", lambda db, q, k: db.shape[0] * q.shape[0])
     result, wall, launches = _timed_query(session)
     for c in captures.values():
         c.restore()
@@ -696,10 +721,10 @@ def phase_moe(seed: int, captures: dict, main_result) -> tuple:
     # DEEP_CHUNK tokens) and the first verify round of all four slots (T =
     # 4 x (spec_k + 1))
     verify_T = 4 * (SPEC["spec_k"] + 1)
-    captures["K6_verify"] = Capture(k6, "moe_gating", lambda lg, k: 1 if lg.shape[0] == verify_T
-                                    else -1)
-    captures["K6"] = Capture(k6, "moe_gating", lambda lg, k: 1 if lg.shape[0] == DEEP_CHUNK
-                             else -1)
+    captures["K6_verify"] = Capture(k6, "moe_gating",
+                                    lambda lg, k, C=None: 1 if lg.shape[0] == verify_T else -1)
+    captures["K6"] = Capture(k6, "moe_gating",
+                             lambda lg, k, C=None: 1 if lg.shape[0] == DEEP_CHUNK else -1)
     result, wall, launches = _timed_query(session)
     captures["K6"].restore()
     captures["K6_verify"].restore()
@@ -777,8 +802,10 @@ class _Spans:
 def phase_profile(session, extractor, out_dir, path: str) -> dict:
     """torch.profiler over one extraction round of a path's served model
     (4 legal documents, attribute `year`): wall time, the device's busy
-    share, and device time by kernel group; on the moe path also the device
-    time of MLA attention and of the expert products (`_Spans`)."""
+    share, and device time by kernel group; on the ssm and moe paths the
+    round's forwards (prefill chunks + verify rounds) and device kernels a
+    forward; on the moe path also the device time of MLA attention and of
+    the expert products (`_Spans`)."""
     import contextlib
 
     import torch
@@ -790,17 +817,20 @@ def phase_profile(session, extractor, out_dir, path: str) -> dict:
     items = [(d, "year", retriever.segments(d, "year", "cases")) for d in docs]
     extractor.extract_batch(items)                 # warm-up round
     torch.cuda.synchronize()
+    st = extractor.engine.stats
+    fwd0 = st["prefill_chunks"] + st["spec_rounds"]
     spans = _Spans() if path == "moe" else contextlib.nullcontext()
     with spans, profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         extractor.extract_batch(items)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    forwards = st["prefill_chunks"] + st["spec_rounds"] - fwd0
     # each attention kernel's span and merge launches (the merge kernel is
     # shared; its tag names the caller)
     groups = {"K1 paged_decode": ("PagedDecode",),
               "K2 chunk_prefill": ("ChunkPrefill",),
-              "K3 topk_l2": ("topk_l2_kernel",),
+              "K3 topk_l2": ("topk_l2_",),
               "K4 paged_verify": ("PagedVerify",),
               "K5 dense_decode": ("DenseDecode",),
               "K6 moe_gating": ("moe_gating_kernel",),
@@ -836,6 +866,9 @@ def phase_profile(session, extractor, out_dir, path: str) -> dict:
            "device_launches_by_group": count_by_group}
     if path == "moe":
         out["device_ms_by_span"] = {n: by_span.get(n, 0.0) / 1e3 for n in _Spans.NAMES}
+    if path in ("ssm", "moe"):                     # every forward a chunk or a verify round
+        out["forwards"] = forwards
+        out["device_kernels_per_forward"] = launches / forwards if forwards else None
     emit(out)
     if out_dir:
         Path(out_dir).mkdir(parents=True, exist_ok=True)
@@ -850,54 +883,13 @@ def phase_profile(session, extractor, out_dir, path: str) -> dict:
 
 
 def phase_kernels(captures: dict, launches: dict) -> list:
-    import torch
-    from repro_torch.kernels import topk_l2 as k3
-
     rows = []
 
     edges = _paged_edges()
     rows += _kernel_k1(captures, launches, edges)
     rows += _kernel_k2(captures, launches, edges)
 
-    # ------------------------------------------------------------- K3 --
-    db, qq, k = captures["K3"].args
-    d, i = k3.topk_l2(db, qq, k)
-    dp, ip = k3.topk_l2_plain(db, qq, k)
-    err = max_err(d, dp)
-    # the indices must realise the reported distances (near-ties may swap)
-    d2 = ((qq[:, None, :] - db[None]) ** 2).sum(-1)
-    realised = torch.sqrt(torch.clamp(torch.gather(d2, 1, i.long()), min=0.0))
-    err = max(err, max_err(realised, d))
-    # edge case: exact ties (duplicated rows) resolve lowest index first
-    dup = torch.cat([db[:100], db[:100], db[50:150]])
-    qd = torch.cat([qq[:2], db[10:11]])
-    de, ie = k3.topk_l2(dup, qd, dup.shape[0])
-    dpe, ipe = k3.topk_l2_plain(dup, qd, dup.shape[0])
-    if not torch.equal(ie, ipe):
-        raise AssertionError("K3: exact ties must order lowest index first")
-    err = max(err, max_err(de, dpe))
-    M, D = qq.shape
-    N = db.shape[0]
-    nbytes = (N * D + M * D) * 4 + M * k * 8
-    b_ms, b_by = bound(nbytes, 3 * M * N * D, "float32")
-
-    def kernel():
-        return k3.topk_l2(db, qq, k)
-
-    def library():
-        return torch.sort(torch.cdist(qq, db), dim=1, stable=True)
-    rows.append(dict(
-        name="topk_l2", route="cuda", source="src/repro_torch/kernels/csrc/topk_l2.cu",
-        replaces="src/repro/kernels/topk_l2.py:55", launches=launches["K3"],
-        shape=f"db{tuple(db.shape)} q{tuple(qq.shape)} k={k} float32",
-        max_abs_err=err, tol=TOL["topk"],
-        ms=cuda_ms(kernel), plain_ms=cuda_ms(lambda: k3.topk_l2_plain(db, qq, k)),
-        library_ms=cuda_ms(library),
-        device_ms=device_ms(kernel), library_device_ms=device_ms(library),
-        device_ms_method=DEVICE_MS_METHOD,
-        library_call="torch.cdist + torch.sort(stable=True)",
-        bound_ms=b_ms, bound_by=b_by))
-
+    rows.append(_kernel_k3(captures, launches))
     rows.append(_kernel_k4(captures, launches, edges))
     rows.append(_kernel_k5(captures, launches, edges))
     rows.append(_kernel_k6(captures, launches))
@@ -914,6 +906,93 @@ def phase_kernels(captures: dict, launches: dict) -> list:
             if key in r and not r[key] <= tol:
                 raise AssertionError(f"{r['name']}: {key}={r[key]} > {tol}")
     return rows
+
+
+def _k3_check(db, q, k) -> tuple:
+    """K3 against its plain version on one input: the distances' largest
+    error, that every index realises its reported distance (within the
+    same tolerance), and the indices identical wherever the plain
+    version's distance is unique (more than K3_MARGIN from its neighbours:
+    nearer values may swap, the two sum in different orders). Returns
+    (error, indices equal where unique)."""
+    import torch
+    from repro_torch.kernels import topk_l2 as k3
+    d, i = k3.topk_l2(db, q, k)
+    dp, ip = k3.topk_l2_plain(db, q, k)
+    d2 = ((q[:, None, :] - db[None]) ** 2).sum(-1)
+    realised = torch.sqrt(torch.clamp(torch.gather(d2, 1, i.long()), min=0.0))
+    gap = torch.full_like(dp, float("inf"))
+    if k > 1:
+        step = (dp[:, 1:] - dp[:, :-1]).abs()
+        gap[:, 1:] = step
+        gap[:, :-1] = torch.minimum(gap[:, :-1], step)
+    unique = gap > K3_MARGIN
+    if k < db.shape[0]:                          # the next rank, beyond the output
+        d_all, _ = k3.topk_l2_plain(db, q, k + 1)
+        unique[:, -1] &= (d_all[:, -1] - dp[:, -1]).abs() > K3_MARGIN
+    return (max(max_err(d, dp), max_err(realised, d)),
+            bool(torch.equal(i[unique], ip[unique])))
+
+
+def _kernel_k3(captures: dict, launches: dict) -> dict:
+    """K3 on the inputs of the main phase's largest launch and on edge
+    shapes (N at the cluster's edges and the two-kernel shape up to MAX_N,
+    D 32 and 64, M 1 and 8, k < N, exact ties), against its plain version
+    (`_k3_check`; exact ties: indices identical everywhere)."""
+    import torch
+    from repro_torch.kernels import topk_l2 as k3
+
+    db, qq, k = captures["K3"].args
+    err, same = _k3_check(db, qq, k)
+    gen = torch.Generator(device="cuda").manual_seed(13)
+
+    def r(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+    edges = {"N=256": (r(256, 256), r(4, 256), 256), "N=2048": (r(2048, 256), r(4, 256), 2048),
+             "N=2049": (r(2049, 64), r(2, 64), 2049), "N=16384": (r(16384, 32), r(1, 32), 16384),
+             "D=32,M=8": (r(309, 32), r(8, 32), 309), "D=64,M=1": (r(309, 64), r(1, 64), 309),
+             "k=10": (db, qq, 10), "N=2049,k=100": (r(2049, 64), r(8, 64), 100),
+             "N=1": (r(1, 256), r(4, 256), 1), "N=40": (r(40, 256), r(4, 256), 40)}
+    edge_err, edge_same = {}, {}
+    for name, args in edges.items():
+        edge_err[name], edge_same[name] = _k3_check(*args)
+    # exact ties (duplicated rows; a query equal to a row): lowest index first
+    dup = torch.cat([db[:100], db[:100], db[50:150]])
+    qd = torch.cat([qq[:2], db[10:11]])
+    for name, (dbt, qt) in {"ties": (dup, qd),
+                           "ties N=2400": (torch.cat([dup] * 8), qd)}.items():
+        de, ie = k3.topk_l2(dbt, qt, dbt.shape[0])
+        dpe, ipe = k3.topk_l2_plain(dbt, qt, dbt.shape[0])
+        edge_err[name], edge_same[name] = max_err(de, dpe), bool(torch.equal(ie, ipe))
+    bad = {n: (edge_err[n], edge_same[n]) for n in edges.keys() | {"ties", "ties N=2400"}
+           if not (edge_err[n] <= TOL["topk"] and edge_same[n])}
+    if bad or not same:
+        raise AssertionError(f"K3 disagrees with its plain version (error, indices equal "
+                             f"where unique): captured {err, same}, edges {bad}")
+    M, D = qq.shape
+    N = db.shape[0]
+    nbytes = (N * D + M * D) * 4 + M * k * 8
+    b_ms, b_by = bound(nbytes, 3 * M * N * D, "float32")
+
+    def kernel():
+        return k3.topk_l2(db, qq, k)
+
+    def library():
+        return torch.sort(torch.cdist(qq, db), dim=1, stable=True)
+    return dict(
+        name="topk_l2", route="cuda", source="src/repro_torch/kernels/csrc/topk_l2.cu",
+        replaces="src/repro/kernels/topk_l2.py:55", launches=launches["K3"],
+        shape=f"db{tuple(db.shape)} q{tuple(qq.shape)} k={k} float32",
+        plan=list(k3.topk_plan(N)), max_abs_err=err, tol=TOL["topk"],
+        digest=_sha(db, qq, *k3.topk_l2(db, qq, k)),
+        indices_identical_where_unique=same, edge_cases=sorted(edge_err),
+        max_abs_err_edge_float32=max(edge_err.values()), tol_float32=TOL["topk"],
+        ms=cuda_ms(kernel), plain_ms=cuda_ms(lambda: k3.topk_l2_plain(db, qq, k)),
+        library_ms=cuda_ms(library),
+        device_ms=device_ms(kernel), library_device_ms=device_ms(library),
+        device_ms_method=DEVICE_MS_METHOD,
+        library_call="torch.cdist + torch.sort(stable=True)",
+        bound_ms=b_ms, bound_by=b_by)
 
 
 def _paged_edges() -> tuple:
@@ -1287,47 +1366,79 @@ def _kernel_k5(captures: dict, launches: dict, edges: tuple) -> dict:
 
 def _kernel_k6(captures: dict, launches: dict) -> dict:
     """K6 on the inputs of a captured prefill chunk (T = DEEP_CHUNK) and
-    verify round, and on edge cases, against `moe_gating_plain`: the
-    weights within K6_TOL (float32 throughout; the softmax's exponentials
-    and sum round differently) and the indices identical, in order."""
+    verify round (bf16 logits, the model's capacity), the same in float32,
+    and edge cases, against `moe_gating_plain`: the weights within K6_TOL
+    (float32 throughout; the softmax's exponentials and sum round
+    differently), the indices and the slots identical, the kept weights
+    exactly the kernel's weights where kept and 0 where dropped, and within
+    K6_TOL of the plain version's. Yardstick: the sequence the fused launch
+    replaced in `moe_apply` (the cast, the gating alone, the numbering)."""
+    from types import SimpleNamespace
+
     import torch
     from repro_torch.kernels import moe_gating as k6
+    from repro_torch.models.layers import moe_capacity
 
-    def errs_of(logits, k):
-        wk, ik = k6.moe_gating(logits, k)
-        wp, ip = k6.moe_gating_plain(logits, k)
-        return max_err(wk, wp), bool(torch.equal(ik, ip))
+    def cap(T, k, E, factor=1.25):
+        return moe_capacity(SimpleNamespace(capacity_factor=factor, moe_top_k=k, n_experts=E), T)
+
+    def errs_of(logits, k, C):
+        wk, ik, sk, kk = k6.moe_gating(logits, k, C)
+        wp, ip, sp, kp = k6.moe_gating_plain(logits, k, C)
+        drop = logits.shape[1] * C
+        same = (torch.equal(ik, ip) and torch.equal(sk, sp)
+                and torch.equal(kk, wk.reshape(-1) * (sk != drop)))
+        return max(max_err(wk, wp), max_err(kk, kp)), bool(same), int((sk == drop).sum())
 
     gen = torch.Generator(device="cuda").manual_seed(12)
 
     def r(T, E, scale=1.0):
         return torch.randn((T, E), generator=gen, device="cuda") * scale
+
+    def case(logits, k, factor=1.25):
+        return logits, k, cap(logits.shape[0], k, logits.shape[1], factor)
     pre, ver = captures["K6"].args, captures["K6_verify"].args
-    cases = {"chunk": pre, "verify": ver, "T=1": (r(1, 64), 6), "E=8,k=2": (r(100, 8, 2.0), 2),
-             "E=4,k=2": (r(17, 4, 2.0), 2), "E=160": (r(64, 160), 6),
-             "E=256,k=8": (r(40, 256), 8),
-             "all equal": (torch.full((9, 64), 0.37, device="cuda"), 6),
-             "bf16-rounded": (r(512, 64, 0.9).bfloat16().float(), 6), "T=37": (r(37, 64), 6)}
-    errs, same = {}, {}
-    for name, (lg, k) in cases.items():
-        errs[name], same[name] = errs_of(lg, k)
+    one = r(50, 16)
+    one[:, 3] += 10.0
+    cases = {"chunk": pre, "verify": ver, "chunk f32": (pre[0].float(), *pre[1:]),
+             "verify f32": (ver[0].float(), *ver[1:]),
+             "T=1": case(r(1, 64), 6), "E=8,k=2": case(r(100, 8, 2.0), 2),
+             "E=4,k=2": case(r(17, 4, 2.0), 2), "E=160": case(r(64, 160), 6),
+             "E=256,k=8": case(r(40, 256), 8), "E=40,k=1": case(r(37, 40), 1),
+             "k=E": case(r(20, 8), 8),
+             "all equal": case(torch.full((9, 64), 0.37, device="cuda"), 6),
+             "bf16-rounded": case(r(512, 64, 0.9).bfloat16().float(), 6),
+             "bf16 T=1000": case(r(1000, 64, 0.9).bfloat16(), 6),
+             "T=2000": case(r(2000, 64, 0.9), 6), "T=37": case(r(37, 64), 6),
+             "drops": case(r(128, 64, 0.9).bfloat16(), 6, factor=0.25),
+             "one expert": case(one, 2)}
+    errs, same, dropped = {}, {}, {}
+    for name, args in cases.items():
+        errs[name], same[name], dropped[name] = errs_of(*args)
     w_eq, i_eq = k6.moe_gating(cases["all equal"][0], 6)
     if not torch.equal(i_eq.cpu(), torch.arange(6, dtype=torch.int32).expand(9, 6)) or \
             max_err(w_eq, torch.full_like(w_eq, 1 / 6)) > K6_TOL:
         raise AssertionError("K6: equal logits must give indices 0..k-1 and weights 1/k")
     bad = {n: (errs[n], same[n]) for n in cases if not (errs[n] <= K6_TOL and same[n])}
     if bad:
-        raise AssertionError(f"K6 disagrees with its plain version (error, indices equal): {bad}")
+        raise AssertionError(f"K6 disagrees with its plain version (error, indices, slots "
+                             f"and kept weights equal): {bad}")
+    if not dropped["drops"] or not dropped["one expert"]:
+        raise AssertionError(f"K6: the capacity cases dropped nothing: {dropped}")
 
-    def work(logits, k):
-        """bytes (logits read, weights and indices written), flops (exp
-        argument, sum, divide, k rounds of compares), exponentials"""
+    def work(logits, k, C):
+        """bytes (logits read; weights, indices, slots and kept weights
+        written), flops (exp argument, sum, divide, k rounds of compares,
+        the numbering), exponentials"""
         T, E = logits.shape
-        return T * E * 4 + T * k * 8, T * E * (3 + k), T * E
+        return (T * E * logits.element_size() + T * k * (4 + 4 + 8 + 4),
+                T * E * (3 + k) + 4 * T * k, T * E)
 
-    def library(logits, k):
-        w, _ = torch.topk(torch.softmax(logits, dim=-1), k)
-        return w / w.sum(-1, keepdim=True).clamp(min=1e-9)
+    def replaced(logits, k, C):
+        """What `moe_apply` ran before the fused launch: the float32 cast,
+        the gating alone, and the numbering in plain PyTorch."""
+        w, i = k6.moe_gating(logits.float(), k)
+        return k6.number_assignments(w, i, logits.shape[1], C)
     nbytes, flops, exps = work(*pre)
     b_ms, b_by = bound(nbytes, flops, "float32", exps)
     vb_ms, vb_by = bound(*work(*ver)[:2], "float32", work(*ver)[2])
@@ -1335,22 +1446,29 @@ def _kernel_k6(captures: dict, launches: dict) -> dict:
     return dict(
         name="moe_gating", route="cuda", source="src/repro_torch/kernels/csrc/moe_gating.cu",
         replaces="src/repro/kernels/moe_gating.py:47", launches=launches["K6"],
-        shape=f"logits{tuple(pre[0].shape)} k={pre[1]} float32 (a prefill chunk)",
-        shape_verify=f"logits{tuple(ver[0].shape)} k={ver[1]} float32 (a verify round)",
+        shape=f"logits{tuple(pre[0].shape)} k={pre[1]} C={pre[2]} {pre[0].dtype} "
+              "(a prefill chunk)",
+        shape_verify=f"logits{tuple(ver[0].shape)} k={ver[1]} C={ver[2]} {ver[0].dtype} "
+                     "(a verify round)",
         max_abs_err=errs["chunk"], tol=K6_TOL, max_abs_err_verify=errs["verify"],
         max_abs_err_edge_float32=max(errs[n] for n in edges), tol_float32=K6_TOL,
-        indices_identical=all(same.values()), edge_cases=edges,
+        indices_slots_identical=all(same.values()), edge_cases=edges, dropped=dropped,
+        # the logits as float32 (the parent's kernel took them so), weights, indices
+        digest=_sha(pre[0].float(), *k6.moe_gating(*pre)[:2]),
+        digest_verify=_sha(ver[0].float(), *k6.moe_gating(*ver)[:2]),
         ms=cuda_ms(lambda: k6.moe_gating(*pre)),
         plain_ms=cuda_ms(lambda: k6.moe_gating_plain(*pre)),
         ms_verify=cuda_ms(lambda: k6.moe_gating(*ver)),
         plain_ms_verify=cuda_ms(lambda: k6.moe_gating_plain(*ver)),
-        library_ms=cuda_ms(lambda: library(*pre)),
+        library_ms=cuda_ms(lambda: replaced(*pre)),
         device_ms=device_ms(lambda: k6.moe_gating(*pre)),
         device_ms_verify=device_ms(lambda: k6.moe_gating(*ver)),
-        library_device_ms=device_ms(lambda: library(*pre)),
-        library_device_ms_verify=device_ms(lambda: library(*ver)),
+        device_ms_gating_alone=device_ms(lambda: k6.moe_gating(*pre[:2])),
+        library_device_ms=device_ms(lambda: replaced(*pre)),
+        library_device_ms_verify=device_ms(lambda: replaced(*ver)),
         device_ms_method=DEVICE_MS_METHOD,
-        library_call="torch.softmax + torch.topk + renormalise",
+        library_call="the sequence the launch replaced in moe_apply: logits.float(), this "
+                     "kernel's gating alone, one_hot + cumsum - 1 + gather, < C, where, w * keep",
         bound_ms=b_ms, bound_by=b_by, bound_ms_verify=vb_ms, bound_by_verify=vb_by,
         bound_bytes=nbytes)
 
@@ -1737,7 +1855,8 @@ def main() -> int:
                            "cached": _build.build_info["cached"], "ptxas": ptxas[:12],
                            "ptxas_core": core_ptxas(_build.build_info.get("ptxas", ""),
                                                     ("PagedVerify", "DenseDecode")),
-                           "ptxas_scan": scan_ptxas(_build.build_info.get("ptxas", ""))}
+                           "ptxas_scan": scan_ptxas(_build.build_info.get("ptxas", "")),
+                           "ptxas_k3_k6": gating_topk_ptxas(_build.build_info.get("ptxas", ""))}
         emit(report["build"])
 
         captures: dict = {}

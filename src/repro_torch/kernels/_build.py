@@ -30,13 +30,13 @@ DTYPE_CODES = {"float32": 0, "bfloat16": 1}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "repro_topk_l2": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "repro_topk_l2": [_P] * 4 + [_I] * 7 + [_P],
     "repro_paged_decode_attention": [_P] * 7 + [_I] * 10 + [_P],
     "repro_chunk_prefill_attention": [_P] * 6 + [_I] * 11 + [_P],
     "repro_paged_verify_attention": [_P] * 7 + [_I] * 11 + [_P],
     "repro_dense_decode_attention": [_P] * 6 + [_I] * 9 + [_P],
     "repro_ssm_scan": [_P] * 10 + [_I] * 7 + [_P],
-    "repro_moe_gating": [_P, _P, _P, _I, _I, _I, _P],
+    "repro_moe_gating": [_P, _I] + [_P] * 4 + [_I] * 7 + [_P],
 }
 
 _lib = None

@@ -39,6 +39,18 @@ __device__ __forceinline__ float warp_allreduce_max(float v) {
   return v;
 }
 
+// The two halves of a thread-block cluster's barrier (K3, K6): after
+// arrive, this block's reads of its peers' shared memory are done; wait
+// returns when every block of the cluster has arrived. Every thread of
+// every block executes both.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
 // Opt a kernel into more than the default 48 KB of dynamic shared memory.
 template <typename K>
 inline cudaError_t allow_smem(K kernel, size_t bytes) {

@@ -1,75 +1,127 @@
-"""K6: MoE router gating -- softmax, top-k, renormalise.
+"""K6: MoE router gating -- softmax, top-k, renormalise -- fused with the
+capacity numbering of the dispatch.
 
 Replaces `repro.kernels.moe_gating.moe_gating_pallas` (src/repro/kernels/
 moe_gating.py:47), the function the JAX model's `moe_apply` computes
-inline (`softmax -> lax.top_k -> w / max(sum w, 1e-9)`). CUDA source:
-`csrc/moe_gating.cu`.
+inline (`softmax -> lax.top_k -> w / max(sum w, 1e-9)`), and, given a
+capacity, the numbering `moe_apply` computes after it (src/repro/models/
+layers.py:649-654): each assignment's slot `e C + pos` or the drop slot
+`E C`, and its kept weight `w keep`. CUDA source: `csrc/moe_gating.cu`.
 
-Bound on the H100: bytes, and far below a microsecond (T x E float32
-logits in, T x k weights and indices out: ~39 KB at T = 128, E = 64,
-k = 6), so a launch costs what launching costs. Design: one warp per token
-row, k rounds of a warp arg-max with ties to the lower index, the picks
-kept in registers; see the source.
+Bound on the H100: bytes, and far below a microsecond (~30 KB at T = 128,
+E = 64, k = 6), so a launch costs what launching costs; the gain is the
+~10 launches of the numbering it takes over. Design: one warp per token
+row, k rounds of a warp arg-max with ties to the lower index; the rows
+spread over a thread-block cluster whose blocks number their assignments
+and exchange per-expert totals through distributed shared memory; see the
+source. `gating_plan` is the launch plan.
 
 The order of the k indices is part of the result: descending probability,
 the lowest expert index first on equal probabilities (`lax.top_k`'s
-order). Router logits formed in bf16 tie often, and the MoE dispatch
-numbers assignments in (token, rank) order, so the rank decides which
-assignment a full expert drops.
+order). Router logits formed in bf16 tie often, and the dispatch numbers
+assignments in (token, rank) order, so the rank decides which assignment
+a full expert drops.
 
 `moe_gating` runs the kernel on a CUDA tensor and `moe_gating_plain` on a
 CPU tensor; `launches` counts kernel launches.
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
+import torch.nn.functional as F
 
 from . import _build
 
 MAX_EXPERTS = 256
+MAX_CLUSTER = 8             # blocks a cluster, the portable size
+ROWS_PER_BLOCK = 16         # rows a block until all MAX_CLUSTER blocks are used
+MAX_ASSIGNMENTS = 1 << 17   # T x k a call: a block's expert bytes in shared memory
 
 launches = 0
 
 
-def moe_gating_plain(logits: torch.Tensor, k: int):
+class GatingPlan(NamedTuple):
+    cs: int            # blocks, one cluster
+    per: int           # token rows a block
+    threads: int       # threads a block: a warp a row, at most 1,024
+
+
+def gating_plan(T: int) -> GatingPlan:
+    """cs = min(8, ceil(T / 16)) blocks of per = ceil(T / cs) rows, a warp
+    a row up to 32 warps (a warp walks ceil(per / 32) rows beyond)."""
+    cs = min(MAX_CLUSTER, -(-T // ROWS_PER_BLOCK))
+    per = -(-T // cs)
+    return GatingPlan(cs, per, min(1024, 32 * per))
+
+
+def number_assignments(w: torch.Tensor, idx: torch.Tensor, E: int, capacity: int):
+    """The dispatch numbering of `moe_apply`, as the JAX model writes it:
+    assignments in (token, rank) order, pos = the count of earlier ones to
+    the same expert, keep = pos < C. Returns (slot (T k,) int64: e C + pos,
+    or E C when dropped; kept (T k,) float32: w keep)."""
+    flat_e = idx.reshape(-1).long()
+    pos = (F.one_hot(flat_e, E).cumsum(0) - 1).gather(1, flat_e[:, None])[:, 0]
+    keep = pos < capacity
+    return torch.where(keep, flat_e * capacity + pos, E * capacity), w.reshape(-1) * keep
+
+
+def moe_gating_plain(logits: torch.Tensor, k: int, capacity: int | None = None):
     """Plain PyTorch version, as `repro.kernels.ref.moe_gating_ref`: a
     float32 softmax, a stable descending sort cut to k (equal
     probabilities keep the lower index first; `torch.topk` leaves their
     order unspecified), the weights clamped at 0 and divided by
     max(their sum, 1e-9), summed in rank order as the kernel sums them.
-    Returns (weights (T, k) float32, indices (T, k) int32)."""
+    Returns (weights (T, k) float32, indices (T, k) int32), and with a
+    capacity also `number_assignments`' (slot, kept)."""
     probs = torch.softmax(logits.float(), dim=-1)
     w, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
     w = w[:, :k].clamp(min=0.0)
     total = w[:, 0]
     for j in range(1, k):
         total = total + w[:, j]
-    return w / total.clamp(min=1e-9)[:, None], idx[:, :k].to(torch.int32)
+    w, idx = w / total.clamp(min=1e-9)[:, None], idx[:, :k].to(torch.int32)
+    if capacity is None:
+        return w, idx
+    return (w, idx, *number_assignments(w, idx, logits.shape[1], capacity))
 
 
-def moe_gating(logits: torch.Tensor, k: int):
-    """logits (T, E) float32 -> (weights (T, k) float32, indices (T, k)
-    int32). CPU tensors take the plain version; CUDA tensors launch the
-    kernel or raise."""
+def moe_gating(logits: torch.Tensor, k: int, capacity: int | None = None):
+    """logits (T, E) float32 or bfloat16 -> (weights (T, k) float32,
+    indices (T, k) int32), and with a capacity C also (slot (T k,) int64,
+    kept (T k,) float32) as `number_assignments`. CPU tensors take the
+    plain version; CUDA tensors launch the kernel or raise."""
     global launches
     if logits.ndim != 2:
         raise ValueError(f"moe_gating: logits must be (T, E), got {tuple(logits.shape)}")
     T, E = logits.shape
     if not 1 <= E <= MAX_EXPERTS or not 1 <= k <= E:
         raise ValueError(f"moe_gating: need 1 <= k <= E <= {MAX_EXPERTS}, got k={k}, E={E}")
+    if capacity is not None and capacity < 1:
+        raise ValueError(f"moe_gating: capacity must be >= 1, got {capacity}")
     if logits.device.type == "cpu":
-        return moe_gating_plain(logits, k)
+        return moe_gating_plain(logits, k, capacity)
     if logits.device.type != "cuda":
         raise ValueError(f"moe_gating: logits on {logits.device}")
-    if logits.dtype != torch.float32:
-        raise TypeError(f"moe_gating takes float32 logits, got {logits.dtype}")
+    if logits.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"moe_gating takes float32 or bfloat16 logits, got {logits.dtype}")
+    if T * k > MAX_ASSIGNMENTS:
+        raise ValueError(f"moe_gating: T x k = {T * k} assignments, at most {MAX_ASSIGNMENTS}")
     logits = logits.contiguous()
-    w = torch.empty((T, k), dtype=torch.float32, device=logits.device)
-    idx = torch.empty((T, k), dtype=torch.int32, device=logits.device)
-    if T == 0:
-        return w, idx
-    rc = _build.library().repro_moe_gating(logits.data_ptr(), w.data_ptr(), idx.data_ptr(),
-                                           T, E, k, _build.stream_handle(logits.device))
-    _build.check(rc, "moe_gating")
-    launches += 1
-    return w, idx
+    dev = logits.device
+    w = torch.empty((T, k), dtype=torch.float32, device=dev)
+    idx = torch.empty((T, k), dtype=torch.int32, device=dev)
+    numbered = capacity is not None
+    slot = torch.empty((T * k,), dtype=torch.int64, device=dev) if numbered else None
+    kept = torch.empty((T * k,), dtype=torch.float32, device=dev) if numbered else None
+    if T:
+        plan = gating_plan(T)
+        rc = _build.library().repro_moe_gating(
+            logits.data_ptr(), _build.DTYPE_CODES[str(logits.dtype).removeprefix("torch.")],
+            w.data_ptr(), idx.data_ptr(), slot.data_ptr() if numbered else None,
+            kept.data_ptr() if numbered else None, T, E, k, capacity or 0, plan.cs, plan.per,
+            plan.threads, _build.stream_handle(dev))
+        _build.check(rc, "moe_gating")
+        launches += 1
+    return (w, idx, slot, kept) if numbered else (w, idx)

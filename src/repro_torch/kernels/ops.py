@@ -16,10 +16,11 @@ from . import topk_l2 as _k3
 def topk_l2(db, q, k: int, *, device):
     """Top-k nearest (L2) database rows per query. db: (N, D) array or
     float32 tensor, q: (M, D). Returns numpy (dists (M, k) float32,
-    idx (M, k) int32), ascending, lowest index first on ties."""
+    idx (M, k) int32), ascending, lowest index first on ties. Both come
+    back in one device-to-host copy."""
     db_t = torch.as_tensor(np.asarray(db, np.float32) if not torch.is_tensor(db)
                            else db, dtype=torch.float32, device=device)
     q_t = torch.as_tensor(np.asarray(q, np.float32), dtype=torch.float32,
                           device=device)
-    dists, idx = _k3.topk_l2(db_t, q_t, k)
-    return dists.cpu().numpy(), idx.cpu().numpy()
+    host = _k3.topk_l2_packed(db_t, q_t, k).cpu().numpy()
+    return host[0], host[1].view(np.int32)

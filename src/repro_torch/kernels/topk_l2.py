@@ -3,28 +3,57 @@
 Replaces `repro.kernels.topk_l2.topk_l2_pallas` (src/repro/kernels/
 topk_l2.py:55). CUDA source: `csrc/topk_l2.cu`.
 
-Bound on the H100: tiny. At the retriever's shapes (N ~ 300 segments,
-D = 256, k = N, a few probes per document) the distance pass is ~0.1
-MFLOP and ~0.3 MB, far below a microsecond of either roofline, so the
-launch itself dominates. Design: one block per query row computes the
-whole distance row into shared memory (warps over rows, lanes over D,
-coalesced) and bitonic-sorts it there -- one launch, one read of the
-database, no (M, N) distance matrix in device memory. The wrapper caps N
-at what one block's shared memory holds; `ExactIndex` switches to IVF at
-2048 rows, so the main path never comes near it.
+Bound on the H100: bytes, and tiny. At the retriever's shapes (N ~ 300
+segments, D = 256, k = N, a few probes per document) the distance pass is
+~0.1 MFLOP and ~0.3 MB, far below a microsecond of either roofline, so
+latency decides. Design (see the source): a query row's database rows are
+spread over a thread-block cluster of up to 8 blocks, each computing d^2
+of its slice with several rows' loads in flight; the blocks exchange
+slices through distributed shared memory, and each ranks its slice by
+counting, for every element, the (d^2, index) pairs that come before it
+-- exact, deterministic, no sort stages. Above CLUSTER_MAX_N rows a
+distance kernel writes an (M, N) scratch and a rank kernel ranks spans of
+RANK_SPAN elements. `topk_plan` is the launch plan.
+
+The kernel writes distances and indices into one (2, M, k) float32 buffer
+(the indices as int32 bits), so a caller that wants both on the host
+copies once (`topk_l2_packed`, used by `ops.topk_l2`).
 
 `topk_l2` runs the kernel on a CUDA tensor and `topk_l2_plain` on a CPU
 tensor; `launches` counts kernel launches.
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from . import _build
 
-MAX_N = 16384          # (d^2, idx) pairs of one row in shared memory
+MAX_N = 16384          # database rows a call
+CLUSTER_MAX_N = 2048   # rows one cluster ranks (csrc: kClusterMaxN)
+MAX_CLUSTER = 8        # blocks a cluster, the portable size
+RANK_SPAN = 128        # elements a block ranks above CLUSTER_MAX_N (kRankSpan)
 
 launches = 0
+
+
+class TopkPlan(NamedTuple):
+    cs: int            # blocks a query row (a cluster); 0 above CLUSTER_MAX_N
+    per: int           # database rows a block computes and ranks
+    threads: int       # threads a block
+
+
+def topk_plan(N: int) -> TopkPlan:
+    """The launch plan for N database rows: at most CLUSTER_MAX_N, a
+    cluster of cs = min(8, ceil(N / 32)) blocks of per = ceil(N / cs) rows,
+    a warp a row up to 32 warps (the rows' loads then go out in one group);
+    above it, the two-kernel shape with RANK_SPAN elements a rank block."""
+    if N > CLUSTER_MAX_N:
+        return TopkPlan(0, RANK_SPAN, 1024)
+    cs = min(MAX_CLUSTER, -(-N // 32))
+    per = -(-N // cs)
+    return TopkPlan(cs, per, min(1024, 32 * per))
 
 
 def topk_l2_plain(db: torch.Tensor, q: torch.Tensor, k: int):
@@ -39,13 +68,15 @@ def topk_l2_plain(db: torch.Tensor, q: torch.Tensor, k: int):
             idx[:, :k].to(torch.int32))
 
 
-def topk_l2(db: torch.Tensor, q: torch.Tensor, k: int):
-    """db (N, D) float32, q (M, D) float32 -> (dists (M, k), idx (M, k)
-    int32), ascending. CPU tensors take the plain version; CUDA tensors
-    launch the kernel or raise."""
+def topk_l2_packed(db: torch.Tensor, q: torch.Tensor, k: int) -> torch.Tensor:
+    """db (N, D) float32, q (M, D) float32 -> one (2, M, k) float32 tensor:
+    [0] the distances, [1] the indices' int32 bits (`.view(torch.int32)`),
+    ascending. CPU tensors take the plain version; CUDA tensors launch the
+    kernel or raise."""
     global launches
     if db.device.type == "cpu" and q.device.type == "cpu":
-        return topk_l2_plain(db, q, k)
+        d, i = topk_l2_plain(db, q, k)
+        return torch.stack([d, i.view(torch.float32)])
     if db.device.type != "cuda" or q.device != db.device:
         raise ValueError(f"topk_l2: db on {db.device}, q on {q.device}")
     if db.dtype != torch.float32 or q.dtype != torch.float32:
@@ -57,14 +88,25 @@ def topk_l2(db: torch.Tensor, q: torch.Tensor, k: int):
     if not 1 <= k <= N or N > MAX_N:
         raise ValueError(f"topk_l2: need 1 <= k <= N <= {MAX_N}, got k={k}, N={N}")
     db, q = db.contiguous(), q.contiguous()
-    out_d = torch.empty((M, k), dtype=torch.float32, device=db.device)
-    out_i = torch.empty((M, k), dtype=torch.int32, device=db.device)
+    out = torch.empty((2, M, k), dtype=torch.float32, device=db.device)
     if M == 0:
-        return out_d, out_i
-    lib = _build.library()
-    rc = lib.repro_topk_l2(db.data_ptr(), q.data_ptr(), out_d.data_ptr(),
-                           out_i.data_ptr(), M, N, D, k,
-                           _build.stream_handle(db.device))
+        return out
+    plan = topk_plan(N)
+    scratch = None if plan.cs else torch.empty((M, N), dtype=torch.float32, device=db.device)
+    rc = _build.library().repro_topk_l2(
+        db.data_ptr(), q.data_ptr(), out.data_ptr(),
+        None if scratch is None else scratch.data_ptr(), M, N, D, k, plan.cs, plan.per,
+        plan.threads, _build.stream_handle(db.device))
     _build.check(rc, "topk_l2")
     launches += 1
-    return out_d, out_i
+    return out
+
+
+def topk_l2(db: torch.Tensor, q: torch.Tensor, k: int):
+    """db (N, D) float32, q (M, D) float32 -> (dists (M, k), idx (M, k)
+    int32), ascending. CPU tensors take the plain version; CUDA tensors
+    launch the kernel or raise; on the card both are views of one buffer."""
+    if db.device.type == "cpu" and q.device.type == "cpu":
+        return topk_l2_plain(db, q, k)
+    out = topk_l2_packed(db, q, k)
+    return out[0], out[1].view(torch.int32)

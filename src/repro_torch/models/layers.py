@@ -560,8 +560,10 @@ def moe_apply(cfg: ModelConfig, p, x):
     positions and dead rows included), and assignments are numbered in
     (token, rank) order: an expert's slots go to its first C assignments
     and later ones are dropped (GShard-style), so tokens of one call
-    interact. Gating runs kernel K6 on the float32 router logits (formed
-    in the model dtype). Each token's k weighted expert rows are summed in
+    interact. Kernel K6 takes the router logits in the model dtype and
+    computes the gating and that numbering in one launch: each
+    assignment's slot (e * C + pos, or the drop slot E * C) and its kept
+    weight. Each token's k weighted expert rows are summed in
     rank order from zeros in the model dtype -- the JAX CPU scatter-add's
     order -- and not with `index_add_`, whose atomics on the card sum in an
     order that changes from run to run."""
@@ -569,20 +571,16 @@ def moe_apply(cfg: ModelConfig, p, x):
     x2 = x.reshape(B * S, d)
     T, E, K = B * S, cfg.n_experts, cfg.moe_top_k
     C = moe_capacity(cfg, T)
-    top_w, top_i = _k6.moe_gating((x2 @ p["router"]).float(), K)
-    flat_e = top_i.reshape(-1).long()
-    flat_t = torch.arange(T, device=x.device).repeat_interleave(K)
-    pos = (F.one_hot(flat_e, E).cumsum(0) - 1).gather(1, flat_e[:, None])[:, 0]
-    keep = pos < C
-    slot = torch.where(keep, flat_e * C + pos, E * C)        # E * C: the drop slot
+    _, _, slot, kept = _k6.moe_gating(x2 @ p["router"], K, C)
     xe = x2.new_zeros((E * C + 1, d))
-    xe[slot] = x2[flat_t]               # kept slots are distinct; the drop slot is cut
+    # each token's row once a rank; kept slots are distinct, the drop slot is cut
+    xe[slot] = x2[:, None, :].expand(T, K, d).reshape(T * K, d)
     xe = xe[:E * C].reshape(E, C, d)
     act = activation_fn(cfg.activation)
     h = act(torch.bmm(xe, p["w_gate"])) * torch.bmm(xe, p["w_up"])
     ye = torch.bmm(h, p["w_down"])
     ye_flat = torch.cat([ye.reshape(E * C, d), ye.new_zeros((1, d))])
-    back = ye_flat[slot] * (top_w.reshape(-1) * keep)[:, None].to(ye.dtype)
+    back = ye_flat[slot] * kept[:, None].to(ye.dtype)
     back = back.reshape(T, K, d)
     y = x2.new_zeros((T, d))
     for j in range(K):

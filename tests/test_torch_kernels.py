@@ -507,6 +507,98 @@ def test_topk_l2_ties_lowest_index_first():
                 assert row_i[a] < row_i[a + 1]
 
 
+def _rank_by_count(d2: np.ndarray, k: int) -> np.ndarray:
+    """K3's ranking as `csrc/topk_l2.cu` computes it, in numpy: the launch
+    plan's blocks (a cluster's slices of `per` elements, or RANK_SPAN
+    spans above CLUSTER_MAX_N), each block's warps in groups of 32
+    elements times slices of the j range, partial counts added per element;
+    key = d^2's float32 bits above the index. Returns the (M, k) indices
+    written at each rank below k."""
+    M, N = d2.shape
+    plan = k3.topk_plan(N)
+    if plan.cs:
+        assert 1 <= plan.cs <= k3.MAX_CLUSTER and plan.cs * plan.per >= N
+        assert (plan.cs - 1) * plan.per < N                    # no empty block
+        spans = [(b * plan.per, min(N, (b + 1) * plan.per)) for b in range(plan.cs)]
+    else:
+        spans = [(lo, min(N, lo + k3.RANK_SPAN)) for lo in range(0, N, k3.RANK_SPAN)]
+    nwarps = plan.threads // 32
+    j = np.arange(N, dtype=np.uint64)
+    out = np.full((M, k), -1, np.int64)
+    for m in range(M):
+        keys = (d2[m].astype(np.float32).view(np.uint32).astype(np.uint64) << np.uint64(32)) | j
+        cnt = np.zeros(N, np.int64)
+        for e_lo, e_hi in spans:
+            groups = -(-(e_hi - e_lo) // 32)
+            slices = nwarps // groups
+            assert slices >= 1
+            for w in range(groups * slices):
+                g, s = w % groups, w // groups
+                own = np.arange(e_lo + 32 * g, min(e_hi, e_lo + 32 * g + 32))
+                j_lo, j_hi = N * s // slices, N * (s + 1) // slices
+                cnt[own] += (keys[None, j_lo:j_hi] < keys[own, None]).sum(1)
+        assert sorted(cnt) == list(range(N))                   # a permutation
+        for e in range(N):
+            if cnt[e] < k:
+                out[m, cnt[e]] = e
+    return out
+
+
+@pytest.mark.parametrize("N,D,M,k,kind", [
+    (309, 256, 4, 309, "random"),       # the retriever's launch
+    (255, 32, 2, 255, "ties"),
+    (256, 64, 1, 256, "near-ties"),
+    (257, 32, 3, 100, "ties"),
+    (2048, 32, 1, 2048, "near-ties"),   # the largest cluster
+    (2049, 32, 2, 2049, "ties"),        # the two-kernel shape
+    (40, 16, 2, 40, "random"),          # a cluster of 2
+])
+def test_topk_l2_rank_by_count_matches_ref(N, D, M, k, kind):
+    """The kernel's order -- rank by counting over (d^2 bits, index) keys,
+    split as its launch plan splits it -- against `topk_l2_ref`'s stable
+    ranking (lax.top_k, lowest index first) on the same d^2: duplicated
+    rows tie exactly, near-ties differ in the last bits."""
+    rng = np.random.default_rng(N + D)
+    if kind == "ties":
+        base = _rand(rng, (N // 3 + 1, D))
+        db = np.concatenate([base, base[::-1], base])[:N]
+    else:
+        db = _rand(rng, (N, D))
+    q = _rand(rng, (M, D))
+    if kind == "near-ties":            # pairs of rows one ulp apart in one coordinate
+        db[1::2] = db[0::2][: N // 2]
+        db[1::2, 0] = np.nextafter(db[1::2, 0], np.float32(np.inf))
+        q[0] = db[7]
+    d2 = np.asarray(jnp.sum((jnp.asarray(q)[:, None, :] - jnp.asarray(db)[None]) ** 2, -1))
+    _, ir = ref.topk_l2_ref(jnp.asarray(db), jnp.asarray(q), k)
+    got = _rank_by_count(d2, k)
+    np.testing.assert_array_equal(got, np.asarray(ir))
+    np.testing.assert_array_equal(got, np.argsort(d2, axis=1, kind="stable")[:, :k])
+    gaps = np.diff(np.sort(d2, 1), axis=1)
+    if kind == "ties":                 # the tie order was tested
+        assert (gaps == 0).any()
+    if kind == "near-ties":            # and the order of values a few ulps apart
+        assert ((gaps > 0) & (gaps < 1e-6)).any()
+
+
+def test_topk_l2_ops_copies_one_packed_buffer():
+    """`ops.topk_l2` takes the packed (2, M, k) buffer -- distances, then
+    the indices' int32 bits -- in one copy; its arrays equal the plain
+    version's, with the same types."""
+    from repro_torch.kernels import ops
+    rng = np.random.default_rng(11)
+    db, q = _rand(rng, (300, 32)), _rand(rng, (3, 32))
+    packed = k3.topk_l2_packed(_t(db), _t(q), 50)
+    d, i = k3.topk_l2_plain(_t(db), _t(q), 50)
+    assert packed.shape == (2, 3, 50) and packed.dtype == torch.float32
+    assert torch.equal(packed[0], d) and torch.equal(packed[1].view(torch.int32), i)
+    hd, hi = ops.topk_l2(db, q, 50, device="cpu")
+    assert hd.dtype == np.float32 and hi.dtype == np.int32
+    np.testing.assert_array_equal(hd, d.numpy())
+    np.testing.assert_array_equal(hi, i.numpy())
+    assert k3.launches == 0
+
+
 def test_no_silent_cpu_fallback():
     """Entry points default to the CUDA device and raise without one; a
     wrapper given a tensor that is neither on the CPU nor on CUDA raises

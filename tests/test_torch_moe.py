@@ -127,8 +127,103 @@ def test_moe_gating_wrapper_rejects_what_the_kernel_does_not_take():
     for shape, k in (((4, 8), 9), ((4, 8), 0), ((4, 300), 2), ((4,), 1)):
         with pytest.raises(ValueError):
             k6.moe_gating(torch.zeros(shape), k)
+    with pytest.raises(ValueError, match="capacity"):
+        k6.moe_gating(torch.zeros((4, 8)), 2, 0)
     with pytest.raises(ValueError, match="meta"):
         k6.moe_gating(torch.zeros((4, 8), device="meta"), 2)
+
+
+def _jax_numbering(logits, k, C):
+    """The JAX `moe_apply`'s gating and dispatch numbering, its lines
+    (src/repro/models/layers.py:643-654) on the same logits: (top_i, slot,
+    kept weight flat_w * keep, keep)."""
+    lg = jnp.asarray(logits).astype(jnp.float32)
+    E = lg.shape[1]
+    probs = jax.nn.softmax(lg, axis=-1)
+    top_w, top_i = jax.lax.top_k(probs, k)
+    top_w = top_w / jnp.maximum(top_w.sum(-1, keepdims=True), 1e-9)
+    flat_e, flat_w = top_i.reshape(-1), top_w.reshape(-1)
+    onehot = jax.nn.one_hot(flat_e, E, dtype=jnp.int32)
+    pos = jnp.take_along_axis(jnp.cumsum(onehot, axis=0) - 1, flat_e[:, None], axis=1)[:, 0]
+    keep = pos < C
+    slot = jnp.where(keep, flat_e * C + pos, E * C)
+    return tuple(np.asarray(a) for a in (top_i, slot, flat_w * keep, keep))
+
+
+def _kernel_numbering(idx: np.ndarray, E: int, C: int) -> np.ndarray:
+    """K6's numbering as `csrc/moe_gating.cu` splits it, in numpy: the
+    plan's blocks of `per` rows, each block's assignments in contiguous
+    warp shares walked 32 at a time (a group of equal experts in a 32 adds
+    its size; an assignment's rank in it is the equal ones on lower lanes),
+    the per-warp counts scanned over warps, the block totals over blocks."""
+    T, k = idx.shape
+    plan = k6.gating_plan(T)
+    assert 1 <= plan.cs <= k6.MAX_CLUSTER and plan.cs * plan.per >= T
+    nwarps = plan.threads // 32
+    flat = idx.reshape(-1).astype(np.int64)
+    slot = np.full(T * k, -1, np.int64)
+    btot = np.zeros((plan.cs, E), np.int64)
+    walks = []
+    for b in range(plan.cs):
+        lo, hi = min(T, b * plan.per), min(T, (b + 1) * plan.per)
+        A = (hi - lo) * k
+        share = -(-A // nwarps)
+        wcnt = np.zeros((nwarps, E), np.int64)
+        for w in range(nwarps):
+            a_lo = min(A, w * share)
+            a_hi = min(A, a_lo + share)
+            for a0 in range(a_lo, a_hi, 32):
+                np.add.at(wcnt[w], flat[lo * k + a0: lo * k + min(a0 + 32, a_hi)], 1)
+            walks.append((b, w, lo * k + a_lo, lo * k + a_hi))
+        base = np.cumsum(wcnt, 0) - wcnt                 # exclusive, over warps
+        btot[b] = wcnt.sum(0)
+        walks[-nwarps:] = [(b, w, g_lo, g_hi, base[w].copy())
+                           for (b, w, g_lo, g_hi) in walks[-nwarps:]]
+    cbase = np.cumsum(btot, 0) - btot                    # exclusive, over blocks
+    for b, _w, g_lo, g_hi, base in walks:
+        for a0 in range(g_lo, g_hi, 32):
+            chunk = flat[a0: min(a0 + 32, g_hi)]
+            for lane, e in enumerate(chunk):
+                pos = cbase[b, e] + base[e] + (chunk[:lane] == e).sum()
+                slot[a0 + lane] = e * C + pos if pos < C else E * C
+            np.add.at(base, chunk, 1)
+    return slot
+
+
+@pytest.mark.parametrize("case,T,E,k,C", [
+    ("drops", 64, 8, 2, 8),              # 128 assignments for 64 slots
+    ("one expert", 50, 16, 2, 8),        # every token's first pick is expert 3
+    ("T=1", 1, 64, 6, 8),
+    ("E=40", 37, 40, 3, 8),              # E not a multiple of 32
+    ("k=1", 100, 8, 1, 32),
+    ("k=E", 20, 8, 8, 24),
+    ("bf16 chunk", 128, 64, 6, 16),      # deepseek-v2-lite-16b's chunk launch
+    ("bf16 verify", 20, 64, 6, 8),       # and its verify round
+    ("many chunks", 2000, 64, 6, 240),   # 47 assignments a warp: two walks of 32
+])
+def test_moe_gating_numbering_matches_jax(case, T, E, k, C):
+    """The fused outputs of K6's plain version -- indices, slots and kept
+    weights -- against the JAX `moe_apply`'s top_k, slot and flat_w * keep
+    on the same logits; and the kernel's split of the numbering over
+    blocks, warps and 32s (numpy) against the plain slots."""
+    rng = np.random.default_rng(T * E + k)
+    logits = (rng.standard_normal((T, E)) * 0.9).astype(np.float32)
+    if case == "one expert":
+        logits[:, 3] += 10.0
+    t_logits = _t(logits, torch.bfloat16) if case.startswith("bf16") else _t(logits)
+    logits = t_logits.float().numpy()                   # bf16 -> f32 is exact
+    w, idx, slot, kept = k6.moe_gating(t_logits, k, C)
+    assert slot.dtype == torch.int64 and kept.dtype == torch.float32
+    assert slot.shape == kept.shape == (T * k,)
+    ji, jslot, jkept, jkeep = _jax_numbering(logits, k, C)
+    np.testing.assert_array_equal(idx.numpy(), ji)
+    np.testing.assert_array_equal(slot.numpy(), jslot)
+    np.testing.assert_allclose(kept.numpy(), jkept, atol=GATE_TOL, rtol=GATE_TOL)
+    assert torch.equal(kept, w.reshape(-1) * torch.from_numpy(jkeep.copy()))
+    np.testing.assert_array_equal(_kernel_numbering(idx.numpy(), E, C), slot.numpy())
+    if case in ("drops", "one expert"):
+        assert (~jkeep).sum() > 0
+    assert k6.launches == 0
 
 
 # ------------------------------------------------------------------ MoE ---
