@@ -1,10 +1,14 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch / CUDA port (`src/repro_torch`) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed N] [--out DIR] [--profile]
+    python3 chip_smoke.py [--seed N] [--out DIR] [--profile] [--phases P,Q,...]
 
 Runs from the root of a checkout, imports nothing of JAX or of the JAX
-package, and goes through its phases, each printing one JSON line:
+package, and goes through its phases, each printing one JSON line. By
+default it runs every phase; `--phases` names some (main, spec, slab,
+draft, frontend, cascade, live, ssm, moe, kernels, reference), and each
+brings the phases it needs (`NEEDS`: every path compares with main's
+rows, kernels checks the launches the six model paths captured):
 
   device     the card's name and power limit (nvidia-smi);
   build      nvcc build of the port's CUDA kernels from the checkout's sources,
@@ -40,6 +44,33 @@ package, and goes through its phases, each printing one JSON line:
              verify rounds and the drafter's steps are reported; rows and
              ledger token columns must equal the main phase's, K1 must
              stay at 0;
+  frontend   on the cut weights, the serving tier: the query submitted at
+             once by two tenants ("gold" with weight 2, "silver") into one
+             session, whose extraction rounds go through a ServingFrontend
+             (max_prefill_chunks=2) over a ReplicaGroup of two engines
+             sharing one KV pool and one prefix cache (slots 4 each, spec
+             off: K1, K2, K3). Every ticket must end DONE, each tenant's
+             rows equal main's, both replicas decode, and once the query
+             is done the pool holds only the prefix cache's pages; the
+             tenants' TenantStats (in pump ticks) and ledgers are reported;
+  cascade    on the cut weights, benchmarks/bench_cascade.py's workload (40
+             SWDE universities and 10 laptops, its tuition/enrollment
+             query, max_new 6): target-only, cascade="verify_all" and
+             cascade="on", the cheap tier bench_cascade's one-layer cut of
+             the target config (d_model 32) with weights from --seed + 1.
+             Rows must be identical across the three and verify_all must
+             escalate every small-tier extraction; routed_small,
+             escalations and target_tokens_saved are reported;
+  live       on the cut weights, a LiveCorpus over the first LIVE_DOCS
+             legal documents with a LiveRetriever on the card and a
+             LiveSession with the spec settings and document-first
+             escalation: one query, a doc-first escalate_batch of the
+             document to delete, three one-attribute updates, the delete
+             and one ingest, then the query again. Its rows must equal a
+             fresh Session's over rebuild_reference() in the same phase,
+             the live doc index must rank as the rebuild's, and the
+             deleted document's prefix pages must be back in the pool
+             (K2, K3, K4); reembedded / edited bytes are reported;
   ssm        with the qwen2.5-3b weights freed, the same query on
              falcon-mamba-7b (Mamba1) at its published width and all 64
              layers (d_model 4096, d_inner 8192, bf16, random weights from
@@ -101,9 +132,16 @@ package, and goes through its phases, each printing one JSON line:
              cache; slab with the prefix cache; scripted drafts of which two
              of four are right, so rejected drafts roll back to a checkpoint
              past the first position) and deepseek-v2-lite-16b in
-             qwen2.5-3b's four, K6 gating on the card. Rows, ledger token
+             qwen2.5-3b's four, K6 gating on the card; and the serving
+             tier in three qwen2.5-3b modes (the frontend phase's two
+             tenants over two replicas; cascade="on" with the cheap tier;
+             one update and one delete between two queries on a live
+             corpus, with doc-first escalation). Rows, ledger token
              columns, engine (and drafter) counters and every generated
-             token must be identical across the two devices, and rows and
+             token must be identical across the two devices (for the
+             serving tier also the group, replica, frontend and tenant
+             counters, the CascadeServedStats and the live corpus's
+             counters), and rows and
              tokens identical to the model's first mode in every mode (for
              MoE rows only: capacity is set per call, so a verify round
              drops assignments a decode step does not, and tokens may
@@ -111,7 +149,8 @@ package, and goes through its phases, each printing one JSON line:
              agree across the devices.
 
 Every phase raises on a mismatch. Then it prints each phase's seconds,
-the `kernels` summary line, the nvidia-smi line, and as its last line
+the `kernels` summary line (K1-K7; empty when the kernels phase did not
+run), the nvidia-smi line, and as its last line
 {"ok": true, "device": {...}}. Any failure exits non-zero before that
 line. It needs one CUDA device and exits non-zero without one, or when
 the repository's `src/repro_torch` is not beside it.
@@ -628,6 +667,375 @@ def phase_draft(main_run, captures: dict, slab_tokens: dict) -> tuple:
     if st["spec_rounds"] <= 0 or st["draft_tokens"] <= 0:
         raise AssertionError("draft: no verify round or no draft token")
     return out, (session, extractor)
+
+
+# The frontend phase: two tenants behind the admission tier, over two
+# replicas that share one KV pool and one prefix cache.
+FRONTEND_GROUP = {"replicas": 2, "share_kv_pool": True, "prefix_cache": True,
+                  "spec_decode": "off", "slots": 4, "max_len": 1024, "chunk_size": 32,
+                  "page_size": 16}
+FRONTEND = {"tenant_weights": {"gold": 2.0}, "max_prefill_chunks": 2}
+TENANTS = ("gold", "silver")
+# The live phase runs on the first LIVE_DOCS legal documents: it serves
+# three queries (two on the live corpus, one on its rebuild) and builds two
+# indexes, so the whole corpus would cost about three main phases.
+LIVE_DOCS = 40
+
+
+def _frontend_stack(cfg, params, corpus, device, max_new):
+    """A served session whose extraction rounds go through a
+    `ServingFrontend` over a two-replica `ReplicaGroup`."""
+    from repro_torch import core
+    from repro_torch.extract import ServedExtractor
+    from repro_torch.index.retriever import TwoLevelRetriever
+    from repro_torch.serving.frontend import ServingFrontend
+    from repro_torch.serving.replicas import ReplicaGroup
+    t0 = time.perf_counter()
+    retriever = TwoLevelRetriever(corpus, device=device)
+    build_s = time.perf_counter() - t0
+    group = ReplicaGroup(cfg, params, device=device, **FRONTEND_GROUP)
+    frontend = ServingFrontend(group, **FRONTEND)
+    extractor = ServedExtractor(corpus, group, max_new=max_new, frontend=frontend)
+    return core.Session(retriever, extractor, batch_size=4), group, frontend, extractor, build_s
+
+
+def _run_tenants(session):
+    """The legal query submitted at once as each tenant; both handles are
+    driven together to their results."""
+    from repro_torch import core
+    handles = [session.submit(_legal_query(core), tenant=t) for t in TENANTS]
+    return [h.result() for h in handles]
+
+
+def _prefix_pages(prefix_cache) -> set:
+    """Page ids the prefix cache's entries hold (full pages and CoW tails)."""
+    pages = set()
+    for e in prefix_cache._entries.values():
+        pages.update(e.pages)
+        if e.tail_page is not None:
+            pages.add(e.tail_page)
+    return pages
+
+
+def phase_frontend(main_run) -> dict:
+    """The main query submitted at once by two tenants through the admission
+    frontend, over two replicas sharing one KV pool and prefix cache."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.corpus import make_legal_corpus
+    from repro_torch.serving.frontend import DONE
+
+    full_params, main_result, _ = main_run
+    cfg, params = _cut(get_config("qwen2.5-3b"), full_params)
+    corpus = make_legal_corpus(seed=1)
+    session, group, frontend, extractor, build_s = _frontend_stack(
+        cfg, params, corpus, "cuda", max_new=12)
+    _zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = _run_tenants(session)
+    torch.cuda.synchronize()
+    wall, launches = time.perf_counter() - t0, _launch_counts()
+    alloc = group.engines[0].alloc
+    held = _prefix_pages(group.prefix_cache)
+    tickets = list(frontend._tickets.values())
+    statuses = sorted({t.status for t in tickets})
+    gen_tokens = extractor.stats.generated_tokens
+    out = {"phase": "frontend", "model": cfg.name, "layers": cfg.num_layers,
+           "group_options": FRONTEND_GROUP, "frontend_options": FRONTEND,
+           "tenants": list(TENANTS),
+           "rows": {t: len(r.rows) for t, r in zip(TENANTS, results)},
+           "rows_equal_main": {t: r.rows == main_result.rows for t, r in zip(TENANTS, results)},
+           "ledger": {t: _ledger(r) for t, r in zip(TENANTS, results)},
+           "tenant_ledgers": session.tenant_costs(),
+           "tenant_stats_ticks": frontend.tenant_snapshot(),
+           # one session serves both handles: a need of silver's that gold's
+           # request already answers is not sent again
+           "requests_by_tenant": {t: frontend.tenants[t].submitted if t in frontend.tenants
+                                  else 0 for t in TENANTS},
+           "frontend": dict(frontend.stats), "tickets": len(tickets),
+           "ticket_statuses": statuses, "group": dict(group.stats),
+           "replicas": [dict(e.stats) for e in group.engines],
+           "served_requests": extractor.stats.requests, "generated_tokens": gen_tokens,
+           "index_build_s": build_s, "query_wall_s": wall,
+           "generated_tokens_per_s": gen_tokens / wall,
+           "pool_pages": alloc.num_pages, "pool_used_pages": alloc.used_pages,
+           "prefix_cache_pages": len(held), "launches": launches}
+    emit(out)
+    for t, r in zip(TENANTS, results):
+        if not r.rows or r.rows != main_result.rows:
+            raise AssertionError(f"frontend: tenant {t} got {len(r.rows)} rows, not main's "
+                                 f"{len(main_result.rows)}")
+    if not tickets or statuses != [DONE]:
+        raise AssertionError(f"frontend: tickets ended {statuses}, not all done")
+    if not all(e.alloc is alloc for e in group.engines) or \
+            not all(e.stats["decode_steps"] > 0 for e in group.engines):
+        raise AssertionError("frontend: the replicas do not share one pool, or one "
+                             "replica did no decode work")
+    if alloc.used_pages != len(held) or \
+            any(alloc.refcount[p] <= 0 for p in held):
+        raise AssertionError(f"frontend: {alloc.used_pages} pages in use once the query "
+                             f"is done, the prefix cache holds {len(held)}")
+    missing = [k for k in ("K1", "K2", "K3") if launches[k] <= 0]
+    if missing or launches["K4"] or launches["K5"]:
+        raise AssertionError(f"frontend: kernels of the path {launches}")
+    return out
+
+
+def _cascade_corpus():
+    """`benchmarks/bench_cascade.py`'s small corpus: 40 SWDE universities and
+    10 laptops."""
+    from repro_torch.data.corpus import make_swde_corpus
+    full = make_swde_corpus()
+    uni = [d for d in sorted(full.docs) if "universities" in d][:40]
+    lap = [d for d in sorted(full.docs) if "laptops" in d][:10]
+    return full.subset(uni + lap)
+
+
+def _cascade_query(core):
+    return core.Query(tables=["universities"], select=[("universities", "university_name")],
+                      where=core.conj(core.Filter("tuition", "<", 42000, table="universities"),
+                                      core.Filter("enrollment", ">", 15000,
+                                                  table="universities")))
+
+
+def _small_cfg(cfg):
+    """bench_cascade's cheap tier of the target config."""
+    return cfg.replace(num_layers=1, d_model=32, n_heads=2, n_kv_heads=2, head_dim=16,
+                       d_ff=48)
+
+
+def _cascade_session(cfg, params, small, corpus, device, mode, max_new, **engine_kw):
+    """A served session on the target alone (mode "target") or a
+    `CascadeExtractor` over the target and the small tier in `mode`."""
+    from repro_torch import core
+    from repro_torch.extract import CascadeExtractor, ServedExtractor
+    from repro_torch.index.retriever import TwoLevelRetriever
+    from repro_torch.serving import ServingEngine
+    kw = {"slots": 4, "max_len": 1024, "prefix_cache": True, "device": device, **engine_kw}
+    retriever = TwoLevelRetriever(corpus, device=device)
+    engine = ServingEngine(cfg, params, **kw)
+    small_engine = None
+    if mode == "target":
+        extractor = ServedExtractor(corpus, engine, max_new=max_new)
+    else:
+        small_engine = ServingEngine(*small, **kw)
+        extractor = CascadeExtractor(corpus, engine, small_engine, cascade=mode,
+                                     difficulty=core.DifficultyEstimator(retriever),
+                                     max_new=max_new)
+    return core.Session(retriever, extractor, batch_size=4), engine, small_engine, extractor
+
+
+def phase_cascade(seed: int, main_run) -> dict:
+    """bench_cascade's workload on the cut target and its cheap tier:
+    target-only, then cascade="verify_all", then cascade="on"."""
+    import dataclasses
+
+    import torch
+    from repro_torch import core
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params, param_count
+
+    full_params = main_run[0]
+    cfg, params = _cut(get_config("qwen2.5-3b"), full_params)
+    scfg = _small_cfg(cfg)
+    sparams = init_params(scfg, torch.Generator(device="cuda").manual_seed(seed + 1),
+                          device="cuda")
+    corpus = _cascade_corpus()
+    runs = {}
+    for mode in ("target", "verify_all", "on"):
+        session, engine, small_engine, extractor = _cascade_session(
+            cfg, params, (scfg, sparams), corpus, "cuda", mode, max_new=6)
+        _zero_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = session.execute(_cascade_query(core))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        runs[mode] = {"rows": len(result.rows), "query_wall_s": wall,
+                      "launches": _launch_counts(), "ledger": session.ledger.snapshot(),
+                      "stats": dataclasses.asdict(extractor.stats),
+                      "engine": dict(engine.stats),
+                      "small_engine": dict(small_engine.stats) if small_engine else None,
+                      "_rows": result.rows}
+    rows = {m: r.pop("_rows") for m, r in runs.items()}
+    va, on = runs["verify_all"]["stats"], runs["on"]["stats"]
+    out = {"phase": "cascade", "model": cfg.name, "layers": cfg.num_layers,
+           "small_tier": {"layers": scfg.num_layers, "d_model": scfg.d_model,
+                          "heads": scfg.n_heads, "head_dim": scfg.head_dim,
+                          "params": param_count(sparams), "seed": seed + 1},
+           "docs": len(corpus.docs), "runs": runs,
+           "rows_identical": rows["verify_all"] == rows["target"] == rows["on"],
+           "routed_small": {m: runs[m]["stats"]["routed_small"] for m in ("verify_all", "on")},
+           "escalations": {m: runs[m]["stats"]["escalations"] for m in ("verify_all", "on")},
+           "target_tokens_saved": {m: runs[m]["stats"]["target_tokens_saved"]
+                                   for m in ("verify_all", "on")}}
+    emit(out)
+    if not rows["target"] or not out["rows_identical"]:
+        raise AssertionError(f"cascade: rows differ across modes or are empty: "
+                             f"{ {m: len(r) for m, r in rows.items()} }")
+    if not va["routed_small"] or va["escalations"] != va["routed_small"] or \
+            va["accepted_small"]:
+        raise AssertionError(f"cascade: verify_all did not escalate every small-tier "
+                             f"extraction: {va}")
+    for m, r in runs.items():
+        # SWDE documents hold fewer than 256 segments, so segment searches
+        # rank in numpy; K3 runs where the difficulty estimator measures
+        # retrieval margins (the cascade modes)
+        need = ("K1", "K2") if m == "target" else ("K1", "K2", "K3")
+        missing = [k for k in need if r["launches"][k] <= 0]
+        if missing or r["launches"]["K4"]:
+            raise AssertionError(f"cascade {m}: kernels of the path {r['launches']}")
+    return out
+
+
+def _live_stack(cfg, params, corpus, device, max_new, embedder=None, **engine_kw):
+    """A `LiveSession` over a `LiveCorpus` of `corpus`, a `LiveRetriever` and
+    a served extractor with document-first escalation."""
+    from repro_torch.extract import ServedExtractor
+    from repro_torch.index.embedder import HashedEmbedder
+    from repro_torch.live import LiveCorpus, LiveRetriever, LiveSession
+    from repro_torch.serving import ServingEngine
+    live = LiveCorpus(corpus)
+    t0 = time.perf_counter()
+    retriever = LiveRetriever(live, embedder=embedder or HashedEmbedder(device=device),
+                              device=device)
+    build_s = time.perf_counter() - t0
+    kw = {"slots": 4, "max_len": 1024, "page_size": 16, "chunk_size": 32, "device": device,
+          **engine_kw}
+    engine = ServingEngine(cfg, params, **kw)
+    extractor = ServedExtractor(live, engine, max_new=max_new, doc_prefix_escalation=True)
+    session = LiveSession(live, retriever, extractor, batch_size=4)
+    return live, retriever, engine, extractor, session, kw, build_s
+
+
+def _count_escalations(extractor) -> list:
+    """Wrap the extractor's `escalate_batch` to count its calls and items."""
+    seen = [0, 0]
+    run = extractor.escalate_batch
+
+    def counted(items, owners=None):
+        seen[0] += 1
+        seen[1] += len(items)
+        return run(items, owners)
+    extractor.escalate_batch = counted
+    return seen
+
+
+def _live_oracle(cfg, params, live, retriever, device, max_new, engine_kw, query):
+    """A fresh session over the rebuilt corpus and index: the rows a
+    from-scratch build gives at this mutation point."""
+    from repro_torch import core
+    from repro_torch.extract import ServedExtractor
+    from repro_torch.serving import ServingEngine
+    snap = live.snapshot()
+    engine = ServingEngine(cfg, params, **engine_kw)
+    session = core.Session(retriever.rebuild_reference(snap),
+                           ServedExtractor(snap, engine, max_new=max_new,
+                                           doc_prefix_escalation=True), batch_size=4)
+    return session.execute(query), engine
+
+
+def phase_live(main_run) -> dict:
+    """Mutations between two queries on a live legal corpus with the spec
+    settings and document-first escalation, against a rebuild."""
+    import dataclasses
+
+    import torch
+    from repro_torch import core
+    from repro_torch.configs import get_config
+    from repro_torch.data.corpus import make_legal_corpus
+    from repro_torch.live import render_edit
+
+    full_params = main_run[0]
+    cfg, params = _cut(get_config("qwen2.5-3b"), full_params)
+    full = make_legal_corpus(seed=1)
+    ids = sorted(full.docs)[:LIVE_DOCS]
+    live, retriever, engine, extractor, session, kw, build_s = _live_stack(
+        cfg, params, full.subset(ids), "cuda", 12, **SPEC)
+    escalations = _count_escalations(extractor)
+    query = _legal_query(core)
+    _zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    first = session.execute(query)
+    torch.cuda.synchronize()
+    wall1 = time.perf_counter() - t0
+    # the document to delete escalates two attributes document-first, so
+    # the prefix cache holds pages tagged with it
+    gone = ids[1]
+    text = live.docs[gone].text[:600]
+    extractor.escalate_batch([(gone, "year", [text]), (gone, "charges", [text])])
+    alloc, pc = engine.alloc, engine.prefix_cache
+    tagged = [e for e in pc._entries.values() if gone in e.doc_ids]
+    refs = {}
+    for e in tagged:
+        for p in list(e.pages) + ([e.tail_page] if e.tail_page is not None else []):
+            refs[p] = refs.get(p, 0) + 1
+    own = {p for p, n in refs.items() if alloc.refcount[p] == n}
+    free_before = alloc.free_pages
+    # three one-attribute edits that move rows of the query (year >= 2015
+    # and charges > 3): 2019 -> 2012, 3 -> 7 charges, 2016 -> 2011
+    emb = retriever.embedder
+    emb.reset_counters()
+    session.update(ids[0], render_edit(live, ids[0], "year", 2012))
+    session.update(ids[2], render_edit(live, ids[2], "charges", 7))
+    session.update(ids[3], render_edit(live, ids[3], "year", 2011))
+    edited, reembedded = live.stats.edited_bytes, emb.reembedded_bytes
+    session.delete(gone)
+    freed = alloc.free_pages - free_before
+    session.ingest("legal/cases/live-000", full.docs[sorted(full.docs)[LIVE_DOCS]].text,
+                   "cases")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    second = session.execute(query)
+    torch.cuda.synchronize()
+    wall2 = time.perf_counter() - t0
+    launches = _launch_counts()
+    oracle, _ = _live_oracle(cfg, params, live, retriever, "cuda", 12, kw, query)
+    probe = emb.embed_one("judgment delivered charges indictment")
+    (live_ids, live_d), = retriever.doc_index.search(probe, k=10)
+    ref = retriever.rebuild_reference()
+    (ref_ids, ref_d), = ref.doc_index.search(probe, k=10)
+    stats = live.stats
+    out = {"phase": "live", "model": cfg.name, "layers": cfg.num_layers,
+           "engine_options": SPEC, "docs": LIVE_DOCS, "docs_note":
+           f"the first {LIVE_DOCS} of the legal corpus's 100 documents",
+           "mutations": {"updates": stats.updates, "deletes": stats.deletes,
+                         "ingests": stats.ingests},
+           "rows": [len(first.rows), len(second.rows)], "rows_oracle": len(oracle.rows),
+           "rows_equal_oracle": sorted(second.rows, key=repr) == sorted(oracle.rows, key=repr),
+           "ledger": [_ledger(first), _ledger(second)], "engine": dict(engine.stats),
+           "prefix_cache": pc.stats.snapshot(), "live_stats": dict(session.live_stats),
+           "invalidation": dataclasses.asdict(session.cascade.stats),
+           "escalate_batch": {"calls": escalations[0], "items": escalations[1]},
+           "deleted_doc_pages": len(own), "pages_freed_by_delete": freed,
+           "updates_edited_bytes": edited, "updates_reembedded_bytes": reembedded,
+           "updates_reembedded_over_edited": reembedded / max(edited, 1),
+           "edited_bytes": stats.edited_bytes, "reembedded_bytes": emb.reembedded_bytes,
+           "reembedded_over_edited": emb.reembedded_bytes / max(stats.edited_bytes, 1),
+           "doc_search_ids_equal": live_ids == ref_ids,
+           "doc_search_max_dist_diff": max((abs(a - b) for a, b in zip(live_d, ref_d)),
+                                           default=0.0),
+           "index_build_s": build_s, "query_wall_s": [wall1, wall2],
+           "launches": launches}
+    emit(out)
+    if not second.rows or not out["rows_equal_oracle"]:
+        raise AssertionError(f"live: {len(second.rows)} rows after the mutations, the "
+                             f"rebuild gives {len(oracle.rows)} different ones")
+    if not out["doc_search_ids_equal"]:
+        raise AssertionError(f"live: the live doc index ranks {live_ids}, the rebuild "
+                             f"{ref_ids}")
+    if not own or freed < len(own) or tagged and any(gone in e.doc_ids
+                                                     for e in pc._entries.values()):
+        raise AssertionError(f"live: the deleted document's {len(own)} prefix pages were "
+                             f"not returned ({freed} freed)")
+    if escalations[0] <= 0:
+        raise AssertionError("live: no escalate_batch ran")
+    missing = [k for k in ("K2", "K3", "K4") if launches[k] <= 0]
+    if missing or launches["K1"] or launches["K5"]:
+        raise AssertionError(f"live: kernels of the path {launches}")
+    return out
 
 
 def phase_ssm(seed: int, captures: dict, main_result) -> tuple:
@@ -1693,6 +2101,73 @@ class _Scripted:
         return out
 
 
+def _tier_modes(seed: int, corpus, device) -> dict:
+    """The serving tier's three reference modes on one device, SMOKE
+    qwen2.5-3b (vocab lm_data.VOCAB, float32, weights from --seed on the
+    CPU): the two-tenant frontend over two replicas; cascade="on" with
+    bench_cascade's cheap tier from --seed + 1; and one update and one
+    delete between two queries on a live corpus, with the spec settings,
+    document-first escalation and one explicit doc-first escalation of
+    the document deleted. Returns what each mode served and counted."""
+    import dataclasses
+
+    import torch
+    from repro_torch import core
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import lm_data
+    from repro_torch.live import render_edit
+    from repro_torch.models import init_params
+
+    cfg = get_smoke_config("qwen2.5-3b").replace(vocab_size=lm_data.VOCAB)
+    params = _to(init_params(cfg, torch.Generator().manual_seed(seed), device="cpu"), device)
+    out = {}
+
+    session, group, frontend, extractor, _ = _frontend_stack(cfg, params, corpus, device, 6)
+    results = _run_tenants(session)
+    out["frontend"] = ([r.rows for r in results], [_ledger(r) for r in results],
+                       session.tenant_costs(), dict(group.stats),
+                       [dict(e.stats) for e in group.engines], dict(frontend.stats),
+                       frontend.tenant_snapshot(), dataclasses.asdict(extractor.stats),
+                       {r: q.out for r, q in group.finished.items()})
+
+    scfg = _small_cfg(cfg)
+    sparams = _to(init_params(scfg, torch.Generator().manual_seed(seed + 1), device="cpu"),
+                  device)
+    session, engine, small_engine, extractor = _cascade_session(
+        cfg, params, (scfg, sparams), corpus, device, "on", max_new=6, page_size=16,
+        chunk_size=32)
+    res = session.execute(_legal_query(core))
+    out["cascade_on"] = (res.rows, session.ledger.snapshot(),
+                         dataclasses.asdict(extractor.stats), dict(engine.stats),
+                         dict(small_engine.stats),
+                         {r: q.out for r, q in engine.finished.items()},
+                         {r: q.out for r, q in small_engine.finished.items()})
+
+    ids = sorted(corpus.docs)
+    live_corpus = corpus.subset(ids)
+    live_corpus.docs = {d: type(doc)(doc.doc_id, doc.domain, doc.text, dict(doc.truth),
+                                     dict(doc.spans), doc.tokens, version=doc.version,
+                                     sha=doc.sha)
+                        for d, doc in live_corpus.docs.items()}
+    live, retriever, engine, extractor, session, _, _ = _live_stack(
+        cfg, params, live_corpus, device, 6, **SPEC)
+    first = session.execute(_legal_query(core))
+    session.update(ids[0], render_edit(live, ids[0], "year", 2012))
+    text = live.docs[ids[1]].text[:400]
+    escalated = extractor.escalate_batch([(ids[1], "year", [text]),
+                                          (ids[1], "charges", [text])])
+    free_before = engine.alloc.free_pages
+    session.delete(ids[1])
+    freed = engine.alloc.free_pages - free_before
+    second = session.execute(_legal_query(core))
+    out["live"] = ([first.rows, second.rows], [_ledger(first), _ledger(second)],
+                   dict(engine.stats), engine.prefix_cache.stats.snapshot(),
+                   dict(session.live_stats), dataclasses.asdict(session.cascade.stats),
+                   live.stats.snapshot(), escalated, freed,
+                   {r: q.out for r, q in engine.finished.items()})
+    return out
+
+
 def phase_reference(seed: int) -> dict:
     """The served path at a small size, card against the CPU's plain path:
     qwen2.5-3b in four modes (off, prompt lookup with the prefix cache, the
@@ -1749,8 +2224,10 @@ def phase_reference(seed: int) -> dict:
                 if "ssm" in engine.cache:
                     states[arch, mode, device] = {k: engine.cache[k].cpu()
                                                   for k in ("conv", "ssm")}
+    tier = {device: _tier_modes(seed, corpus, device) for device in ("cuda", "cpu")}
     keys = [(arch, mode) for arch, modes in models.items() for mode in modes]
     same = {f"{a}/{m}": runs[a, m, "cuda"] == runs[a, m, "cpu"] for a, m in keys}
+    same.update({f"qwen2.5-3b/{m}": tier["cuda"][m] == tier["cpu"][m] for m in tier["cpu"]})
     # rows and tokens equal the off mode's; for MoE rows only: capacity is
     # set per call, so a verify round of 20 tokens drops assignments that a
     # decode step of 4 never does, and tokens may differ by mode (as in the
@@ -1774,12 +2251,31 @@ def phase_reference(seed: int) -> dict:
            "state_max_abs_err": state_err, "state_tol": STATE_TOL, "engine": st,
            "drafter": {a: runs[a, "draft", "cuda"][6] for a in models if "draft" in models[a]},
            "k6_launches": {f"{a}/{m}/{dev}": gating[a, m, dev] for a, m in keys
-                           for dev in ("cuda", "cpu") if gating[a, m, dev]}}
+                           for dev in ("cuda", "cpu") if gating[a, m, dev]},
+           "serving_tier": {
+               "frontend_rows": [len(r) for r in tier["cpu"]["frontend"][0]],
+               "frontend_group": tier["cuda"]["frontend"][3],
+               "frontend_tenants_ticks": tier["cuda"]["frontend"][6],
+               "cascade_on_rows": len(tier["cpu"]["cascade_on"][0]),
+               "cascade_on_stats": tier["cuda"]["cascade_on"][2],
+               "live_rows": [len(r) for r in tier["cpu"]["live"][0]],
+               "live_stats": tier["cuda"]["live"][4],
+               "live_pages_freed_by_delete": tier["cuda"]["live"][8]}}
     emit(out)
     if not all(same.values()) or not all(runs[a, "off", "cpu"][0] for a in models):
         raise AssertionError(f"the card's served query differs from the CPU reference: {same}")
     if not all(invariant.values()):
         raise AssertionError(f"rows or tokens differ from the plain mode: {invariant}")
+    fe_rows = tier["cpu"]["frontend"][0]
+    if not fe_rows[0] or fe_rows[0] != fe_rows[1] or \
+            fe_rows[0] != runs["qwen2.5-3b", "off", "cpu"][0]:
+        raise AssertionError("the two tenants' rows differ from each other or from the "
+                             "plain mode's")
+    if tier["cpu"]["cascade_on"][0] != runs["qwen2.5-3b", "off", "cpu"][0]:
+        raise AssertionError("cascade='on' changed the rows of the plain mode")
+    if not tier["cpu"]["live"][0][1] or tier["cpu"]["live"][8] <= 0:
+        raise AssertionError("the live mode's second query returned no rows or the delete "
+                             "returned no prefix page")
     if not all(e <= STATE_TOL for e in state_err.values()):
         raise AssertionError(f"the card's recurrent state differs from the CPU's: {state_err}")
     for arch in models:
@@ -1815,13 +2311,42 @@ def _to(tree, device):
     return tree.to(device)
 
 
+# every phase, in the order they run; the device and build phases always run
+PHASES = ("main", "spec", "slab", "draft", "frontend", "cascade", "live", "ssm", "moe",
+          "kernels", "reference")
+# the phases whose results a phase reads: the qwen2.5-3b paths and the
+# ssm and moe phases compare with main's rows, draft with slab's tokens,
+# and kernels checks the launches those paths captured
+NEEDS = {**{p: ("main",) for p in ("spec", "slab", "frontend", "cascade", "live", "ssm",
+                                   "moe")},
+         "draft": ("main", "slab"), "kernels": ("main", "spec", "slab", "draft", "ssm", "moe")}
+
+
+def _phases(arg: str) -> set:
+    """The named phases and every phase they need."""
+    named = {p.strip() for p in arg.split(",") if p.strip()}
+    unknown = named - set(PHASES)
+    if unknown or not named:
+        raise ValueError(f"unknown phases {sorted(unknown)}; choose from {', '.join(PHASES)}")
+    for p in list(named):
+        named.update(NEEDS.get(p, ()))
+    return named
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0, help="weights seed")
     ap.add_argument("--out", default=None, help="directory for the full report")
     ap.add_argument("--profile", action="store_true",
                     help="also profile one extraction round of every path")
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help="comma list of phases to run, of " + ", ".join(PHASES) +
+                    " (default: all); a phase brings the phases it needs")
     args = ap.parse_args()
+    try:
+        phases = _phases(args.phases)
+    except ValueError as e:
+        ap.error(str(e))
     t_start = time.perf_counter()
 
     import torch
@@ -1867,49 +2392,69 @@ def main() -> int:
             now = time.perf_counter()
             seconds[name] = now - clock[0]
             clock[0] = now
-        report["main"], served, main_run = phase_main(args.seed, captures)
-        lap("main")
-        report["spec"], served_spec = phase_spec(main_run, captures)
-        lap("spec")
-        report["slab"], served_slab, slab_tokens = phase_slab(main_run, captures)
-        lap("slab")
-        report["draft"], served_draft = phase_draft(main_run, captures, slab_tokens)
-        lap("draft")
-        if args.profile:
-            for path, served_path in (("main", served), ("spec", served_spec),
-                                      ("slab", served_slab), ("draft", served_draft)):
+        served = {}
+        if "main" in phases:
+            report["main"], served["main"], main_run = phase_main(args.seed, captures)
+            lap("main")
+        if "spec" in phases:
+            report["spec"], served["spec"] = phase_spec(main_run, captures)
+            lap("spec")
+        slab_tokens = {}
+        if "slab" in phases:
+            report["slab"], served["slab"], slab_tokens = phase_slab(main_run, captures)
+            lap("slab")
+        if "draft" in phases:
+            report["draft"], served["draft"] = phase_draft(main_run, captures, slab_tokens)
+            lap("draft")
+        if args.profile and served:
+            for path, served_path in served.items():
                 key = "profile" if path == "main" else f"profile_{path}"
                 report[key] = phase_profile(*served_path, args.out, path)
             lap("profile")
-        main_result = main_run[1]
+        served.clear()
+        # the serving tier's phases, on the cut qwen2.5-3b weights (not profiled)
+        if "frontend" in phases:
+            report["frontend"] = phase_frontend(main_run)
+            lap("frontend")
+        if "cascade" in phases:
+            report["cascade"] = phase_cascade(args.seed, main_run)
+            lap("cascade")
+        if "live" in phases:
+            report["live"] = phase_live(main_run)
+            lap("live")
+        main_result = main_run[1] if "main" in phases else None
         # free the qwen2.5-3b weights and engines before falcon-mamba-7b's
-        del main_run, served, served_spec, served_slab, served_draft
+        main_run = None
         torch.cuda.empty_cache()
-        report["ssm"], served_ssm = phase_ssm(args.seed, captures, main_result)
-        lap("ssm")
-        if args.profile:
-            report["profile_ssm"] = phase_profile(*served_ssm, args.out, "ssm")
-            lap("profile_ssm")
-        # free the falcon-mamba-7b weights before deepseek-v2-lite-16b's
-        del served_ssm
-        torch.cuda.empty_cache()
-        report["moe"], served_moe = phase_moe(args.seed, captures, main_result)
-        lap("moe")
-        if args.profile:
-            report["profile_moe"] = phase_profile(*served_moe, args.out, "moe")
-            lap("profile_moe")
-        del served_moe
-        torch.cuda.empty_cache()
-        launches = {**report["main"]["launches"], "K4": report["spec"]["launches"]["K4"],
-                    "K5": report["draft"]["launches"]["K5"],
-                    "K5_slab": report["slab"]["launches"]["K5"],
-                    "K2_slab": report["slab"]["launches"]["K2"],
-                    "K6": report["moe"]["launches"]["K6"],
-                    "K7": report["ssm"]["launches"]["K7"]}
-        report["kernels"] = phase_kernels(captures, launches)
-        lap("kernels")
-        report["reference"] = phase_reference(args.seed)
-        lap("reference")
+        if "ssm" in phases:
+            report["ssm"], served_ssm = phase_ssm(args.seed, captures, main_result)
+            lap("ssm")
+            if args.profile:
+                report["profile_ssm"] = phase_profile(*served_ssm, args.out, "ssm")
+                lap("profile_ssm")
+            # free the falcon-mamba-7b weights before deepseek-v2-lite-16b's
+            del served_ssm
+            torch.cuda.empty_cache()
+        if "moe" in phases:
+            report["moe"], served_moe = phase_moe(args.seed, captures, main_result)
+            lap("moe")
+            if args.profile:
+                report["profile_moe"] = phase_profile(*served_moe, args.out, "moe")
+                lap("profile_moe")
+            del served_moe
+            torch.cuda.empty_cache()
+        if "kernels" in phases:
+            launches = {**report["main"]["launches"], "K4": report["spec"]["launches"]["K4"],
+                        "K5": report["draft"]["launches"]["K5"],
+                        "K5_slab": report["slab"]["launches"]["K5"],
+                        "K2_slab": report["slab"]["launches"]["K2"],
+                        "K6": report["moe"]["launches"]["K6"],
+                        "K7": report["ssm"]["launches"]["K7"]}
+            report["kernels"] = phase_kernels(captures, launches)
+            lap("kernels")
+        if "reference" in phases:
+            report["reference"] = phase_reference(args.seed)
+            lap("reference")
         seconds["total"] = time.perf_counter() - t_start
         report["seconds"] = {"phase": "seconds", **seconds}
         emit(report["seconds"])
@@ -1929,7 +2474,7 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "tol",
             "ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "device_ms", "library_device_ms")
-    emit({"kernels": [{k: r.get(k) for k in keys} for r in report["kernels"]]})
+    emit({"kernels": [{k: r.get(k) for k in keys} for r in report.get("kernels", [])]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

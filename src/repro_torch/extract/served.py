@@ -58,8 +58,11 @@ class ServedExtractor:
     def __init__(self, corpus, engine: ServingEngine, *, max_new: int = 12,
                  oracle_fallback: bool = True, frontend=None,
                  doc_prefix_escalation: bool = False):
-        """frontend: the admission frontend of the JAX package
-        (`serving/frontend.py`) is not ported yet; it must be None.
+        """frontend: optional `serving.frontend.ServingFrontend` fronting
+        `engine`. When set, every extraction round routes through its
+        admission queue (per-tenant fair share, page-headroom backpressure)
+        instead of submitting straight to the engine — rows stay
+        byte-identical, scheduling policy changes.
 
         doc_prefix_escalation: lay full-document escalation prompts
         document-first (the document text is the shareable prefix, the
@@ -68,11 +71,9 @@ class ServedExtractor:
         text, so a live-corpus mutation of the doc invalidates them
         (DESIGN.md §17) — which is exactly why the default template-first
         layout keeps its prefix entries mutation-immune."""
-        if frontend is not None:
-            raise NotImplementedError(
-                "frontend= is not yet ported, see ROADMAP.md Queue 1")
         self.corpus = corpus
         self.engine = engine
+        self.frontend = frontend
         self.max_new = max_new
         self.oracle_fallback = oracle_fallback
         self.doc_prefix_escalation = doc_prefix_escalation
@@ -121,10 +122,33 @@ class ServedExtractor:
                                       else len(prefix)) if content_docs
                                      else None)
 
+    def _run_round_frontend(self, reqs: list) -> dict:
+        """Admission-tier round: requests queue under their tenants' fair
+        share and the frontend pumps the engine until they resolve. A shed
+        or failed extraction raises visibly — the session layer never
+        mistakes backpressure for an empty answer."""
+        tickets = [self.frontend.submit(req=req, tenant=req.tenant,
+                                        priority=req.priority)
+                   for req in reqs]
+        self.frontend.wait_all(tickets)
+        outs = {}
+        for t in tickets:
+            if t.status != "done":
+                raise RuntimeError(
+                    f"extraction request {t.rid} {t.status}"
+                    f"{f' ({t.shed_reason})' if t.shed_reason else ''}: "
+                    f"{t.req.error or 'no result'}")
+            self.stats.generated_tokens += len(t.req.out)
+            outs[t.rid] = lm_data.decode(t.req.out)
+        self.stats.batches += 1
+        self.stats.max_batch = max(self.stats.max_batch, len(reqs))
+        return outs
+
     def _run_round(self, reqs: list) -> dict:
         """Submit N requests, drain with one continuous-batching run per
         admission window (the engine's queue_depth, when set, bounds how
-        many requests may be queued at once)."""
+        many requests may be queued at once). With a frontend attached the
+        window is its admission queue instead."""
         outs = {}
         es = self.engine.stats
         tracer = as_tracer(getattr(self.engine, "tracer", None))
@@ -132,7 +156,11 @@ class ServedExtractor:
         spec0 = (es["draft_tokens"], es["accepted_tokens"],
                  es["decode_steps_saved"])
         with tracer.span("extract.round", kind="extract", reqs=len(reqs),
-                         frontend=False):
+                         frontend=self.frontend is not None):
+            if self.frontend is not None:
+                outs = self._run_round_frontend(reqs)
+                self._note_round_deltas(es, hits0, saved0, spec0)
+                return outs
             window = self.engine.queue_depth or len(reqs)
             for i in range(0, len(reqs), max(window, 1)):
                 chunk = reqs[i:i + max(window, 1)]

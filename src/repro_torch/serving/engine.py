@@ -57,8 +57,13 @@ The engine's counters keep the JAX formulas, so `stats` are identical
 between the two packages. Requests, slots, the insert coroutines that
 interleave prefill with decode, `drain_slot` (bounded retries), `cancel`,
 `poll` and the strict `run()` (`RunTruncated`) follow the JAX engine one
-for one. Mesh serving and shared page allocators are not ported yet and
-raise NotImplementedError.
+for one, as do `free_slots`, `estimate_pages` and `pool_free_pages`, the
+non-blocking surface the admission frontend (`serving/frontend.py`)
+schedules against. Engines of a replica group (`serving/replicas.py`)
+share one `PageAllocator` (`page_allocator=`): every page reference
+(`retain`/`release`) goes to that one pool, while each engine keeps its own
+page tables and positions. Mesh serving is not ported yet and raises
+NotImplementedError.
 """
 from __future__ import annotations
 
@@ -162,16 +167,16 @@ class ServingEngine:
         draft_model: (ModelConfig, params) of the draft model, required for
         spec_decode="draft" (dense/moe family, same vocab; the port runs a
         dense or an MLA MoE draft); its params must live on `device`.
+        page_allocator: a `PageAllocator` shared with other engines (a
+        replica group's one KV pool) in place of the engine's own; its page
+        size must be `page_size` and its pools must live on `device`.
         device: where the KV and the model run (None = the CUDA device);
         `params` must already live there.
-        mesh and page_allocator are the JAX engine's options that are not
-        ported yet."""
+        mesh is the JAX engine's option that is not ported yet."""
         if kv_layout not in ("paged", "slab"):
             raise ValueError(f"kv_layout must be 'paged' or 'slab', got {kv_layout!r}")
         if mesh is not None:
             raise NotImplementedError(f"mesh serving is {_NOT_PORTED}")
-        if page_allocator is not None:
-            raise NotImplementedError(f"a shared page_allocator is {_NOT_PORTED}")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.params = params
@@ -243,16 +248,30 @@ class ServingEngine:
                                    device=self.device)
         self.slot_pages: list = [[] for _ in range(slots)]   # empty for slab
         self._ckpts = None          # Mamba1 verify checkpoints, made once
+        # context positions ahead of the prompt (the JAX engine's image or
+        # audio prefix); none of the ported families has one
+        self._extra = 0
 
         if self.paged:
             if max_len % self.page_size:
                 raise ValueError(
                     f"max_len={max_len} must be a multiple of page_size={page_size}")
             self.pages_per_slot = max_len // self.page_size
-            if num_pages is None:
-                num_pages = (slots + 4) * self.pages_per_slot + 1
-            self.alloc = PageAllocator(cfg, num_pages, self.page_size,
-                                       device=self.device)
+            if page_allocator is not None:
+                assert page_allocator.page_size == self.page_size, (
+                    f"shared allocator page_size={page_allocator.page_size} "
+                    f"!= engine page_size={self.page_size}")
+                here = torch.empty(0, device=self.device).device
+                assert all(a.device == here for a in page_allocator.pools.values()), (
+                    f"shared allocator pools live on "
+                    f"{sorted({str(a.device) for a in page_allocator.pools.values()})}, "
+                    f"not on the engine's {here}")
+                self.alloc = page_allocator   # shared pool: replica groups
+            else:
+                if num_pages is None:
+                    num_pages = (slots + 4) * self.pages_per_slot + 1
+                self.alloc = PageAllocator(cfg, num_pages, self.page_size,
+                                           device=self.device)
 
     # ------------------------------------------------------------ intake --
 
@@ -853,14 +872,27 @@ class ServingEngine:
                 return s
         return None
 
+    @property
+    def free_slots(self) -> int:
+        return self.slots - len(self.active) - len(self._inserting)
+
     def estimate_pages(self, prompt_len: int, max_new: int) -> int:
         """Pages the paged insert will demand up front for a prompt of this
         shape (0 for the slab layout and for Mamba1) -- the admission
-        headroom check of the JAX package's frontend."""
+        headroom check `serving/frontend.py` gates on."""
         if not (self.paged and self.alloc.pools):
             return 0
-        cap = min(prompt_len if self.spec else prompt_len + max_new, self.max_len)
+        total = self._extra + prompt_len
+        cap = min(total if self.spec else total + max_new, self.max_len)
         return -(-cap // self.page_size)
+
+    def pool_free_pages(self) -> Optional[int]:
+        """Free pages in the KV pool (None off-paged and for Mamba1) --
+        interface shared with `ReplicaGroup` so the frontend gates either
+        uniformly."""
+        if not (self.paged and self.alloc.pools):
+            return None
+        return self.alloc.free_pages
 
     def _advance_insert(self, slot: int, req: Request, gen, budget):
         """Drive one insert coroutine until it completes or `budget`

@@ -1,6 +1,7 @@
 """Package rules of the port: importing `repro_torch` and every one of its
 modules loads no `jax` and no module of the JAX package `repro`; the
-jax-free modules it keeps as copies stay verbatim copies; the config
+jax-free modules it keeps as copies stay verbatim copies, and those copied
+with named edits differ from their originals in those lines only; the config
 registry serves qwen2.5-3b, falcon-mamba-7b and deepseek-v2-lite-16b and
 refuses the families not yet ported."""
 import os
@@ -24,7 +25,52 @@ COPIES = ["core/__init__.py", "core/difficulty.py", "core/executor.py",
           "index/segmenter.py", "extract/oracle.py", "models/config.py",
           "configs/qwen2_5_3b.py", "configs/falcon_mamba_7b.py",
           "configs/deepseek_v2_lite_16b.py",
-          "serving/prefix_cache.py"]
+          "serving/prefix_cache.py", "serving/frontend.py",
+          "extract/cascade.py", "extract/__init__.py",
+          "live/__init__.py", "live/log.py", "live/corpus.py",
+          "live/invalidate.py", "live/session.py"]
+
+# modules copied with a few named lines changed: (JAX lines dropped, port
+# lines added), import rewrites aside
+EDITED = {
+    "serving/costs.py": (
+        ["PEAK_FLOPS = 197e12      # bf16 / chip",
+         "HBM_BW = 819e9           # bytes/s / chip"],
+        ["# published dense peaks of one H100 SXM: bf16 flop/s and HBM bytes/s",
+         "PEAK_FLOPS = 989e12      # bf16 / card",
+         "HBM_BW = 3.35e12         # bytes/s / card"]),
+    "serving/replicas.py": (
+        ["import jax", "",
+         "                 share_kv_pool: bool = True, **engine_kwargs):",
+         "            shared_alloc = PageAllocator(cfg, num_pages, page_size)",
+         "            if mesh is not None:",
+         "                shared_alloc.shard_pools(mesh)",
+         "        if mesh is not None:",
+         "            # shard once; each engine's device_put of already-sharded",
+         "            # params is then a no-op instead of R host->device transfers",
+         "            from repro.distributed.sharding import param_shardings",
+         "            params = jax.device_put(params,",
+         "                                    param_shardings(cfg, params, mesh))",
+         "                **engine_kwargs)"],
+        ["                 share_kv_pool: bool = True, device=None, **engine_kwargs):",
+         "        device: where the shared pool and every replica run (None = the",
+         "        CUDA device). mesh= is not ported yet and raises.",
+         "        if mesh is not None:",
+         "            raise NotImplementedError(",
+         "                \"mesh serving is not yet ported, see ROADMAP.md Queue 1\")",
+         "            shared_alloc = PageAllocator(cfg, num_pages, page_size,",
+         "                                         device=device)",
+         "                device=device, **engine_kwargs)"]),
+    "live/index.py": (
+        ["    clone = HashedEmbedder(dim=base.dim)",
+         "    clone._proj = base._proj           # immutable device array: share",
+         "        cached = CachedEmbedder(embedder)",
+         "            refit_idf=False)"],
+        ["    clone = HashedEmbedder(dim=base.dim, device=base.device)",
+         "    clone._proj = base._proj           # never written in place: share",
+         "        cached = CachedEmbedder(embedder or HashedEmbedder(device=kwargs.get(\"device\")))",
+         "            refit_idf=False, device=self.device)"]),
+}
 
 
 def _modules():
@@ -61,6 +107,28 @@ def test_copied_modules_stay_verbatim(rel):
             stripped = b.lstrip()
             assert stripped.startswith(("from repro.", "import repro.")), (rel, b)
             assert a == b.replace("repro.", "repro_torch.", 1), (rel, a)
+
+
+@pytest.mark.parametrize("rel", sorted(EDITED))
+def test_edited_copies_differ_only_in_named_lines(rel):
+    """A copy with named edits: after the `repro.` -> `repro_torch.` import
+    rewrite, the lines it drops from the JAX original and the lines it adds
+    are exactly the named ones, in order."""
+    import difflib
+    ours = (PORT / rel).read_text().splitlines()
+    theirs = []
+    for b in (SRC / "repro" / rel).read_text().splitlines():
+        if b.lstrip().startswith(("from repro.", "import repro.")) and \
+                "distributed" not in b:
+            b = b.replace("repro.", "repro_torch.", 1)
+        theirs.append(b)
+    dropped, added = [], []
+    for op, i1, i2, j1, j2 in difflib.SequenceMatcher(
+            None, theirs, ours, autojunk=False).get_opcodes():
+        if op != "equal":
+            dropped += theirs[i1:i2]
+            added += ours[j1:j2]
+    assert (dropped, added) == (EDITED[rel][0], EDITED[rel][1])
 
 
 def test_config_registry():

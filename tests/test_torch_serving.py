@@ -134,12 +134,8 @@ def test_served_mini_swde_query_identical(weights):
 
 def test_unported_options_raise(weights):
     _, _, tcfg, tparams, _ = weights
-    for kw in ({"mesh": object()}, {"page_allocator": object()}):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
-            ServingEngine(tcfg, tparams, device="cpu", **kw)
-    eng = ServingEngine(tcfg, tparams, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
-        ServedExtractor(_legal(tcorpus, 1), eng, frontend=object())
+        ServingEngine(tcfg, tparams, device="cpu", mesh=object())
 
 
 def test_engine_lifecycle(weights):
