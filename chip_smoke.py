@@ -6,9 +6,10 @@
 Runs from the root of a checkout, imports nothing of JAX or of the JAX
 package, and goes through its phases, each printing one JSON line. By
 default it runs every phase; `--phases` names some (main, spec, slab,
-draft, frontend, cascade, live, ssm, moe, kernels, reference), and each
-brings the phases it needs (`NEEDS`: every path compares with main's
-rows, kernels checks the launches the six model paths captured):
+draft, frontend, cascade, live, ssm, moe, vlm, dense_family, kernels,
+reference), and each brings the phases it needs (`NEEDS`: the paths on
+the legal corpus's 100 documents compare with main's rows, kernels checks
+the launches the seven model paths captured):
 
   device     the card's name and power limit (nvidia-smi);
   build      nvcc build of the port's CUDA kernels from the checkout's sources,
@@ -72,11 +73,12 @@ rows, kernels checks the launches the six model paths captured):
              deleted document's prefix pages must be back in the pool
              (K2, K3, K4); reembedded / edited bytes are reported;
   ssm        with the qwen2.5-3b weights freed, the same query on
-             falcon-mamba-7b (Mamba1) at its published width and all 64
-             layers (d_model 4096, d_inner 8192, bf16, random weights from
-             --seed), with the spec phase's served settings and
-             chunk_size=128: every prompt chunk and every verify round runs
-             the selective scan through K7 (64 launches a forward), verify
+             falcon-mamba-7b (Mamba1) at its published width, cut to its
+             first SSM_LAYERS = 32 of 64 layers (d_model 4096, d_inner 8192,
+             bf16, random weights from --seed), with the spec phase's served
+             settings and chunk_size=128: every prompt chunk and every
+             verify round runs the selective scan through K7 (one launch a
+             layer a forward), verify
              rounds keep per-position state checkpoints and roll rejected
              drafts back from them, prefix entries carry the recurrent
              state. Rows and the ledger's input tokens must equal the main
@@ -84,23 +86,47 @@ rows, kernels checks the launches the six model paths captured):
              elsewhere); K1, K2, K4, K5 and K6 must stay at 0;
   moe        with the falcon-mamba-7b weights freed, the same query on
              deepseek-v2-lite-16b (MLA attention + MoE, 15.7B parameters)
-             at its published width and all 27 layers (d_model 2048, 64
-             routed experts of which 6 a token, bf16, random weights from
-             --seed), with the ssm phase's settings: every prompt chunk and
-             verify round gates each of its 26 MoE layers through K6; MLA
+             at its published width, cut to its first MOE_LAYERS = 14 of 27
+             layers (d_model 2048, 64 routed experts of which 6 a token,
+             bf16, random weights from --seed), with the ssm phase's
+             settings: every prompt chunk and verify round gates each of
+             its 13 MoE layers through K6; MLA
              attends the compressed ckv/krope pool in plain PyTorch, as the
              JAX package does. Rows and the ledger's input tokens must equal
-             the main phase's; K6 = 26 x (chunks + verify rounds); K1, K2,
+             the main phase's; K6 = 13 x (chunks + verify rounds); K1, K2,
              K4, K5 and K7 must stay at 0;
+  vlm        with the deepseek-v2-lite-16b weights freed, the query on the
+             first VLM_DOCS = 40 legal documents on llava-next-mistral-7b
+             (a Mistral-7B decoder behind a 2,880-position image prefix,
+             7.26B parameters) at its published width and all 32 layers
+             (d_model 4096, 32 heads over 8 KV heads, bf16, random weights
+             from --seed), with the ssm phase's settings and max_len
+             VLM_MAX_LEN: every prompt's first chunk carries the projected
+             image rows ahead of its 128 text positions (K2 at C = 3,008
+             from position 0), prefix entries hold image and text pages,
+             and every verify round attends ~3,000-4,000 keys (K4). Rows
+             and the ledger's input tokens must equal SMOKE qwen2.5-3b's on
+             the same documents; K1, K5, K6 and K7 must stay at 0;
+  dense_family  with the llava weights freed, qwen3-32b (qk-norm),
+             nemotron-4-15b (ungated squared-ReLU MLP, 48 heads over 8:
+             GQA group 6) and deepseek-67b at their published widths, each
+             cut to its first DENSE_LAYERS layers (only the cut is drawn;
+             the full count comes from the meta device), each serving the
+             query on the reference phase's 20 documents with the spec
+             settings. Rows must equal SMOKE qwen2.5-3b's on the same
+             documents; K2, K3 and K4 must launch and K1 must stay at 0;
   kernels    every kernel of those paths (K1 paged decode attention, K2
              paged chunk-prefill attention, K3 L2 top-k, K4 paged verify
              attention, K5 dense-cache decode attention, K6 MoE gating, K7
              selective scan) on the inputs of one of its real launches (K6
              and K7: a prefill chunk and a verify round; K2 also the slab
-             phase's largest whole-prompt launch; K1 also its captured
+             phase's largest whole-prompt launch and the vlm phase's first
+             chunk with the image prefix, K4 also a vlm verify round; K1
+             also its captured
              launch with every length at the full table; K4 in the engine's
              layout and as a contiguous input), plus edge cases (K1, K2, K4
-             and K5: ~50 each in bf16 and float32, `_paged_edges`; K3 12
+             and K5: ~50-65 each in bf16 and float32, `_paged_edges`,
+             GQA group 6 and the new configs' head counts among them; K3 12
              shapes, N up to 16,384 and exact ties; K6 16, with the capacity
              numbering; K7 11 shapes in both dtypes), held against its plain
              PyTorch version (K3's indices where the distances are unique,
@@ -117,7 +143,7 @@ rows, kernels checks the launches the six model paths captured):
              since events over back-to-back calls read the host's call
              rate;
   profile    (only with --profile) torch.profiler over one extraction round
-             of each path (main, spec, slab, draft, ssm, moe): device busy
+             of each path (main, spec, slab, draft, ssm, moe, vlm): device busy
              share, device time by kernel group; on the ssm and moe paths
              also the round's forwards and device kernels a forward; on the
              moe path the device time of MLA attention and of the expert
@@ -131,8 +157,13 @@ rows, kernels checks the launches the six model paths captured):
              falcon-mamba-7b in four (off; prompt lookup with the prefix
              cache; slab with the prefix cache; scripted drafts of which two
              of four are right, so rejected drafts roll back to a checkpoint
-             past the first position) and deepseek-v2-lite-16b in
-             qwen2.5-3b's four, K6 gating on the card; and the serving
+             past the first position), deepseek-v2-lite-16b in
+             qwen2.5-3b's four, K6 gating on the card, llava-next-mistral-7b
+             in three (off; prompt lookup with the prefix cache; slab with
+             the prefix cache: the image prefix through every layout),
+             qwen3-32b (random q/k-norm weights), nemotron-4-15b and
+             deepseek-67b with prompt lookup and the prefix cache (these six
+             on the first REF_NEW_DOCS = 10 documents); and the serving
              tier in three qwen2.5-3b modes (the frontend phase's two
              tenants over two replicas; cascade="on" with the cheap tier;
              one update and one delete between two queries on a live
@@ -145,8 +176,9 @@ rows, kernels checks the launches the six model paths captured):
              tokens identical to the model's first mode in every mode (for
              MoE rows only: capacity is set per call, so a verify round
              drops assignments a decode step does not, and tokens may
-             differ by mode); falcon-mamba-7b's recurrent state must also
-             agree across the devices.
+             differ by mode; the dense family's one mode: rows equal
+             llava's first mode's on the same documents); falcon-mamba-7b's
+             recurrent state must also agree across the devices.
 
 Every phase raises on a mismatch. Then it prints each phase's seconds,
 the `kernels` summary line (K1-K7; empty when the kernels phase did not
@@ -393,19 +425,39 @@ SLAB = {"kv_layout": "slab"}
 # when the moe phase and its reference modes came in (1,223 s with
 # --profile, slab and draft still at 36 layers).
 MAIN_LAYERS = 12
-# The ssm and moe phases feed prompts in 128-token chunks: at 64 and 27
-# layers their walls follow the number of forwards, and each chunk gives K7
-# a real sequence and K6 a real batch of tokens.
+# The ssm and moe phases feed prompts in 128-token chunks: their walls
+# follow the number of forwards, and each chunk gives K7 a real sequence and
+# K6 a real batch of tokens.
 DEEP_CHUNK = 128
+# With the vlm and dense_family phases and six more reference modes the
+# whole command took 1,360 s with --profile on one H100 80GB HBM3,
+# so these were cut, in this order: the new reference modes run on the
+# first REF_NEW_DOCS legal documents, the vlm phase on the first VLM_DOCS,
+# and falcon-mamba-7b and deepseek-v2-lite-16b run their first SSM_LAYERS
+# of 64 and MOE_LAYERS of 27 layers at full width (drawn whole, then cut).
+REF_NEW_DOCS = 10
+VLM_DOCS = 40
+SSM_LAYERS = 32
+MOE_LAYERS = 14
+# The vlm phase's cache bound: llava's 2,880 image positions, the longest
+# legal prompt and max_new fit in 4,096 positions (256 pages of 16).
+VLM_MAX_LEN = 4096
+# The dense_family phase's configs, each cut to its first DENSE_LAYERS
+# layers at full width: deepseek-67b whole (134.9 GB in bf16) does not fit
+# one card, and three whole models would not fit the time limit.
+DENSE_FAMILY = ("qwen3-32b", "nemotron-4-15b", "deepseek-67b")
+DENSE_LAYERS = 4
 
 
-def _cut(cfg, params):
-    """The published config and weights cut to their first MAIN_LAYERS."""
-    return (cfg.replace(num_layers=MAIN_LAYERS),
-            {**params, "layers": params["layers"][:MAIN_LAYERS]})
+def _cut(cfg, params, n: int = MAIN_LAYERS):
+    """The published config and weights cut to their first n layers (the
+    moe family's dense layers first)."""
+    nd = len(params.get("dense_layers", []))
+    return cfg.replace(num_layers=n), {**params, "layers": params["layers"][:n - nd]}
 
 
-def _served_query(cfg, params, corpus, device, max_new, chunk_size=32, **engine_kw):
+def _served_query(cfg, params, corpus, device, max_new, chunk_size=32, max_len=1024,
+                  **engine_kw):
     from repro_torch import core
     from repro_torch.extract import ServedExtractor
     from repro_torch.index.retriever import TwoLevelRetriever
@@ -413,7 +465,7 @@ def _served_query(cfg, params, corpus, device, max_new, chunk_size=32, **engine_
     t0 = time.perf_counter()
     retriever = TwoLevelRetriever(corpus, device=device)
     build_s = time.perf_counter() - t0
-    engine = ServingEngine(cfg, params, slots=4, max_len=1024, page_size=16,
+    engine = ServingEngine(cfg, params, slots=4, max_len=max_len, page_size=16,
                            chunk_size=chunk_size, device=device, **engine_kw)
     extractor = ServedExtractor(corpus, engine, max_new=max_new)
     session = core.Session(retriever, extractor, batch_size=4)
@@ -1039,20 +1091,22 @@ def phase_live(main_run) -> dict:
 
 
 def phase_ssm(seed: int, captures: dict, main_result) -> tuple:
-    """The main query on falcon-mamba-7b at full width and depth with the
-    served settings (prefix cache, prompt lookup) and 128-token chunks."""
+    """The main query on falcon-mamba-7b at full width, its first
+    SSM_LAYERS layers, with the served settings (prefix cache, prompt
+    lookup) and 128-token chunks."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.data.corpus import make_legal_corpus
     from repro_torch.kernels import ssm_scan as k7
     from repro_torch.models import init_params, param_count
 
-    cfg = get_config("falcon-mamba-7b")
+    full_cfg = get_config("falcon-mamba-7b")
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    params = init_params(cfg, gen, device="cuda")
+    full_params = init_params(full_cfg, gen, device="cuda")
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
+    cfg, params = _cut(full_cfg, full_params, SSM_LAYERS)
     corpus = make_legal_corpus(seed=1)
     session, engine, extractor, build_s = _served_query(
         cfg, params, corpus, "cuda", max_new=12, chunk_size=DEEP_CHUNK, **SPEC)
@@ -1073,8 +1127,10 @@ def phase_ssm(seed: int, captures: dict, main_result) -> tuple:
     st = engine.stats
     gen_tokens = extractor.stats.generated_tokens
     out = {"phase": "ssm", "model": cfg.name, "layers": cfg.num_layers,
+           "layers_published": full_cfg.num_layers,
            "d_model": cfg.d_model, "d_inner": cfg.d_inner, "ssm_state": cfg.ssm_state,
            "dtype": cfg.dtype, "params": param_count(params),
+           "params_published": param_count(full_params),
            "engine_options": {**SPEC, "chunk_size": DEEP_CHUNK},
            "rows": len(result.rows), "rows_main": len(main_result.rows),
            "rows_equal_main": result.rows == main_result.rows, "ledger": _ledger(result),
@@ -1106,22 +1162,24 @@ def phase_ssm(seed: int, captures: dict, main_result) -> tuple:
 
 
 def phase_moe(seed: int, captures: dict, main_result) -> tuple:
-    """The main query on deepseek-v2-lite-16b (MLA + MoE) at full width and
-    depth with the served settings (prefix cache, prompt lookup) and
-    128-token chunks: every forward gates each of its 26 MoE layers through
-    K6, and MLA attends the compressed pool in plain PyTorch."""
+    """The main query on deepseek-v2-lite-16b (MLA + MoE) at full width,
+    its first MOE_LAYERS layers, with the served settings (prefix cache,
+    prompt lookup) and 128-token chunks: every forward gates each of its
+    MoE layers through K6, and MLA attends the compressed pool in plain
+    PyTorch."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.data.corpus import make_legal_corpus
     from repro_torch.kernels import moe_gating as k6
     from repro_torch.models import init_params, param_count
 
-    cfg = get_config("deepseek-v2-lite-16b")
+    full_cfg = get_config("deepseek-v2-lite-16b")
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    params = init_params(cfg, gen, device="cuda")
+    full_params = init_params(full_cfg, gen, device="cuda")
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
+    cfg, params = _cut(full_cfg, full_params, MOE_LAYERS)
     corpus = make_legal_corpus(seed=1)
     session, engine, extractor, build_s = _served_query(
         cfg, params, corpus, "cuda", max_new=12, chunk_size=DEEP_CHUNK, **SPEC)
@@ -1142,9 +1200,10 @@ def phase_moe(seed: int, captures: dict, main_result) -> tuple:
     gen_tokens = extractor.stats.generated_tokens
     n_moe = len(params["layers"])
     out = {"phase": "moe", "model": cfg.name, "layers": cfg.num_layers, "moe_layers": n_moe,
+           "layers_published": full_cfg.num_layers,
            "d_model": cfg.d_model, "experts": cfg.n_experts, "top_k": cfg.moe_top_k,
            "kv_lora_rank": cfg.kv_lora_rank, "dtype": cfg.dtype,
-           "params": param_count(params),
+           "params": param_count(params), "params_published": param_count(full_params),
            "engine_options": {**SPEC, "chunk_size": DEEP_CHUNK},
            "rows": len(result.rows), "rows_main": len(main_result.rows),
            "rows_equal_main": result.rows == main_result.rows, "ledger": _ledger(result),
@@ -1156,8 +1215,9 @@ def phase_moe(seed: int, captures: dict, main_result) -> tuple:
            "accepted": st["accepted_tokens"], "prefix_hits": st["prefix_hits"],
            "kv_bytes_peak": st["kv_bytes_peak"], "launches": launches}
     emit(out)
-    if out["params"] != 15_706_484_224:
-        raise AssertionError(f"moe: {out['params']} parameters, not deepseek-v2-lite-16b's")
+    if out["params_published"] != 15_706_484_224:
+        raise AssertionError(f"moe: {out['params_published']} parameters, not "
+                             f"deepseek-v2-lite-16b's")
     if not result.rows or result.rows != main_result.rows:
         raise AssertionError(f"moe: {len(result.rows)} rows, not the main phase's "
                              f"{len(main_result.rows)}")
@@ -1175,6 +1235,156 @@ def phase_moe(seed: int, captures: dict, main_result) -> tuple:
     if st["prefix_hits"] <= 0:
         raise AssertionError("moe: no prefix hit")
     return out, (session, extractor)
+
+
+def phase_vlm(seed: int, captures: dict) -> tuple:
+    """The query on the first VLM_DOCS legal documents on
+    llava-next-mistral-7b at full width and depth with the served settings
+    (prefix cache, prompt lookup), 128-token chunks and VLM_MAX_LEN: every
+    prompt's first chunk carries the 2,880 projected image rows; the
+    decoder's attention runs K2 and K4 on the pool. Rows and ledger input
+    tokens must equal SMOKE qwen2.5-3b's on the same documents."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.corpus import make_legal_corpus
+    from repro_torch.kernels import flash_attention as k2
+    from repro_torch.kernels import verify_attention as k4
+    from repro_torch.models import init_params, param_count
+
+    cfg = get_config("llava-next-mistral-7b")
+    n_img = cfg.n_image_tokens
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = init_params(cfg, gen, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    full = make_legal_corpus(seed=1)
+    corpus = full.subset(sorted(full.docs)[:VLM_DOCS])
+    want = _smoke_result(seed, corpus, "cuda")
+    session, engine, extractor, build_s = _served_query(
+        cfg, params, corpus, "cuda", max_new=12, chunk_size=DEEP_CHUNK,
+        max_len=VLM_MAX_LEN, **SPEC)
+    # K2 at a first chunk (the image rows and DEEP_CHUNK text positions
+    # from position 0), K4 at its widest verify round (starts past the
+    # image prefix); neither size reads the card
+    captures["K2_vlm"] = Capture(
+        k2, "chunk_prefill_attention",
+        lambda q, kp, vp, ctx, start: 1 if start == 0 and q.shape[0] == DEEP_CHUNK + n_img
+        else -1)
+    captures["K4_vlm"] = Capture(k4, "paged_verify_attention",
+                                 lambda q, kp, vp, tbl, starts: tbl.shape[1] * q.shape[0])
+    result, wall, launches = _timed_query(session)
+    captures["K2_vlm"].restore()
+    captures["K4_vlm"].restore()
+    if captures["K2_vlm"].args is None or captures["K4_vlm"].args is None:
+        raise AssertionError("vlm: K2 captured no first chunk or K4 no verify round")
+    k4_starts = captures["K4_vlm"].args[4]
+    st = engine.stats
+    gen_tokens = extractor.stats.generated_tokens
+    out = {"phase": "vlm", "model": cfg.name, "layers": cfg.num_layers,
+           "d_model": cfg.d_model, "heads": cfg.n_heads, "kv_heads": cfg.n_kv_heads,
+           "image_tokens": n_img, "dtype": cfg.dtype, "params": param_count(params),
+           "engine_options": {**SPEC, "chunk_size": DEEP_CHUNK, "max_len": VLM_MAX_LEN},
+           "docs": len(corpus.docs), "rows": len(result.rows),
+           "rows_smoke_qwen2.5-3b": len(want.rows), "rows_equal_smoke": result.rows == want.rows,
+           "ledger": _ledger(result),
+           "engine": dict(st), "served_requests": extractor.stats.requests,
+           "generated_tokens": gen_tokens, "weights_init_s": init_s,
+           "index_build_s": build_s, "query_wall_s": wall,
+           "generated_tokens_per_s": gen_tokens / wall,
+           "verify_rounds": st["spec_rounds"], "drafted": st["draft_tokens"],
+           "accepted": st["accepted_tokens"], "prefix_hits": st["prefix_hits"],
+           "kv_bytes_peak": st["kv_bytes_peak"], "launches": launches,
+           "k2_image_chunk": list(captures["K2_vlm"].args[0].shape),
+           "k4_captured_starts": k4_starts.tolist()}
+    emit(out)
+    if not result.rows or result.rows != want.rows:
+        raise AssertionError(f"vlm: {len(result.rows)} rows, not SMOKE qwen2.5-3b's "
+                             f"{len(want.rows)}")
+    if result.ledger.input_tokens != want.ledger.input_tokens:
+        raise AssertionError(f"vlm: ledger input_tokens {result.ledger.input_tokens} != "
+                             f"SMOKE qwen2.5-3b's {want.ledger.input_tokens}")
+    stray = {k: launches[k] for k in ("K1", "K5", "K6", "K7") if launches[k]}
+    if stray or not all(launches[k] for k in ("K2", "K3", "K4")):
+        raise AssertionError(f"vlm: K1/K5/K6/K7 launched or K2/K3/K4 did not: {launches}")
+    if int(k4_starts.max()) <= n_img:
+        raise AssertionError(f"vlm: the captured verify round starts at {k4_starts.tolist()}, "
+                             f"not past the {n_img} image positions")
+    if st["prefix_hits"] <= 0 or st["spec_rounds"] <= 0:
+        raise AssertionError("vlm: no prefix hit or no verify round")
+    return out, (session, extractor)
+
+
+def _smoke_result(seed: int, corpus, device):
+    """The query's result on SMOKE qwen2.5-3b (float32, weights from --seed
+    on the CPU), speculation and the prefix cache off: its rows and ledger
+    input tokens are what any model's are on `corpus` (answers that do not
+    parse fall back to the corpus oracle, ServedExtractor)."""
+    import torch
+    from repro_torch import core
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import lm_data
+    from repro_torch.models import init_params
+    cfg = get_smoke_config("qwen2.5-3b").replace(vocab_size=lm_data.VOCAB)
+    params = _to(init_params(cfg, torch.Generator().manual_seed(seed), device="cpu"), device)
+    session, _, _, _ = _served_query(cfg, params, corpus, device, max_new=12)
+    return session.prepare(_legal_query(core)).submit().result()
+
+
+def phase_dense_family(seed: int) -> dict:
+    """The query on qwen3-32b, nemotron-4-15b and deepseek-67b at their
+    published widths, each cut to its first DENSE_LAYERS layers, with the
+    served settings, on the reference phase's 20 legal documents."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.corpus import make_legal_corpus
+    from repro_torch.models import init_params, param_count
+
+    full = make_legal_corpus(seed=1)
+    corpus = full.subset(sorted(full.docs)[:20])
+    want = _smoke_result(seed, corpus, "cuda")
+    out = {"phase": "dense_family", "docs": len(corpus.docs), "layers": DENSE_LAYERS,
+           "engine_options": SPEC, "rows_smoke_qwen2.5-3b": len(want.rows), "models": {}}
+    for arch in DENSE_FAMILY:
+        full_cfg = get_config(arch)
+        cfg = full_cfg.replace(num_layers=DENSE_LAYERS)
+        t0 = time.perf_counter()
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        params = init_params(cfg, gen, device="cuda")
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        session, engine, extractor, build_s = _served_query(
+            cfg, params, corpus, "cuda", max_new=12, **SPEC)
+        result, wall, launches = _timed_query(session)
+        st = engine.stats
+        gen_tokens = extractor.stats.generated_tokens
+        row = {"layers_published": full_cfg.num_layers, "d_model": cfg.d_model,
+               "heads": cfg.n_heads, "kv_heads": cfg.n_kv_heads, "d_ff": cfg.d_ff,
+               "qk_norm": cfg.qk_norm, "gated_mlp": cfg.gated_mlp,
+               "activation": cfg.activation, "dtype": cfg.dtype,
+               "params": param_count(params),
+               "params_published": param_count(init_params(full_cfg, device="meta")),
+               "rows": len(result.rows), "rows_equal_smoke": result.rows == want.rows,
+               "ledger": _ledger(result), "engine": dict(st),
+               "served_requests": extractor.stats.requests,
+               "generated_tokens": gen_tokens, "weights_init_s": init_s,
+               "index_build_s": build_s, "query_wall_s": wall,
+               "generated_tokens_per_s": gen_tokens / wall, "launches": launches}
+        out["models"][arch] = row
+        emit({"phase": "dense_family", "model": arch, **row})
+        if not result.rows or result.rows != want.rows or \
+                result.ledger.input_tokens != want.ledger.input_tokens:
+            raise AssertionError(f"{arch}: {len(result.rows)} rows and "
+                                 f"{result.ledger.input_tokens} input tokens, not SMOKE "
+                                 f"qwen2.5-3b's {len(want.rows)} and "
+                                 f"{want.ledger.input_tokens}")
+        if launches["K1"] or not all(launches[k] for k in ("K2", "K3", "K4")):
+            raise AssertionError(f"{arch}: K1 launched or K2/K3/K4 did not: {launches}")
+        if st["prefix_hits"] <= 0 or st["spec_rounds"] <= 0:
+            raise AssertionError(f"{arch}: no prefix hit or no verify round")
+        del session, engine, extractor, params
+        torch.cuda.empty_cache()
+    return out
 
 
 class _Spans:
@@ -1247,7 +1457,8 @@ def phase_profile(session, extractor, out_dir, path: str) -> dict:
     count_by_group = dict.fromkeys(by_group, 0)
     by_span = {}
     launches = 0
-    for e in prof.key_averages():
+    events = prof.key_averages()                   # aggregated once: it is slow
+    for e in events:
         if e.key in _Spans.NAMES:                  # the span's kernels, summed; its
             if e.device_type != DeviceType.CUDA:   # device-side row is its extent
                 by_span[e.key] = getattr(e, "device_time_total", None) or e.cuda_time_total
@@ -1280,11 +1491,10 @@ def phase_profile(session, extractor, out_dir, path: str) -> dict:
     emit(out)
     if out_dir:
         Path(out_dir).mkdir(parents=True, exist_ok=True)
-        ev = prof.key_averages()
-        key = "self_device_time_total" if ev and hasattr(ev[0], "self_device_time_total") \
-            else "self_cuda_time_total"
+        key = "self_device_time_total" if events and \
+            hasattr(events[0], "self_device_time_total") else "self_cuda_time_total"
         (Path(out_dir) / f"profile_table_{path}.txt").write_text(
-            ev.table(sort_by=key, row_limit=40))
+            events.table(sort_by=key, row_limit=40))
     if busy <= 0:
         raise AssertionError("the profiler saw no device time")
     return out
@@ -1298,7 +1508,7 @@ def phase_kernels(captures: dict, launches: dict) -> list:
     rows += _kernel_k2(captures, launches, edges)
 
     rows.append(_kernel_k3(captures, launches))
-    rows.append(_kernel_k4(captures, launches, edges))
+    rows += _kernel_k4(captures, launches, edges)
     rows.append(_kernel_k5(captures, launches, edges))
     rows.append(_kernel_k6(captures, launches))
     rows.append(_kernel_k7(captures, launches))
@@ -1418,8 +1628,14 @@ def _paged_edges() -> tuple:
     start 0 and a random start. K5: G = 1, 2, 8, 32 x D = 32, 64, 128, 256
     (G x D up to 8,192, twice the old kernel's limit) x S = 64, 700, 1,000
     (not multiples of the 64-position key tile among them), lengths 1, S, S
-    + 1 and 0 (whose zeros are asserted). Returns ({(kernel, dtype): max
-    error}, {kernel: number of cases})."""
+    + 1 and 0 (whose zeros are asserted). Then, at D = 128, GQA group 6
+    (H 12 over 2 KV heads: the first group that is not a power of two, so
+    query rows c * G + g straddle the 16-row MMA tiles; K1 and K2 at every
+    ps of the grid, K4 at C = 1, 3, 5, K5 at every S) and the dense
+    family's head counts at ps 16 (K5: S 700 and 1,000): H 48 over 8
+    (nemotron-4-15b), 64 over 8 (qwen3-32b, deepseek-67b) and 32 over 8
+    (llava-next-mistral-7b). Returns ({(kernel, dtype): max error},
+    {kernel: number of cases})."""
     import torch
     from repro_torch.kernels import decode_attention as k1
     from repro_torch.kernels import flash_attention as k2
@@ -1447,6 +1663,17 @@ def _paged_edges() -> tuple:
     # (B, H, Hkv, D, S)
     k5_cases = [(4, 2 * G, 2, D, S) for G in (1, 2, 8, 32) for D in (32, 64, 128, 256)
                 for S in (64, 700, 1000)]
+    # GQA group 6 at every page size of the grid, and the dense family's heads
+    heads = [(12, 2, ps) for ps in (8, 16, 32, 256)] + \
+        [(H, 8, 16) for H in (48, 64, 32)]
+    k1_cases += [(4, H, Hkv, 128, 4 * max(2, 512 // ps) + 3, ps, max(2, 512 // ps))
+                 for H, Hkv, ps in heads]
+    k2_cases += [(37, H, Hkv, 128, ps, (ps + ps // 2 + 1 + 37) // ps + 2, ps + ps // 2 + 1,
+                  False) for H, Hkv, ps in heads]
+    k4_cases += [(4, H, Hkv, C, 128, 4 * 32 + 3, 16, 32)
+                 for H, Hkv in ((12, 2), (48, 8), (64, 8), (32, 8)) for C in (1, 3, 5)]
+    k5_cases += [(4, 12, 2, 128, S) for S in (64, 700, 1000)] + \
+        [(4, H, 8, 128, S) for H in (48, 64, 32) for S in (700, 1000)]
     errs = {}
 
     def note(kernel, name, err):
@@ -1621,10 +1848,11 @@ def _k2_row(q, kp, vp, ctx, start, launches: int, variant: str) -> dict:
 
 
 def _kernel_k2(captures: dict, launches: dict, edges: tuple) -> list:
-    """K2 at its captured main-path chunk (the latest start) and at the slab
-    path's largest whole-prompt launch, with `_paged_edges`' K2 cases and,
-    on the captured pools in float32, the first chunk of the sequence
-    (start = 0)."""
+    """K2 at its captured main-path chunk (the latest start), at the slab
+    path's largest whole-prompt launch and at the vlm path's first chunk
+    (the image rows and 128 text positions from position 0), with
+    `_paged_edges`' K2 cases and, on the captured pools in float32, the
+    first chunk of the sequence (start = 0)."""
     from repro_torch.kernels import flash_attention as k2
     q, kp, vp, ctx, start = captures["K2"].args
     q32, kp32, vp32 = q.float(), kp.float(), vp.float()
@@ -1632,42 +1860,59 @@ def _kernel_k2(captures: dict, launches: dict, edges: tuple) -> list:
                    k2.chunk_prefill_attention_plain(q32, kp32, vp32, ctx, 0))
     chunk = _k2_row(q, kp, vp, ctx, start, launches["K2"], "")
     return [_with_edges(chunk, "K2", edges, edge),
-            _k2_row(*captures["K2_slab"].args, launches["K2_slab"], " [slab]")]
+            _k2_row(*captures["K2_slab"].args, launches["K2_slab"], " [slab]"),
+            _k2_row(*captures["K2_vlm"].args, launches["K2_vlm"], " [llava image chunk]")]
 
 
-def _kernel_k4(captures: dict, launches: dict, edges: tuple) -> dict:
-    """K4 at its captured spec-path launch, in the engine's layout (a
-    transposed view of a (B, C, H, D) tensor, which the wrapper reads
-    without a copy) and as a contiguous (B, H, C, D) input, with
-    `_paged_edges`' K4 cases and, on the captured pools, a start whose
-    candidates cross a page, a dead all-sink row at a stale start and start
-    0 (float32), and the captured launch cut to C = 1 and C = 3 (both
-    dtypes)."""
-    import torch
-    import torch.nn.functional as F
+def _k4_err(q, kp, vp, tbl, starts) -> float:
     from repro_torch.kernels import verify_attention as k4
+    return max_err(k4.paged_verify_attention(q, kp, vp, tbl, starts),
+                   k4.paged_verify_attention_plain(q, kp, vp, tbl, starts))
+
+
+def _kernel_k4(captures: dict, launches: dict, edges: tuple) -> list:
+    """K4 at its captured spec-path launch and at the vlm path's widest
+    verify round (starts past the image prefix), each in the engine's
+    layout (a transposed view of a (B, C, H, D) tensor, which the wrapper
+    reads without a copy) and as a contiguous (B, H, C, D) input, with
+    `_paged_edges`' K4 cases and, on the spec path's captured pools, a start
+    whose candidates cross a page, a dead all-sink row at a stale start and
+    start 0 (float32), and the captured launch cut to C = 1 and C = 3 (both
+    dtypes)."""
     q, kp, vp, tbl, starts = captures["K4"].args
     q = q.transpose(1, 2).contiguous().transpose(1, 2)    # the engine's layout
-    qc = q.contiguous()
-    dt = str(q.dtype).removeprefix("torch.")
-
-    def err(q_, kp_, vp_, tbl_, st_):
-        return max_err(k4.paged_verify_attention(q_, kp_, vp_, tbl_, st_),
-                       k4.paged_verify_attention_plain(q_, kp_, vp_, tbl_, st_))
     q32, kp32, vp32 = q.float(), kp.float(), vp.float()
     B, H, C, D = q.shape
-    Hkv, ps = kp.shape[2], kp.shape[1]
-    nb = tbl.shape[1]
+    ps, nb = kp.shape[1], tbl.shape[1]
     tbl_e, st_e = tbl.clone(), starts.clone()
     st_e[0] = ps - C // 2 - 1 + ps * (nb // 2 - 1)
     tbl_e[1 % B] = 0
     st_e[1 % B] = nb * ps * 3
     st_e[-1] = 0
-    edge = err(q32, kp32, vp32, tbl_e, st_e)
+    edge = _k4_err(q32, kp32, vp32, tbl_e, st_e)
     edge_bf16 = 0.0
     for c in (1, 3):
-        edge = max(edge, err(q32[:, :, :c], kp32, vp32, tbl, starts))
-        edge_bf16 = max(edge_bf16, err(q[:, :, :c], kp, vp, tbl, starts))
+        edge = max(edge, _k4_err(q32[:, :, :c], kp32, vp32, tbl, starts))
+        edge_bf16 = max(edge_bf16, _k4_err(q[:, :, :c], kp, vp, tbl, starts))
+    row = _with_edges(_k4_row(captures["K4"].args, launches["K4"], ""), "K4", edges, edge)
+    row["max_abs_err_edge_bf16"] = max(row["max_abs_err_edge_bf16"], edge_bf16)
+    return [row, _k4_row(captures["K4_vlm"].args, launches["K4_vlm"], " [llava]")]
+
+
+def _k4_row(args, launches: int, variant: str) -> dict:
+    """K4 at one captured launch, as `_k1_row`, with the error of a
+    contiguous copy of q beside the engine's layout."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import verify_attention as k4
+    q, kp, vp, tbl, starts = args
+    q = q.transpose(1, 2).contiguous().transpose(1, 2)    # the engine's layout
+    qc = q.contiguous()
+    dt = str(q.dtype).removeprefix("torch.")
+    q32, kp32, vp32 = q.float(), kp.float(), vp.float()
+    B, H, C, D = q.shape
+    Hkv, ps = kp.shape[2], kp.shape[1]
+    nb = tbl.shape[1]
     vis = torch.clamp(starts.long() + C, max=nb * ps)
     pairs = int(sum(torch.clamp(starts.long() + c + 1, max=nb * ps).sum() for c in range(C)))
     nbytes = (2 * int(vis.sum()) * Hkv * D + 2 * B * H * C * D) * q.element_size() \
@@ -1685,17 +1930,18 @@ def _kernel_k4(captures: dict, launches: dict, edges: tuple) -> dict:
 
     def library():
         return F.scaled_dot_product_attention(q, kg, vg, attn_mask=mask)
-    row = dict(
-        name="paged_verify_attention", route="cuda",
+    return dict(
+        name="paged_verify_attention" + variant, route="cuda",
         source="src/repro_torch/kernels/csrc/paged_verify_attention.cu",
         core="src/repro_torch/kernels/csrc/paged_attention.cuh",
         replaces="src/repro/kernels/decode_attention.py:185",
-        launches=launches["K4"],
+        launches=launches,
         shape=f"q{tuple(q.shape)} (a view of (B, C, H, D)) table{tuple(tbl.shape)} "
               f"starts {starts.tolist()} {dt}",
-        max_abs_err=err(q, kp, vp, tbl, starts), tol=TOL[dt],
-        max_abs_err_contiguous=err(qc, kp, vp, tbl, starts),
-        max_abs_err_float32=err(q32, kp32, vp32, tbl, starts), tol_float32=TOL["float32"],
+        max_abs_err=_k4_err(q, kp, vp, tbl, starts), tol=TOL[dt],
+        max_abs_err_contiguous=_k4_err(qc, kp, vp, tbl, starts),
+        max_abs_err_float32=_k4_err(q32, kp32, vp32, tbl, starts),
+        tol_float32=TOL["float32"],
         ms=cuda_ms(kernel),
         plain_ms=cuda_ms(lambda: k4.paged_verify_attention_plain(q, kp, vp, tbl, starts)),
         library_ms=cuda_ms(library),
@@ -1704,9 +1950,6 @@ def _kernel_k4(captures: dict, launches: dict, edges: tuple) -> dict:
         library_call="F.scaled_dot_product_attention over a pre-gathered view "
                      "with the per-candidate causal mask",
         bound_ms=b_ms, bound_by=b_by)
-    row = _with_edges(row, "K4", edges, edge)
-    row["max_abs_err_edge_bf16"] = max(row["max_abs_err_edge_bf16"], edge_bf16)
-    return row
 
 
 def _kernel_k5(captures: dict, launches: dict, edges: tuple) -> dict:
@@ -2174,9 +2417,13 @@ def phase_reference(seed: int) -> dict:
     slab layout with the prefix cache, self-drafting), falcon-mamba-7b
     in four (off, prompt lookup with the prefix cache, slab with the prefix
     cache, and scripted drafts that accept two of four, so that rejected
-    drafts roll back to a checkpoint past the first position) and
+    drafts roll back to a checkpoint past the first position),
     deepseek-v2-lite-16b in four (qwen2.5-3b's modes; K6 gates every MoE
-    layer on the card).
+    layer on the card), llava-next-mistral-7b in three (off, prompt lookup
+    with the prefix cache, slab with the prefix cache: the image prefix
+    through each layout) and qwen3-32b (random q/k-norm weights: ones would
+    hide a norm on the wrong axis), nemotron-4-15b and deepseek-67b with
+    prompt lookup and the prefix cache.
     Falcon-mamba-7b's per-slot recurrent state after the query must
     also agree across the devices to STATE_TOL: with random SMOKE weights
     the skip path D * x dominates each block, so its tokens alone say little
@@ -2191,6 +2438,7 @@ def phase_reference(seed: int) -> dict:
 
     full = make_legal_corpus(seed=1)
     corpus = full.subset(sorted(full.docs)[:20])
+    small = full.subset(sorted(full.docs)[:REF_NEW_DOCS])     # the newest modes'
     models = {"qwen2.5-3b": {"off": {}, "spec": SPEC, "slab": {**SLAB, "prefix_cache": True},
                              "draft": {"spec_decode": "draft", "spec_k": 4}},
               "falcon-mamba-7b": {"off": {}, "spec": SPEC,
@@ -2198,20 +2446,32 @@ def phase_reference(seed: int) -> dict:
                                   "rollback": {"prefix_cache": True, "spec_k": 4}},
               "deepseek-v2-lite-16b": {"off": {}, "spec": SPEC,
                                        "slab": {**SLAB, "prefix_cache": True},
-                                       "draft": {"spec_decode": "draft", "spec_k": 4}}}
-    runs, states, gating = {}, {}, {}
+                                       "draft": {"spec_decode": "draft", "spec_k": 4}},
+              "llava-next-mistral-7b": {"off": {}, "spec": SPEC,
+                                        "slab": {**SLAB, "prefix_cache": True}},
+              **{arch: {"spec": SPEC} for arch in DENSE_FAMILY}}
+    docs = {arch: small if arch == "llava-next-mistral-7b" or arch in DENSE_FAMILY else corpus
+            for arch in models}
+    runs, states, gating, seconds = {}, {}, {}, {}
     for arch, modes in models.items():
         cfg = get_smoke_config(arch).replace(vocab_size=lm_data.VOCAB)
-        cpu_params = init_params(cfg, torch.Generator().manual_seed(seed), device="cpu")
+        gen = torch.Generator().manual_seed(seed)
+        cpu_params = init_params(cfg, gen, device="cpu")
+        if cfg.qk_norm:
+            for lp in cpu_params["layers"]:
+                for name in ("q_norm", "k_norm"):
+                    lp["attn"][name] = 1 + 0.5 * torch.randn(lp["attn"][name].shape,
+                                                             generator=gen)
         for mode, engine_kw in modes.items():
             for device in ("cuda", "cpu"):
+                t0 = time.perf_counter()
                 params = _to(cpu_params, device)
                 if mode == "draft":
                     engine_kw = {**engine_kw, "draft_model": (cfg, params)}
                 if mode == "rollback":
                     engine_kw = {**engine_kw, "spec_decode": _Scripted(
                         runs[arch, "off", "cpu"][5], good=2, vocab=cfg.vocab_size)}
-                session, engine, _, _ = _served_query(cfg, params, corpus, device,
+                session, engine, _, _ = _served_query(cfg, params, docs[arch], device,
                                                       max_new=6, **engine_kw)
                 k6.launches = 0
                 res = session.prepare(_legal_query(core)).submit().result()
@@ -2224,6 +2484,7 @@ def phase_reference(seed: int) -> dict:
                 if "ssm" in engine.cache:
                     states[arch, mode, device] = {k: engine.cache[k].cpu()
                                                   for k in ("conv", "ssm")}
+                seconds[f"{arch}/{mode}/{device}"] = time.perf_counter() - t0
     tier = {device: _tier_modes(seed, corpus, device) for device in ("cuda", "cpu")}
     keys = [(arch, mode) for arch, modes in models.items() for mode in modes]
     same = {f"{a}/{m}": runs[a, m, "cuda"] == runs[a, m, "cpu"] for a, m in keys}
@@ -2235,7 +2496,13 @@ def phase_reference(seed: int) -> dict:
     cut = {a: 1 if a == "deepseek-v2-lite-16b" else 2 for a in models}
     invariant = {f"{a}/{m}/{dev}": (runs[a, "off", dev][0], runs[a, "off", dev][5])[:cut[a]] ==
                  (runs[a, m, dev][0], runs[a, m, dev][5])[:cut[a]]
-                 for a, m in keys if m != "off" for dev in ("cuda", "cpu")}
+                 for a, m in keys if m != "off" and "off" in models[a]
+                 for dev in ("cuda", "cpu")}
+    # the dense family's one mode: rows equal the plain mode's on its
+    # documents (llava's: answers that do not parse take the corpus oracle's)
+    invariant.update({f"{a}/spec/{dev}": runs[a, "spec", dev][0] ==
+                      runs["llava-next-mistral-7b", "off", dev][0]
+                      for a in DENSE_FAMILY for dev in ("cuda", "cpu")})
     moe_tokens = {f"{m}/{dev}": _token_agreement(runs["deepseek-v2-lite-16b", "off", dev][5],
                                                  runs["deepseek-v2-lite-16b", m, dev][5])
                   for m in models["deepseek-v2-lite-16b"] if m != "off"
@@ -2244,8 +2511,10 @@ def phase_reference(seed: int) -> dict:
                                  for k in ("conv", "ssm"))
                  for a, m in keys if (a, m, "cpu") in states}
     st = {f"{a}/{m}": runs[a, m, "cuda"][4] for a, m in keys}
-    out = {"phase": "reference", "docs": len(corpus.docs),
+    out = {"phase": "reference", "docs": len(corpus.docs), "docs_newest_modes": len(small.docs),
+           "seconds": seconds,
            "rows": len(runs["qwen2.5-3b", "off", "cpu"][0]),
+           "rows_newest_modes": len(runs["llava-next-mistral-7b", "off", "cpu"][0]),
            "identical": same, "same_rows_and_tokens_as_off": invariant,
            "moe_token_agreement_with_off": moe_tokens,
            "state_max_abs_err": state_err, "state_tol": STATE_TOL, "engine": st,
@@ -2262,7 +2531,8 @@ def phase_reference(seed: int) -> dict:
                "live_stats": tier["cuda"]["live"][4],
                "live_pages_freed_by_delete": tier["cuda"]["live"][8]}}
     emit(out)
-    if not all(same.values()) or not all(runs[a, "off", "cpu"][0] for a in models):
+    if not all(same.values()) or \
+            not all(runs[a, "off", "cpu"][0] for a in models if "off" in models[a]):
         raise AssertionError(f"the card's served query differs from the CPU reference: {same}")
     if not all(invariant.values()):
         raise AssertionError(f"rows or tokens differ from the plain mode: {invariant}")
@@ -2284,7 +2554,7 @@ def phase_reference(seed: int) -> dict:
                                  f"or no prefix hit")
         if st[f"{arch}/spec"]["draft_tokens"] <= 0:
             raise AssertionError(f"{arch}: prompt lookup drafted nothing in the reference")
-        if st[f"{arch}/slab"]["prefix_hits"] <= 0:
+        if "slab" in models[arch] and st[f"{arch}/slab"]["prefix_hits"] <= 0:
             raise AssertionError(f"{arch}: the reference slab run had no prefix hit")
     rb = st["falcon-mamba-7b/rollback"]
     if not 0 < rb["accepted_tokens"] < rb["draft_tokens"]:
@@ -2313,13 +2583,14 @@ def _to(tree, device):
 
 # every phase, in the order they run; the device and build phases always run
 PHASES = ("main", "spec", "slab", "draft", "frontend", "cascade", "live", "ssm", "moe",
-          "kernels", "reference")
+          "vlm", "dense_family", "kernels", "reference")
 # the phases whose results a phase reads: the qwen2.5-3b paths and the
 # ssm and moe phases compare with main's rows, draft with slab's tokens,
-# and kernels checks the launches those paths captured
+# and kernels checks the launches the model paths captured
 NEEDS = {**{p: ("main",) for p in ("spec", "slab", "frontend", "cascade", "live", "ssm",
                                    "moe")},
-         "draft": ("main", "slab"), "kernels": ("main", "spec", "slab", "draft", "ssm", "moe")}
+         "draft": ("main", "slab"),
+         "kernels": ("main", "spec", "slab", "draft", "ssm", "moe", "vlm")}
 
 
 def _phases(arg: str) -> set:
@@ -2443,13 +2714,27 @@ def main() -> int:
                 lap("profile_moe")
             del served_moe
             torch.cuda.empty_cache()
+        if "vlm" in phases:
+            report["vlm"], served_vlm = phase_vlm(args.seed, captures)
+            lap("vlm")
+            if args.profile:
+                report["profile_vlm"] = phase_profile(*served_vlm, args.out, "vlm")
+                lap("profile_vlm")
+            # free the llava-next-mistral-7b weights before the dense family's
+            del served_vlm
+            torch.cuda.empty_cache()
+        if "dense_family" in phases:
+            report["dense_family"] = phase_dense_family(args.seed)
+            lap("dense_family")
         if "kernels" in phases:
             launches = {**report["main"]["launches"], "K4": report["spec"]["launches"]["K4"],
                         "K5": report["draft"]["launches"]["K5"],
                         "K5_slab": report["slab"]["launches"]["K5"],
                         "K2_slab": report["slab"]["launches"]["K2"],
                         "K6": report["moe"]["launches"]["K6"],
-                        "K7": report["ssm"]["launches"]["K7"]}
+                        "K7": report["ssm"]["launches"]["K7"],
+                        "K2_vlm": report["vlm"]["launches"]["K2"],
+                        "K4_vlm": report["vlm"]["launches"]["K4"]}
             report["kernels"] = phase_kernels(captures, launches)
             lap("kernels")
         if "reference" in phases:

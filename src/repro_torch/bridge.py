@@ -6,7 +6,7 @@ layers stacked on axis 0 -- and returns the port's parameters: the same
 names and per-layer shapes, each layer stack ("layers", and the moe
 family's "dense_layers") as a list of per-layer dicts, tensors in `dtype`
 (default cfg.dtype) on `device`, for every family the port serves (dense,
-Mamba1, MoE with MLA). This module imports no
+vlm with its "mm_proj", Mamba1, MoE with MLA). This module imports no
 JAX; the parity tests call JAX on one side and this function on the other.
 """
 from __future__ import annotations

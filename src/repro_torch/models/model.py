@@ -1,7 +1,7 @@
 """Model assembly in PyTorch: parameters, and the forward passes of the
 serving engine on both KV layouts (counterpart of `repro.models.model`:
-the dense family, the Mamba1 ssm family, and the moe family with MLA
-attention).
+the dense family, the vlm family (a dense decoder behind an image prefix),
+the Mamba1 ssm family, and the moe family with MLA attention).
 
 Parameters are a nested dict of tensors with the JAX package's names and
 shapes, except that each layer stack is a Python list of per-layer dicts
@@ -46,6 +46,14 @@ attention is plain PyTorch (`layers.mla_*`): the paged forms gather each
 row's view through its page table and write the dirtied blocks back as the
 JAX engine does, which is why `verify_chunk` takes the engine's `block0s`.
 Every MoE layer gates through kernel K6.
+
+The vlm family (llava-next-mistral-7b) is the dense decoder plus "mm_proj",
+a two-layer projector from the stub vision tower's patch embeddings
+(VISION_DIM wide) to d_model. A sequence's first chunk (`prefill_chunk`)
+or whole prompt (`prefill`) may carry `image_embeds` (1, n_image_tokens,
+VISION_DIM): the projected rows are prepended to the text, take the first
+cache positions and are always real (`length` counts text tokens only).
+Every later forward sees positions that already include them.
 """
 from __future__ import annotations
 
@@ -59,6 +67,8 @@ from . import layers as L
 from . import ssm as S
 from .config import ModelConfig
 
+VISION_DIM = 1024  # stub vision-tower output width (llava)
+
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float16": torch.float16}
 
@@ -68,7 +78,7 @@ def torch_dtype(name: str) -> torch.dtype:
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family == "dense" and not (cfg.use_mla or cfg.n_experts):
+    if cfg.family in ("dense", "vlm") and not (cfg.use_mla or cfg.n_experts):
         return
     if cfg.family == "ssm" and cfg.mamba_version == 1:
         return
@@ -80,7 +90,8 @@ def _check_family(cfg: ModelConfig) -> None:
             "ROADMAP.md Queue 1")
     raise NotImplementedError(
         f"model family {cfg.family!r} is not yet ported, see ROADMAP.md "
-        f"Queue 1 (the port serves the dense family, Mamba1 and MoE with MLA)")
+        f"Queue 1 (the port serves the dense and vlm families, Mamba1 and MoE "
+        f"with MLA)")
 
 
 # ------------------------------------------------------------------ init ----
@@ -92,7 +103,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
     init_params` (normal * 0.02, output projections scaled by
     1/sqrt(2L), zero biases, unit norms; Mamba1 blocks as `ssm.
     mamba1_init`, drawn in float32; MLA and MoE blocks as `mla_init` and
-    `moe_init`), drawn from `generator` -- a different
+    `moe_init`; the vlm projector "mm_proj" normal * 0.02, drawn in
+    float32), drawn from `generator` -- a different
     draw from JAX's, made on `device` in `dtype` (default cfg.dtype). A
     generator must live on `device`; None seeds one with 0. On the meta
     device nothing is drawn: the shapes alone, for `param_count` at full
@@ -172,6 +184,11 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
         layers.append({"attn_norm": ones(d), "attn": attn, "mlp_norm": ones(d),
                        "mlp": mlp()})
     p["layers"] = layers
+    if cfg.family == "vlm":
+        def normal32(shape):
+            return torch.randn(shape, generator=generator, device=dev,
+                               dtype=torch.float32).mul_(0.02).to(dt)
+        p["mm_proj"] = {"w1": normal32((VISION_DIM, d)), "w2": normal32((d, d))}
     return p
 
 
@@ -242,6 +259,19 @@ def init_verify_ckpts(cfg: ModelConfig, B: int, C: int, dtype=None, device=None)
 
 def _logits(cfg, params, x):
     return L.norm_apply(cfg, params["final_norm"], x) @ _head(cfg, params)
+
+
+def _embed(cfg, params, tokens, image_embeds=None):
+    """Token embeddings, behind the projected image rows when `image_embeds`
+    (B, n_img, VISION_DIM) is given: gelu(img @ w1) @ w2 in the model dtype,
+    with jax.nn.gelu's default tanh form. Returns (x, n_img)."""
+    x = params["embed"][tokens.long()]
+    if image_embeds is None:
+        return x, 0
+    mp = params["mm_proj"]
+    img = image_embeds.to(device=x.device, dtype=x.dtype)
+    img = L.activation_fn("gelu")(img @ mp["w1"]) @ mp["w2"]
+    return torch.cat([img, x], dim=1), img.shape[1]
 
 
 def _ssm_decode(cfg, params, tokens, state):
@@ -330,7 +360,7 @@ def decode_step(cfg: ModelConfig, params, tokens, pos, pools, table, write_pages
 
 
 def prefill_chunk(cfg: ModelConfig, params, tokens, start: int, length: int,
-                  pools, ctx_ids, state=None):
+                  pools, ctx_ids, state=None, image_embeds=None):
     """Advance one sequence through a C-token prompt chunk on the page pool.
 
     tokens (1, C) int, right-padded past `length` real tokens; the chunk
@@ -343,19 +373,23 @@ def prefill_chunk(cfg: ModelConfig, params, tokens, start: int, length: int,
     position; the sequence's position advances by `length`. Mamba1
     advances the sequence's B=1 `state` in place through K7, frozen past
     `length`; pools and ctx_ids go unused. MLA attends the sequence's
-    gathered view (`layers.mla_chunk_apply`).
+    gathered view (`layers.mla_chunk_apply`). A vlm sequence's first chunk
+    may carry `image_embeds` (1, n_img, VISION_DIM): the projected image
+    rows sit at [start, start+n_img) ahead of the text, ctx_ids covers
+    start+n_img+C-1, the logits are taken at the last real text position
+    and the position advances by n_img + `length`.
     """
     _check_family(cfg)
     if cfg.family == "ssm":
         return _ssm_chunk(cfg, params, tokens, length, state)
-    x = params["embed"][tokens.long()]
+    x, n_img = _embed(cfg, params, tokens, image_embeds)
     if cfg.use_mla:
         def attend(li, p, h):
             return L.mla_chunk_apply(cfg, p, h, start=start, ckv_pool=pools["ckv"][li],
                                      krope_pool=pools["krope"][li], ctx_ids=ctx_ids)
     else:
         ps = pools["k"].shape[2]
-        positions = start + torch.arange(tokens.shape[1], device=ctx_ids.device)
+        positions = start + torch.arange(x.shape[1], device=ctx_ids.device)
         wp = ctx_ids[positions // ps].long()
         offs = positions % ps
 
@@ -364,7 +398,8 @@ def prefill_chunk(cfg: ModelConfig, params, tokens, start: int, length: int,
                                       v_pool=pools["v"][li], ctx_ids=ctx_ids,
                                       write_pages=wp, write_offsets=offs)
     x = _trunk(cfg, params, x, attend)
-    return _logits(cfg, params, x[:, length - 1:length])
+    last = n_img + length
+    return _logits(cfg, params, x[:, last - 1:last])
 
 
 # -------------------------------------------------- speculative verify -----
@@ -436,7 +471,8 @@ def init_decode_cache(cfg: ModelConfig, B: int, max_len: int, dtype=None,
     return cache
 
 
-def prefill(cfg: ModelConfig, params, tokens, max_len: int, length=None):
+def prefill(cfg: ModelConfig, params, tokens, max_len: int, length=None,
+            image_embeds=None):
     """Process a prompt into a fresh slab cache; return (last-position
     logits (B, 1, V), cache).
 
@@ -447,21 +483,26 @@ def prefill(cfg: ModelConfig, params, tokens, max_len: int, length=None):
     the slab from position 0, and cache["pos"] = length. MLA runs the
     non-absorbed causal attention over the prompt (`layers.mla_apply`) and
     writes its c_kv/k_rope. Mamba1 runs the prompt as one chunk through K7
-    from the fresh cache's zero state, frozen past `length`.
+    from the fresh cache's zero state, frozen past `length`. The vlm family
+    takes the prompt's `image_embeds` (B, n_img, VISION_DIM) ahead of the
+    text (`length` counts text tokens only; pos = n_img + length).
     """
     _check_family(cfg)
     B, S = tokens.shape
-    if S > max_len:
-        raise ValueError(f"prompt ({S}) exceeds cache max_len={max_len}")
+    n_img = 0 if image_embeds is None else image_embeds.shape[1]
+    if n_img + S > max_len:
+        raise ValueError(f"prompt ({S} + {n_img} image tokens) exceeds cache "
+                         f"max_len={max_len}")
     dev = params["embed"].device
     cache = init_decode_cache(cfg, B, max_len, device=dev)
-    n = S if length is None else int(length)
+    n = n_img + (S if length is None else int(length))
     if cfg.family == "ssm":
         # the fresh cache's zero conv window and state are the zero history
         logits = _ssm_chunk(cfg, params, tokens, n, cache)
         cache["pos"] = torch.tensor(n, dtype=torch.int32, device=dev)
         return logits, cache
-    x = params["embed"][tokens.long()]
+    x, _ = _embed(cfg, params, tokens, image_embeds)
+    S = x.shape[1]
     if cfg.use_mla:
         positions = torch.arange(S, device=dev)[None]
 

@@ -53,6 +53,13 @@ per engine (`models.init_verify_ckpts`), and a row that rejects part of
 its drafts is restored from the checkpoint at its kept length
 (`_restore_ckpt_rows`), on either layout.
 
+The vlm family (llava-next-mistral-7b) puts `n_image_tokens` image
+positions in front of every prompt (`_extra`, from the stub vision
+tower's zero embeddings), as the JAX engine does: a sequence's first
+chunk or bucketed prefill carries them, positions, page counts, prefix
+snapshots and the cache bound count them, and the prompt tokens, the
+ledger and `prefill_tokens` do not.
+
 The engine's counters keep the JAX formulas, so `stats` are identical
 between the two packages. Requests, slots, the insert coroutines that
 interleave prefill with decode, `drain_slot` (bounded retries), `cancel`,
@@ -87,6 +94,7 @@ from repro_torch.models.cache_ops import (PAGE_SINK, PageAllocator,
                                           release_trailing_pages,
                                           truncate_pages, write_slot)
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.model import VISION_DIM
 from repro_torch.obs import MetricsRegistry, StatsDict, as_tracer
 from repro_torch.obs.metrics import ENGINE_STATS
 
@@ -248,9 +256,8 @@ class ServingEngine:
                                    device=self.device)
         self.slot_pages: list = [[] for _ in range(slots)]   # empty for slab
         self._ckpts = None          # Mamba1 verify checkpoints, made once
-        # context positions ahead of the prompt (the JAX engine's image or
-        # audio prefix); none of the ported families has one
-        self._extra = 0
+        # vlm: image tokens occupy the first cache positions of every prompt
+        self._extra = cfg.n_image_tokens if cfg.family == "vlm" else 0
 
         if self.paged:
             if max_len % self.page_size:
@@ -297,16 +304,24 @@ class ServingEngine:
     # --------------------------------------------------- slab-mode prefill --
 
     def _bucket_len(self, n: int) -> int:
-        """Next chunk_size multiple, capped at max_len: bounds the distinct
-        prefill lengths (the JAX engine's jit signatures)."""
+        """Next chunk_size multiple: bounds the distinct prefill lengths
+        (the JAX engine's jit signatures). Capped so padding never pushes
+        text + image tokens past the cache bound a legal prompt still fits
+        in."""
         b = self.chunk_size
-        return min(((n + b - 1) // b) * b, self.max_len)
+        return min(((n + b - 1) // b) * b, self.max_len - self._extra)
+
+    def _image_embeds(self):
+        """The stub vision tower's output for one prompt: zeros (1,
+        n_image_tokens, VISION_DIM) float32, as the JAX engine feeds it."""
+        return torch.zeros((1, self._extra, VISION_DIM), dtype=torch.float32,
+                           device=self.device)
 
     def _prefill_sub(self, tokens: list):
         """Exact-state prefill of `tokens` into a B=1 slab sub-cache, padded
         to a bucketed length (`length` keeps the logits and the cache
-        position exact at the true length). Returns (last-position logits,
-        sub-cache)."""
+        position exact at the true length; a vlm prompt carries its image
+        prefix). Returns (last-position logits, sub-cache)."""
         n = len(tokens)
         bucket = self._bucket_len(n)
         self._prefill_buckets.add(bucket)
@@ -314,8 +329,9 @@ class ServingEngine:
                                device=self.device)
         self.stats["prefill_invocations"] += 1
         # attention-FLOPs proxy: KV positions computed against (S x S matrix)
-        self.stats["prefill_ctx_positions"] += bucket ** 2
-        return prefill(self.cfg, self.params, toks, self.max_len, length=n)
+        self.stats["prefill_ctx_positions"] += (self._extra + bucket) ** 2
+        return prefill(self.cfg, self.params, toks, self.max_len, length=n,
+                       image_embeds=self._image_embeds() if self._extra else None)
 
     def _insert_slab_co(self, slot: int, req: Request):
         """Slab-layout insert, yielding between prefill units (one bucketed
@@ -323,7 +339,8 @@ class ServingEngine:
         hit expands the entry's snapshot and decodes the suffix token by
         token through the B=1 slab decode step; the first request of a
         group prefills exactly the shared prefix, snapshots it, then
-        continues the same way. Returns (last logits, logical position)."""
+        continues the same way. Returns (last logits, logical position); the
+        position counts the image prefix."""
         prompt = req.prompt
         sub, prefix_len, did_work = None, 0, False
         if self.prefix_cache is not None:
@@ -344,7 +361,8 @@ class ServingEngine:
                     did_work = True
                     self.stats["prefill_tokens"] += boundary
                     self.prefix_cache.insert(
-                        prompt[:boundary], prefix_snapshot(sub, boundary),
+                        prompt[:boundary],
+                        prefix_snapshot(sub, self._extra + boundary),
                         doc_ids=self._entry_docs(req, boundary))
                     self.stats["prefix_inserts"] += 1
                     prefix_len = boundary
@@ -365,7 +383,7 @@ class ServingEngine:
                 self.stats["prefill_ctx_positions"] += self.max_len
             self.stats["prefill_tokens"] += len(prompt) - prefix_len
         write_slot(self.cache, sub, slot)
-        return logits, len(prompt)
+        return logits, self._extra + len(prompt)
 
     # -------------------------------------------------- paged-mode prefill --
 
@@ -383,8 +401,10 @@ class ServingEngine:
         view, whose width the counters use. `state` is the request's B=1
         pure state (Mamba1's conv/ssm; empty for the dense family), advanced
         in place. `first=False` yields before the first chunk too
-        (continuation of an insert that already did a prefill unit). Returns
-        (last-chunk logits, new logical position, first)."""
+        (continuation of an insert that already did a prefill unit). A vlm
+        sequence's first chunk (`lpos == 0`) carries the image prefix ahead
+        of its text, and the padded chunk then touches cs + n_image_tokens
+        positions. Returns (last-chunk logits, new logical position, first)."""
         cs, ps = self.chunk_size, self.page_size
         pages = self.slot_pages[slot]
         has_pool = bool(self.alloc.pools)
@@ -394,10 +414,13 @@ class ServingEngine:
                 yield               # cooperative point between chunks
             first = False
             true_clen = min(cs, n - i)
+            with_images = self._extra > 0 and lpos == 0
+            extra = self._extra if with_images else 0
+            llen_pad = cs + extra         # positions the padded chunk touches
             if has_pool:
                 # blocks the padded chunk can dirty, and the context they need
-                nb = (cs + ps - 2) // ps + 1 if ps > 1 else cs
-                n_ctx = _pow2_at_least(max(-(-(lpos + cs) // ps), nb))
+                nb = (llen_pad + ps - 2) // ps + 1 if ps > 1 else llen_pad
+                n_ctx = _pow2_at_least(max(-(-(lpos + llen_pad) // ps), nb))
                 ctx = self._ids([pages[b] if b < len(pages) else PAGE_SINK
                                  for b in range(n_ctx)])
             else:
@@ -406,14 +429,16 @@ class ServingEngine:
             logits = prefill_chunk(
                 self.cfg, self.params,
                 torch.as_tensor([chunk], dtype=torch.int64, device=self.device),
-                lpos, true_clen, self.alloc.pools, ctx, state=state)
+                lpos, true_clen, self.alloc.pools, ctx, state=state,
+                image_embeds=self._image_embeds() if with_images else None)
             self.stats["prefill_invocations"] += 1
             self.stats["prefill_chunks"] += 1
-            self.stats["prefill_ctx_positions"] += cs * (n_ctx * ps if has_pool else cs)
+            self.stats["prefill_ctx_positions"] += \
+                llen_pad * (n_ctx * ps if has_pool else llen_pad)
             self.tracer.instant("engine.prefill_chunk", kind="engine",
                                 level=2, tokens=int(true_clen))
             i += true_clen
-            lpos += true_clen
+            lpos += true_clen + extra
         return logits, lpos, first
 
     def _ensure_pages(self, n: int, acquired: list) -> list:
@@ -468,7 +493,7 @@ class ServingEngine:
         and a copy of the request's pure state at the boundary (Mamba1's
         conv/ssm; none for the dense family); their bytes enter the entry's
         size."""
-        lp = len(prefix)
+        lp = self._extra + len(prefix)
         pages = self.slot_pages[slot]
         full = lp // self.page_size
         entry_pages = list(pages[:full])
@@ -526,11 +551,12 @@ class ServingEngine:
         Returns (last-chunk logits, logical position)."""
         prompt = req.prompt
         plen = len(prompt)
+        total = self._extra + plen
         ps = self.page_size
         # Positions ever written: prompt + every fed generated token. With
         # speculation on, verify rounds grow the table lazily (and roll a
         # rejected suffix's pages back), so insert covers the prompt only.
-        cap = min(plen if self.spec else plen + req.max_new, self.max_len)
+        cap = min(total if self.spec else total + req.max_new, self.max_len)
         blocks = -(-cap // ps) if self.alloc.pools else 0
         acquired: list = []
         state, prefix_len, pages = None, 0, []
@@ -565,7 +591,7 @@ class ServingEngine:
         self.slot_pages[slot] = pages
         if state is not None:
             logits, lpos, _ = yield from self._chunked_prefill_co(
-                slot, state, prompt[prefix_len:], prefix_len)
+                slot, state, prompt[prefix_len:], self._extra + prefix_len)
             self.stats["prefill_tokens"] += plen - prefix_len
         else:
             state = self._init_state_sub()
@@ -591,8 +617,9 @@ class ServingEngine:
         already-live slots with admission prefill. The slot goes live only
         on completion; mid-insert it is reserved via `self._inserting`."""
         plen = len(req.prompt)
-        if plen > self.max_len:
-            raise ValueError(f"prompt ({plen}) exceeds cache max_len={self.max_len}")
+        if self._extra + plen > self.max_len:
+            raise ValueError(f"prompt ({plen} + {self._extra} image tokens) exceeds "
+                             f"cache max_len={self.max_len}")
         co = self._insert_paged_co if self.paged else self._insert_slab_co
         logits, lpos = yield from co(slot, req)
         self.cache["pos"][slot] = lpos

@@ -2,8 +2,9 @@
 modules loads no `jax` and no module of the JAX package `repro`; the
 jax-free modules it keeps as copies stay verbatim copies, and those copied
 with named edits differ from their originals in those lines only; the config
-registry serves qwen2.5-3b, falcon-mamba-7b and deepseek-v2-lite-16b and
-refuses the families not yet ported."""
+registry serves qwen2.5-3b, qwen3-32b, nemotron-4-15b, deepseek-67b,
+llava-next-mistral-7b, falcon-mamba-7b and deepseek-v2-lite-16b and refuses
+the families not yet ported."""
 import os
 import subprocess
 import sys
@@ -24,7 +25,9 @@ COPIES = ["core/__init__.py", "core/difficulty.py", "core/executor.py",
           "data/tokens.py", "data/lm_data.py", "data/corpus.py",
           "index/segmenter.py", "extract/oracle.py", "models/config.py",
           "configs/qwen2_5_3b.py", "configs/falcon_mamba_7b.py",
-          "configs/deepseek_v2_lite_16b.py",
+          "configs/deepseek_v2_lite_16b.py", "configs/qwen3_32b.py",
+          "configs/nemotron_4_15b.py", "configs/deepseek_67b.py",
+          "configs/llava_next_mistral_7b.py",
           "serving/prefix_cache.py", "serving/frontend.py",
           "extract/cascade.py", "extract/__init__.py",
           "live/__init__.py", "live/log.py", "live/corpus.py",
@@ -136,10 +139,16 @@ def test_config_registry():
     from repro.configs import ARCH_IDS as JAX_ARCH_IDS
     from repro_torch.configs import NOT_YET_PORTED, get_config, get_smoke_config
 
+    import repro.configs.deepseek_67b as jd67
     import repro.configs.deepseek_v2_lite_16b as jd
     import repro.configs.falcon_mamba_7b as jf
+    import repro.configs.llava_next_mistral_7b as jl
+    import repro.configs.nemotron_4_15b as jn
     import repro.configs.qwen2_5_3b as jq
-    ported = (("qwen2.5-3b", jq), ("falcon-mamba-7b", jf), ("deepseek-v2-lite-16b", jd))
+    import repro.configs.qwen3_32b as jq3
+    ported = (("qwen2.5-3b", jq), ("falcon-mamba-7b", jf), ("deepseek-v2-lite-16b", jd),
+              ("qwen3-32b", jq3), ("nemotron-4-15b", jn), ("deepseek-67b", jd67),
+              ("llava-next-mistral-7b", jl))
     for arch, mod in ported:
         for get in ("CONFIG", "SMOKE"):
             ours = (get_config if get == "CONFIG" else get_smoke_config)(arch)

@@ -234,6 +234,11 @@ def _span_keys(plan, split, limit, cap):
     (8, 2, 1, 64),
     (8, 5, 8, 1024),      # K4 at qwen2.5-3b width: 5 candidates, 4 rows x 2 KV heads
     (16, 5, 2, 700),      # K4: 80 rows, two query tiles, the last ragged
+    (6, 1, 32, 1024),     # K1 at nemotron-4-15b width: group 6, 4 rows x 8 KV heads
+    (6, 3, 32, 1024),     # K4, group 6: 18 rows, past one 16-row tile
+    (6, 5, 32, 4096),     # K4, group 6: 30 rows
+    (4, 3008, 8, 3008),   # K2: llava's first chunk, 2,880 image + 128 text positions
+    (4, 5, 32, 4096),     # K4 at llava width over its image prefix
 ])
 def test_span_plan_partitions_visible_keys(G, C, groups, n_keys):
     plan = k1.plan_spans(G * C, groups, n_keys)
