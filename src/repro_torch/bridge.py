@@ -3,11 +3,13 @@
 `params_from_numpy` takes the nested dict of numpy arrays that
 `jax.tree.map(np.asarray, repro.models.init_params(cfg, key))` gives --
 layers stacked on axis 0 -- and returns the port's parameters: the same
-names and per-layer shapes, each layer stack ("layers", and the moe
-family's "dense_layers") as a list of per-layer dicts, tensors in `dtype`
-(default cfg.dtype) on `device`, for every family the port serves (dense,
-vlm with its "mm_proj", Mamba1, MoE with MLA). This module imports no
-JAX; the parity tests call JAX on one side and this function on the other.
+names and per-layer shapes, each stack ("layers"; the moe family's
+"dense_layers"; the hybrid family's "shared_blocks" and its
+per-application "lora" adapters) as a list of per-entry dicts, tensors in
+`dtype` (default cfg.dtype) on `device`, for every family the port serves
+(dense, vlm with its "mm_proj", Mamba1, MoE with MLA or standard
+attention, hybrid). This module imports no JAX; the parity tests call JAX
+on one side and this function on the other.
 """
 from __future__ import annotations
 
@@ -18,7 +20,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import _check_family, torch_dtype
 
-STACKS = ("dense_layers", "layers")      # layer stacks, stacked on axis 0
+STACKS = ("dense_layers", "layers", "shared_blocks", "lora")   # stacked on axis 0
 
 
 def _to_torch(tree, dev, dt):

@@ -2,10 +2,11 @@
 
 Mirrors `repro.configs`. The port serves the dense family (qwen2.5-3b,
 qwen3-32b, nemotron-4-15b, deepseek-67b), the image-prefix vlm family
-(llava-next-mistral-7b), the Mamba1 ssm family (falcon-mamba-7b) and MoE
-with MLA attention (deepseek-v2-lite-16b) so far; the other ids of the
-JAX registry raise a clear error until their family is ported (ROADMAP.md
-Queue 1).
+(llava-next-mistral-7b), the Mamba1 ssm family (falcon-mamba-7b), MoE with
+MLA attention (deepseek-v2-lite-16b) and with standard attention
+(grok-1-314b), and the hybrid family (zamba2-2.7b) so far; the other id of
+the JAX registry raises a clear error until its family is ported
+(ROADMAP.md Queue 1).
 """
 from __future__ import annotations
 
@@ -21,10 +22,12 @@ _MODULES = {
     "nemotron-4-15b": "nemotron_4_15b",
     "deepseek-67b": "deepseek_67b",
     "llava-next-mistral-7b": "llava_next_mistral_7b",
+    "grok-1-314b": "grok_1_314b",
+    "zamba2-2.7b": "zamba2_2_7b",
 }
 
 # ids the JAX registry knows whose model family is not ported yet
-NOT_YET_PORTED = ["whisper-medium", "zamba2-2.7b", "grok-1-314b"]
+NOT_YET_PORTED = ["whisper-medium"]
 
 ARCH_IDS = list(_MODULES)
 

@@ -9,7 +9,7 @@ cache stores *trimmed* B=1 sub-caches (`prefix_snapshot`: the token axis
 cut to the prefix length, so a snapshot costs O(prefix)), which
 `expand_snapshot` zero-pads back to max_len on a hit. Attention in decode
 is gated by pos, so the zero tail is never attended. Pure-state entries
-(Mamba1's conv window and scan state) are kept whole: they are the exact
+(Mamba1's and Mamba2's conv window and scan state) are kept whole: they are the exact
 state after the prefix, which is why a snapshot is taken by prefilling
 exactly the prefix. These copy where the
 JAX functions return new arrays, so a snapshot never aliases a cache the
@@ -17,16 +17,28 @@ model later writes into in place.
 
 Paged half: vLLM-style block layout: the length-indexed KV buffers live in
 a shared pool of fixed-size pages; a sequence is a *page table* (block
-index -> physical page id). Page 0 is the sink: dead batch rows write into
-it and it is never allocated; its contents never reach a live row's
-output, except through MoE capacity, where MLA keeps them as the JAX
-engine does (`layers.write_view_blocks`). Copy-on-write
-of a prefix entry's boundary page (`PageAllocator.copy_page`) and
-speculative rollback (`truncate_pages`, `release_trailing_pages`) work in
-place on the pools.
+index -> physical page id). Page 0 is the sink, never allocated: a dead
+row's table is all sink, and a live row's table is sink past its pages.
+The sink is read -- a dead row attends it, and so does a padded position
+past a row's pages -- and what it reads matters wherever rows interact or
+a row's state outlives the call: with MoE a dead row's tokens compete for
+expert capacity, and in the hybrid family a dead slot's Mamba2 state is
+kept. So the sink holds what the JAX engine's holds. The JAX engine
+gathers each row's view through its table (the sink as it was before the
+call, plus the row's own new tokens) and scatters whole blocks back, the
+last (row, block) in row-major order winning the sink. MLA does exactly
+that (`layers.write_view_blocks`); the dense paged path, whose kernels
+read the pool itself, gets the same from `sink_plan`: each sink block a
+row writes becomes a private scratch page past the allocatable ones,
+seeded from the sink before the call (`seed_scratch`), and the winning
+block is copied into the sink after it (`sink_take`). Copy-on-write of a
+prefix entry's boundary page (`PageAllocator.copy_page`) and speculative
+rollback (`truncate_pages`, `release_trailing_pages`) work in place on the
+pools.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
@@ -34,11 +46,11 @@ from repro_torch.device import resolve_device
 from .config import ModelConfig
 from .model import init_decode_cache
 
-PAGE_SINK = 0  # reserved page id, never allocated: dead rows and writes past a table land here
+PAGE_SINK = 0  # reserved page id, never allocated: dead rows' tables and blocks past a table
 
 # Buffers indexed by token position: the dense family's "k" and "v", MLA's
-# compressed "ckv" and "krope". Every other cache entry (Mamba1's "conv"
-# and "ssm") is per-slot state, copied whole.
+# compressed "ckv" and "krope". Every other cache entry (the Mamba blocks'
+# "conv" and "ssm") is per-slot state, copied whole.
 LENGTH_KEYS = ("k", "v", "ckv", "krope")
 
 
@@ -113,11 +125,15 @@ class PageAllocator:
     """Fixed-size KV page pool: free-list allocation + ref-counting.
 
     Owns the device pools -- one tensor per length-indexed cache key, shaped
-    (num_layers, num_pages, page_size, n_kv_heads, head_dim) in cfg.dtype,
+    (num_layers, num_pages + scratch, page_size, n_kv_heads, head_dim) in
+    cfg.dtype (the hybrid family: one layer per shared-block application),
     or (num_layers, num_pages, page_size, r / rd) for MLA's ckv/krope;
     none for Mamba1, whose state is not indexed by position -- and the
-    host-side page metadata. MLA's page views are gathered and written
-    back in `layers` (`page_view`, `write_view_blocks`).
+    host-side page metadata. The scratch pages past num_pages are the dense
+    paged path's (`sink_plan`): never allocated, never counted in the page
+    or byte counts, their contents never compared. MLA's page views are
+    gathered and written back in `layers` (`page_view`,
+    `write_view_blocks`).
     """
 
     def __init__(self, cfg: ModelConfig, num_pages: int, page_size: int, *,
@@ -135,6 +151,24 @@ class PageAllocator:
                                               dtype=a.dtype, device=dev)
         self.refcount = [0] * self.num_pages
         self._free = list(range(self.num_pages - 1, 0, -1))  # sink excluded
+
+    @property
+    def scratch(self) -> list:
+        """Ids of the scratch pages past the allocatable ones (`sink_plan`):
+        never allocated, never counted, their contents never compared."""
+        width = next(iter(self.pools.values())).shape[1] if self.pools else self.num_pages
+        return list(range(self.num_pages, width))
+
+    def reserve_scratch(self, n: int) -> None:
+        """Make the pools hold at least n scratch pages (each engine on this
+        allocator reserves what its calls need when it is made, before any
+        call)."""
+        have = len(self.scratch)
+        if not self.pools or n <= have:
+            return
+        for key, pool in self.pools.items():
+            self.pools[key] = torch.cat(
+                [pool, pool.new_zeros((pool.shape[0], n - have) + pool.shape[2:])], dim=1)
 
     # ------------------------------------------------------------ queries --
 
@@ -230,3 +264,59 @@ def release_trailing_pages(alloc: PageAllocator, pages: list,
         return pages
     alloc.release(pages[keep_blocks:])
     return pages[:keep_blocks]
+
+
+def sink_plan(table, wpos, wblocks, page_size: int, scratch: list):
+    """Make a dense paged call write and read the sink as the JAX engine's
+    gathered views do (host values throughout).
+
+    table (B, n) page ids (PAGE_SINK past each row's pages; all sink for a
+    dead row); wpos (B, W) the positions each row writes, into its view of
+    n * page_size positions (the JAX package drops a write at or past it);
+    wblocks (B, m) the view blocks the JAX engine scatters back for each
+    row, in order; scratch the allocator's scratch page ids, the last one
+    taken as the trash page for dropped writes.
+
+    Every sink block a row writes gets a scratch page of its own in the
+    returned table, so the row reads the sink as it was before the call
+    except where it wrote, and no two rows write one page. Returns (table
+    (B, n), write pages (B, W): the page each position is written to, the
+    trash page where JAX drops the write; the scratch pages to seed from
+    the sink before the call (`seed_scratch`); and the page whose block the
+    sink takes after it (`sink_take`): the last (row, block) of wblocks
+    that maps to the sink, in row-major order -- a scratch page if that row
+    wrote the block, else PAGE_SINK, the sink left as it was)."""
+    table = np.asarray(table)
+    wpos = np.asarray(wpos, np.int64)
+    B, n = table.shape
+    view = n * page_size
+    out = table.copy()
+    free = iter(scratch[:-1])
+    seeds = []
+    for b in range(B):
+        for blk in np.unique(wpos[b][wpos[b] < view] // page_size):
+            if table[b, blk] == PAGE_SINK:
+                out[b, blk] = next(free)
+                seeds.append(int(out[b, blk]))
+    blk = np.minimum(wpos // page_size, n - 1)
+    wpages = np.where(wpos < view, np.take_along_axis(out, blk, 1), scratch[-1])
+    winner = PAGE_SINK
+    for b, j in zip(*np.nonzero(np.take_along_axis(table, np.asarray(wblocks), 1) == PAGE_SINK)):
+        winner = int(out[b, wblocks[b][j]])
+    return out, wpages.astype(np.int32), seeds, winner
+
+
+def seed_scratch(pools: dict, ids: list) -> None:
+    """Copy the sink page into scratch pages `ids`, in every layer and
+    pooled key, in place."""
+    if ids:
+        for pool in pools.values():
+            pool[:, ids] = pool[:, PAGE_SINK:PAGE_SINK + 1].clone()
+
+
+def sink_take(pools: dict, src: int) -> None:
+    """The sink takes page `src`'s block (nothing when src is the sink), in
+    every layer and pooled key, in place."""
+    if src != PAGE_SINK:
+        for pool in pools.values():
+            pool[:, PAGE_SINK] = pool[:, src]

@@ -3,8 +3,9 @@
 Plain functions on tensors and nested dicts of parameters, laid out as in
 the JAX package (q/k/v projections (d, heads, head_dim), attention tensors
 (B, S, H, D)). Only the subset the served path needs is ported: dense
-attention and MLP, and DeepSeek-V2's MLA attention and capacity-limited
-MoE.
+attention (with the hybrid family's per-application LoRA adapters on q,
+k, v and the output) and MLP, and DeepSeek-V2's MLA attention and
+capacity-limited MoE.
 
 The attention of the serving path runs through kernels on either KV
 layout. On the paged pool: K1 (decode), K2 (chunk prefill) and K4
@@ -142,10 +143,18 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, scale=None):
     return torch.einsum("bhgqs,bshd->bqhgd", p.to(v_cache.dtype), v_cache)
 
 
-def _project_qkv(cfg: ModelConfig, p, x):
+def _project_qkv(cfg: ModelConfig, p, x, lora=None):
+    """q, k, v (B, S, heads, hd) of x (B, S, d); with `lora` (one
+    application's adapter, the hybrid family's shared blocks) the low-rank
+    deltas (x a) b are added before the bias and the q/k norms, as the JAX
+    package adds them."""
     q = torch.einsum("bsd,dhe->bshe", x, p["wq"])
     k = torch.einsum("bsd,dhe->bshe", x, p["wk"])
     v = torch.einsum("bsd,dhe->bshe", x, p["wv"])
+    if lora is not None:
+        q = q + ((x @ lora["a_q"]) @ lora["b_q"]).reshape(q.shape)
+        k = k + ((x @ lora["a_k"]) @ lora["b_k"]).reshape(k.shape)
+        v = v + ((x @ lora["a_v"]) @ lora["b_v"]).reshape(v.shape)
     if cfg.attn_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     if cfg.qk_norm:
@@ -154,8 +163,17 @@ def _project_qkv(cfg: ModelConfig, p, x):
     return q, k, v
 
 
+def _out_proj(p, out, lora=None):
+    """The output projection of the attention's heads (B, S, H, hd), plus
+    the adapter's delta on it, out + (out a_o) b_o, when `lora` is given."""
+    out = torch.einsum("bshe,hed->bsd", out, p["wo"])
+    if lora is not None:
+        out = out + (out @ lora["a_o"]) @ lora["b_o"]
+    return out
+
+
 def attn_chunk_apply(cfg: ModelConfig, p, x, *, start: int, k_pool, v_pool,
-                     ctx_ids, write_pages, write_offsets):
+                     ctx_ids, write_pages, write_offsets, lora=None):
     """Chunked-prefill attention of one sequence on the page pool: the C
     query tokens at positions [start, start+C) attend every key up to their
     own position (causal within the chunk, full over the filled prefix).
@@ -163,12 +181,17 @@ def attn_chunk_apply(cfg: ModelConfig, p, x, *, start: int, k_pool, v_pool,
     x: (1, C, d). Pools (P, ps, Hkv, hd) of this layer; ctx_ids (n_ctx,)
     int32 the sequence's page table; the chunk's K/V is written in place at
     pool[write_pages[i], write_offsets[i]] (the page and slot of position
-    start+i) before kernel K2 reads the context. Returns (1, C, d).
+    start+i) before kernel K2 reads the context. The engine never lets a
+    write land in the sink: a sink block the padded chunk writes is a
+    scratch page in ctx_ids (`cache_ops.sink_plan`), so the chunk reads the
+    sink as it was before the call plus its own tokens, as the JAX view.
+    `lora`: the hybrid family's adapter of this application. Returns (1,
+    C, d).
     """
     B, C, _ = x.shape
     nq, hd = cfg.n_heads, cfg.resolved_head_dim
     q_pos = start + torch.arange(C, device=x.device)
-    q, k, v = _project_qkv(cfg, p, x)
+    q, k, v = _project_qkv(cfg, p, x, lora)
     if cfg.use_rope:
         q = apply_rope(q, q_pos[None], cfg.rope_theta)
         k = apply_rope(k, q_pos[None], cfg.rope_theta)
@@ -176,18 +199,22 @@ def attn_chunk_apply(cfg: ModelConfig, p, x, *, start: int, k_pool, v_pool,
     v_pool[write_pages, write_offsets] = v[0].to(v_pool.dtype)
     out = _k2.chunk_prefill_attention(q[0], k_pool, v_pool, ctx_ids, start)
     out = out.reshape(1, C, nq, hd)
-    return torch.einsum("bshe,hed->bsd", out, p["wo"])
+    return _out_proj(p, out, lora)
 
 
 def attn_decode_apply(cfg: ModelConfig, p, x, *, pos, k_pool, v_pool, table,
-                      write_pages, write_offsets):
+                      write_pages, write_offsets, lora=None):
     """Single-token decode of every slot on the page pool. x: (B, 1, d);
     pos (B,) int32 per-row positions; table (B, nb) int32 page tables;
     the new K/V lands at pool[write_pages[b], write_offsets[b]] before
-    kernel K1 attends positions < pos+1. Returns (B, 1, d)."""
+    kernel K1 attends positions < pos+1. A dead row's table is the sink
+    except the block it writes, which is its own scratch page, and a write
+    at or past nb * ps (which JAX drops) goes to the trash page
+    (`cache_ops.sink_plan`). `lora`: the hybrid family's adapter. Returns
+    (B, 1, d)."""
     B, S, _ = x.shape
     nq, hd = cfg.n_heads, cfg.resolved_head_dim
-    q, k, v = _project_qkv(cfg, p, x)
+    q, k, v = _project_qkv(cfg, p, x, lora)
     if cfg.use_rope:
         pp = pos.reshape(B, 1)
         q = apply_rope(q, pp, cfg.rope_theta)
@@ -196,11 +223,11 @@ def attn_decode_apply(cfg: ModelConfig, p, x, *, pos, k_pool, v_pool, table,
     v_pool[write_pages, write_offsets] = v[:, 0].to(v_pool.dtype)
     out = _k1.paged_decode_attention(q[:, 0], k_pool, v_pool, table, pos + 1)
     out = out.reshape(B, S, nq, hd)
-    return torch.einsum("bshe,hed->bsd", out, p["wo"])
+    return _out_proj(p, out, lora)
 
 
 def attn_verify_apply(cfg: ModelConfig, p, x, *, pos, k_pool, v_pool, table,
-                      write_pages, write_offsets):
+                      write_pages, write_offsets, lora=None):
     """Speculative-verify attention of every slot on the page pool: row b's
     C candidate tokens sit at positions pos[b] + c and attend every key up
     to their own position (causal within the candidates, full over the
@@ -209,12 +236,15 @@ def attn_verify_apply(cfg: ModelConfig, p, x, *, pos, k_pool, v_pool, table,
 
     x: (B, C, d); pos (B,) int32; table (B, nb) int32 page tables; the
     candidates' K/V is written in place at pool[write_pages[b, c],
-    write_offsets[b, c]] (the sink page for a position past the row's table
-    or at or past max_len, where the JAX package drops the write) before
-    kernel K4 reads the context. Returns (B, C, d)."""
+    write_offsets[b, c]] before kernel K4 reads the context: a candidate in
+    a sink block of the row's view (a dead row, or past the row's pages)
+    is written to the row's scratch page for that block, which the table
+    maps in its place, and one past the view, where the JAX package drops
+    the write, to the trash page (`cache_ops.sink_plan`). `lora`: the
+    hybrid family's adapter. Returns (B, C, d)."""
     B, C, _ = x.shape
     nq, hd = cfg.n_heads, cfg.resolved_head_dim
-    q, k, v = _project_qkv(cfg, p, x)
+    q, k, v = _project_qkv(cfg, p, x, lora)
     if cfg.use_rope:
         q_pos = pos.reshape(B, 1) + torch.arange(C, device=x.device, dtype=pos.dtype)
         q = apply_rope(q, q_pos, cfg.rope_theta)
@@ -225,7 +255,7 @@ def attn_verify_apply(cfg: ModelConfig, p, x, *, pos, k_pool, v_pool, table,
     # transposes are views, and no copy kernel runs around the launch
     out = _k4.paged_verify_attention(q.transpose(1, 2), k_pool, v_pool, table, pos)
     out = out.transpose(1, 2).reshape(B, C, nq, hd)
-    return torch.einsum("bshe,hed->bsd", out, p["wo"])
+    return _out_proj(p, out, lora)
 
 
 # ------------------------------------------------------------ slab KV ------
@@ -298,7 +328,7 @@ def slab_tables(B: int, S: int, ps: int, device):
     return torch.arange(B * nb, dtype=torch.int32, device=device).reshape(B, nb)
 
 
-def attn_apply_slab(cfg: ModelConfig, p, x, *, k_cache, v_cache, tables):
+def attn_apply_slab(cfg: ModelConfig, p, x, *, k_cache, v_cache, tables, lora=None):
     """Causal self-attention of a full prefill from position 0 (the JAX
     `attn_apply` of `prefill`), writing the K/V into slab layers. x
     (B, S, d); caches (B, Smax, Hkv, hd) of this layer, written in place at
@@ -308,7 +338,7 @@ def attn_apply_slab(cfg: ModelConfig, p, x, *, k_cache, v_cache, tables):
     B, S, _ = x.shape
     nq, hd = cfg.n_heads, cfg.resolved_head_dim
     positions = torch.arange(S, device=x.device)
-    q, k, v = _project_qkv(cfg, p, x)
+    q, k, v = _project_qkv(cfg, p, x, lora)
     if cfg.use_rope:
         q = apply_rope(q, positions[None], cfg.rope_theta)
         k = apply_rope(k, positions[None], cfg.rope_theta)
@@ -319,17 +349,17 @@ def attn_apply_slab(cfg: ModelConfig, p, x, *, k_cache, v_cache, tables):
     out = torch.stack([_k2.chunk_prefill_attention(q[b], kp, vp, tables[b], 0)
                        for b in range(B)])
     out = out.reshape(B, S, nq, hd)
-    return torch.einsum("bshe,hed->bsd", out, p["wo"])
+    return _out_proj(p, out, lora)
 
 
-def attn_decode_apply_slab(cfg: ModelConfig, p, x, *, pos, k_cache, v_cache):
+def attn_decode_apply_slab(cfg: ModelConfig, p, x, *, pos, k_cache, v_cache, lora=None):
     """Single-token decode on slab layers (the JAX `attn_decode_apply`).
     x (B, 1, d); pos a 0-d tensor or per-row (B,) int32; the new K/V is
     written at pos (`cache_write`) before kernel K5 attends positions
     < pos + 1. Returns (B, 1, d)."""
     B, S, _ = x.shape
     nq, hd = cfg.n_heads, cfg.resolved_head_dim
-    q, k, v = _project_qkv(cfg, p, x)
+    q, k, v = _project_qkv(cfg, p, x, lora)
     if cfg.use_rope:
         pp = pos.reshape(-1, 1).expand(B, S)
         q = apply_rope(q, pp, cfg.rope_theta)
@@ -338,10 +368,10 @@ def attn_decode_apply_slab(cfg: ModelConfig, p, x, *, pos, k_cache, v_cache):
     cache_write(v_cache, v, pos)
     out = _k1.decode_attention(q[:, 0], k_cache, v_cache, pos + 1)
     out = out.reshape(B, S, nq, hd)
-    return torch.einsum("bshe,hed->bsd", out, p["wo"])
+    return _out_proj(p, out, lora)
 
 
-def attn_chunk_apply_slab(cfg: ModelConfig, p, x, *, start, k_cache, v_cache, tables):
+def attn_chunk_apply_slab(cfg: ModelConfig, p, x, *, start, k_cache, v_cache, tables, lora=None):
     """Speculative-verify attention on slab layers (the JAX
     `attn_chunk_apply` with a per-row start): row b's C candidates sit at
     positions start[b] + c, are written there (positions at or past Smax
@@ -350,7 +380,7 @@ def attn_chunk_apply_slab(cfg: ModelConfig, p, x, *, start, k_cache, v_cache, ta
     start (B,) int32; tables (B, Smax/ps). Returns (B, C, d)."""
     B, C, _ = x.shape
     nq, hd = cfg.n_heads, cfg.resolved_head_dim
-    q, k, v = _project_qkv(cfg, p, x)
+    q, k, v = _project_qkv(cfg, p, x, lora)
     if cfg.use_rope:
         q_pos = start.reshape(B, 1) + torch.arange(C, device=x.device, dtype=start.dtype)
         q = apply_rope(q, q_pos, cfg.rope_theta)
@@ -361,7 +391,7 @@ def attn_chunk_apply_slab(cfg: ModelConfig, p, x, *, start, k_cache, v_cache, ta
     out = _k4.paged_verify_attention(q.transpose(1, 2), slab_pages(k_cache, ps),
                                      slab_pages(v_cache, ps), tables, start)
     out = out.transpose(1, 2).reshape(B, C, nq, hd)
-    return torch.einsum("bshe,hed->bsd", out, p["wo"])
+    return _out_proj(p, out, lora)
 
 
 # ------------------------------------------------------------------ MLA ----

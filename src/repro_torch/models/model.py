@@ -1,7 +1,8 @@
 """Model assembly in PyTorch: parameters, and the forward passes of the
 serving engine on both KV layouts (counterpart of `repro.models.model`:
 the dense family, the vlm family (a dense decoder behind an image prefix),
-the Mamba1 ssm family, and the moe family with MLA attention).
+the Mamba1 ssm family, the moe family with MLA or standard attention, and
+the hybrid family: a Mamba2 trunk with shared attention blocks).
 
 Parameters are a nested dict of tensors with the JAX package's names and
 shapes, except that each layer stack is a Python list of per-layer dicts
@@ -45,7 +46,22 @@ on the slab, and pools of the same two keys on the paged layout. Its
 attention is plain PyTorch (`layers.mla_*`): the paged forms gather each
 row's view through its page table and write the dirtied blocks back as the
 JAX engine does, which is why `verify_chunk` takes the engine's `block0s`.
-Every MoE layer gates through kernel K6.
+Every MoE layer gates through kernel K6. MoE with standard GQA attention
+(grok-1-314b) keeps k/v slabs and pools as the dense family and runs K1,
+K2, K4 and K5 the same way; the engine makes the dense paged path write
+the sink page as the JAX engine does for it (`serving.engine`).
+
+The hybrid family (zamba2-2.7b) runs num_layers Mamba2 blocks (`ssm.
+mamba2_*`, plain tensor ops) and, before every attn_every of them, one
+application of a shared attention block: application i uses
+"shared_blocks"[i % n_shared_attn_blocks] with its own LoRA adapter
+"lora"[i] on q, k, v and the output (`layers._project_qkv`,
+`layers._out_proj`). Its KV pools and slabs have n_app = num_layers //
+attn_every layers, one per application, and its per-slot state is the
+Mamba2 conv window "conv" (L, B, K-1, di+2N) and state "ssm" (L, B, h, p,
+N) float32; verify checkpoints hold "ssm" (L, B, C, h, p, N) and "conv"
+(L, B, K-1+C, di+2N). Chunks and prompts run the SSD matrix form, decode
+and verify the sequential recurrence.
 
 The vlm family (llava-next-mistral-7b) is the dense decoder plus "mm_proj",
 a two-layer projector from the stub vision tower's patch embeddings
@@ -82,16 +98,20 @@ def _check_family(cfg: ModelConfig) -> None:
         return
     if cfg.family == "ssm" and cfg.mamba_version == 1:
         return
-    if cfg.family == "moe" and cfg.use_mla:
+    if cfg.family == "hybrid" and cfg.mamba_version == 2:
         return
     if cfg.family == "moe":
-        raise NotImplementedError(
-            "MoE without MLA attention (grok-1-314b) is not yet ported, see "
-            "ROADMAP.md Queue 1")
+        return
     raise NotImplementedError(
-        f"model family {cfg.family!r} is not yet ported, see ROADMAP.md "
-        f"Queue 1 (the port serves the dense and vlm families, Mamba1 and MoE "
-        f"with MLA)")
+        f"model family {cfg.family!r} (mamba_version {cfg.mamba_version}) is not yet "
+        f"ported, see ROADMAP.md Queue 1 (the port serves the dense, vlm, moe and "
+        f"hybrid families and Mamba1)")
+
+
+def n_applications(cfg: ModelConfig) -> int:
+    """The hybrid family's shared-block applications, one every attn_every
+    Mamba2 layers: the layer count of its KV pools and slabs."""
+    return cfg.num_layers // cfg.attn_every
 
 
 # ------------------------------------------------------------------ init ----
@@ -101,10 +121,12 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
                 device=None, dtype=None) -> dict:
     """Random parameters with the distributions of `repro.models.model.
     init_params` (normal * 0.02, output projections scaled by
-    1/sqrt(2L), zero biases, unit norms; Mamba1 blocks as `ssm.
-    mamba1_init`, drawn in float32; MLA and MoE blocks as `mla_init` and
-    `moe_init`; the vlm projector "mm_proj" normal * 0.02, drawn in
-    float32), drawn from `generator` -- a different
+    1/sqrt(2L), zero biases, unit norms; Mamba1 and Mamba2 blocks as `ssm.
+    mamba1_init` and `mamba2_init`, drawn in float32; MLA and MoE blocks as
+    `mla_init` and `moe_init`; the vlm projector "mm_proj" normal * 0.02,
+    drawn in float32; the hybrid family's per-application LoRA adapters as
+    `lora_init`: a_* normal * 0.02, b_* zeros), drawn from `generator` -- a
+    different
     draw from JAX's, made on `device` in `dtype` (default cfg.dtype). A
     generator must live on `device`; None seeds one with 0. On the meta
     device nothing is drawn: the shapes alone, for `param_count` at full
@@ -144,46 +166,56 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
             m["w_in"] = normal((d, ff), 0.02)
         return m
 
-    if cfg.family == "moe":
-        r, nd, rd, vd = cfg.kv_lora_rank, cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
-        E, eff = cfg.n_experts, cfg.expert_d_ff or cfg.d_ff
+    def attn():
+        if cfg.use_mla:
+            r, nd, rd, vd = cfg.kv_lora_rank, cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+            return {"wq": normal((d, nq, nd + rd), 0.02),
+                    "w_dkv": normal((d, r + rd), 0.02),
+                    "w_uk": normal((r, nq, nd), 0.02),
+                    "w_uv": normal((r, nq, vd), 0.02),
+                    "wo": normal((nq, vd, d), out_std), "kv_norm": ones(r)["w"]}
+        a = {"wq": normal((d, nq, hd), 0.02), "wk": normal((d, nkv, hd), 0.02),
+             "wv": normal((d, nkv, hd), 0.02), "wo": normal((nq, hd, d), out_std)}
+        if cfg.attn_bias:
+            a.update(bq=zeros((nq, hd)), bk=zeros((nkv, hd)), bv=zeros((nkv, hd)))
+        if cfg.qk_norm:
+            a.update(q_norm=ones(hd)["w"], k_norm=ones(hd)["w"])
+        return a
 
-        def block(moe):
-            b = {"attn_norm": ones(d),
-                 "attn": {"wq": normal((d, nq, nd + rd), 0.02),
-                          "w_dkv": normal((d, r + rd), 0.02),
-                          "w_uk": normal((r, nq, nd), 0.02),
-                          "w_uv": normal((r, nq, vd), 0.02),
-                          "wo": normal((nq, vd, d), out_std), "kv_norm": ones(r)["w"]},
-                 "mlp_norm": ones(d)}
-            if not moe:
-                b["mlp"] = mlp()
-                return b
-            b["moe"] = {"router": normal((d, E), 0.02), "w_gate": normal((E, d, eff), 0.02),
-                        "w_up": normal((E, d, eff), 0.02),
-                        "w_down": normal((E, eff, d), out_std)}
-            if cfg.n_shared_experts:
-                sh = eff * cfg.n_shared_experts
-                b["moe"]["shared"] = {"w_gate": normal((d, sh), 0.02),
-                                      "w_up": normal((d, sh), 0.02),
-                                      "w_down": normal((sh, d), out_std)}
+    def block(moe=False):
+        b = {"attn_norm": ones(d), "attn": attn(), "mlp_norm": ones(d)}
+        if not moe:
+            b["mlp"] = mlp()
             return b
+        E, eff = cfg.n_experts, cfg.expert_d_ff or cfg.d_ff
+        b["moe"] = {"router": normal((d, E), 0.02), "w_gate": normal((E, d, eff), 0.02),
+                    "w_up": normal((E, d, eff), 0.02),
+                    "w_down": normal((E, eff, d), out_std)}
+        if cfg.n_shared_experts:
+            sh = eff * cfg.n_shared_experts
+            b["moe"]["shared"] = {"w_gate": normal((d, sh), 0.02),
+                                  "w_up": normal((d, sh), 0.02),
+                                  "w_down": normal((sh, d), out_std)}
+        return b
+
+    if cfg.family == "moe":
         nd_layers = cfg.first_dense_layers
         if nd_layers:
-            p["dense_layers"] = [block(False) for _ in range(nd_layers)]
-        p["layers"] = [block(True) for _ in range(cfg.num_layers - nd_layers)]
+            p["dense_layers"] = [block() for _ in range(nd_layers)]
+        p["layers"] = [block(moe=True) for _ in range(cfg.num_layers - nd_layers)]
         return p
-    layers = []
-    for _ in range(cfg.num_layers):
-        attn = {"wq": normal((d, nq, hd), 0.02), "wk": normal((d, nkv, hd), 0.02),
-                "wv": normal((d, nkv, hd), 0.02), "wo": normal((nq, hd, d), out_std)}
-        if cfg.attn_bias:
-            attn.update(bq=zeros((nq, hd)), bk=zeros((nkv, hd)), bv=zeros((nkv, hd)))
-        if cfg.qk_norm:
-            attn.update(q_norm=ones(hd)["w"], k_norm=ones(hd)["w"])
-        layers.append({"attn_norm": ones(d), "attn": attn, "mlp_norm": ones(d),
-                       "mlp": mlp()})
-    p["layers"] = layers
+    if cfg.family == "hybrid":
+        p["layers"] = [{"norm": ones(d), "mamba": S.mamba2_init(cfg, generator, dev, dt)}
+                       for _ in range(cfg.num_layers)]
+        p["shared_blocks"] = [block() for _ in range(cfg.n_shared_attn_blocks)]
+        r = cfg.shared_lora_rank
+        p["lora"] = [{"a_q": normal((d, r), 0.02), "b_q": zeros((r, nq * hd)),
+                      "a_k": normal((d, r), 0.02), "b_k": zeros((r, nkv * hd)),
+                      "a_v": normal((d, r), 0.02), "b_v": zeros((r, nkv * hd)),
+                      "a_o": normal((d, r), 0.02), "b_o": zeros((r, d))}
+                     for _ in range(n_applications(cfg))]
+        return p
+    p["layers"] = [block() for _ in range(cfg.num_layers)]
     if cfg.family == "vlm":
         def normal32(shape):
             return torch.randn(shape, generator=generator, device=dev,
@@ -213,48 +245,128 @@ def _blocks(params) -> list:
     return params.get("dense_layers", []) + params["layers"]
 
 
-def _trunk(cfg, params, x, attend):
-    """Run the attention blocks: x + attend(li, attn params, normed x), then
-    the MLP or MoE feed-forward on the residual."""
-    for li, lp in enumerate(_blocks(params)):
-        x = x + attend(li, lp["attn"], L.norm_apply(cfg, lp["attn_norm"], x))
+def _trunk(cfg, params, x, attend=None, mamba=None):
+    """Run the blocks on x. Attention blocks: x + attend(li, attn params,
+    normed x, lora), then the MLP or MoE feed-forward on the residual.
+    Mamba blocks: x + mamba(li, mamba params, normed x). The ssm family
+    runs only Mamba blocks; the hybrid family runs application i of its
+    shared blocks (with adapter "lora"[i], pool layer i) before Mamba
+    layers [i * attn_every, (i + 1) * attn_every)."""
+    def attention_block(li, lp, x, lora=None):
+        x = x + attend(li, lp["attn"], L.norm_apply(cfg, lp["attn_norm"], x), lora)
         h = L.norm_apply(cfg, lp["mlp_norm"], x)
-        x = x + (L.moe_apply(cfg, lp["moe"], h) if "moe" in lp
-                 else L.mlp_apply(cfg, lp["mlp"], h))
+        return x + (L.moe_apply(cfg, lp["moe"], h) if "moe" in lp
+                    else L.mlp_apply(cfg, lp["mlp"], h))
+
+    def mamba_block(li, x):
+        lp = params["layers"][li]
+        return x + mamba(li, lp["mamba"], L.norm_apply(cfg, lp["norm"], x))
+
+    if cfg.family == "ssm":
+        for li in range(cfg.num_layers):
+            x = mamba_block(li, x)
+        return x
+    if cfg.family == "hybrid":
+        for i in range(n_applications(cfg)):
+            shared = params["shared_blocks"][i % cfg.n_shared_attn_blocks]
+            x = attention_block(i, shared, x, params["lora"][i])
+            for li in range(i * cfg.attn_every, (i + 1) * cfg.attn_every):
+                x = mamba_block(li, x)
+        return x
+    for li, lp in enumerate(_blocks(params)):
+        x = attention_block(li, lp, x)
     return x
 
 
-# ------------------------------------------------------ Mamba1 (ssm) -------
+# ------------------------------------------- recurrent state (ssm, hybrid) --
 
 
 def init_state_cache(cfg: ModelConfig, B: int, dtype=None, device=None) -> dict:
-    """The per-slot state that is not indexed by token position: for
-    Mamba1 the conv window (L, B, K-1, di) in `dtype` (default cfg.dtype)
-    and the scan state (L, B, di, N) float32, zeros; the dense family has
+    """The per-slot state that is not indexed by token position: the conv
+    window (L, B, K-1, c) in `dtype` (default cfg.dtype) -- Mamba1 c = di,
+    Mamba2 c = di + 2N -- and the scan state in float32, (L, B, di, N) for
+    Mamba1 and (L, B, h, p, N) for Mamba2, zeros; the other families have
     none."""
     _check_family(cfg)
-    if cfg.family != "ssm":
+    if cfg.family not in ("ssm", "hybrid"):
         return {}
     dev = resolve_device(device)
     dt = dtype or torch_dtype(cfg.dtype)
-    return {"conv": torch.zeros((cfg.num_layers, B, cfg.ssm_conv - 1, cfg.d_inner),
-                                dtype=dt, device=dev),
-            "ssm": torch.zeros((cfg.num_layers, B, cfg.d_inner, cfg.ssm_state),
-                               dtype=torch.float32, device=dev)}
+    Lc, K = cfg.num_layers, cfg.ssm_conv
+    return {"conv": torch.zeros((Lc, B, K - 1) + _conv_width(cfg), dtype=dt, device=dev),
+            "ssm": torch.zeros((Lc, B) + _state_shape(cfg), dtype=torch.float32, device=dev)}
+
+
+def _conv_width(cfg: ModelConfig) -> tuple:
+    return (cfg.d_inner + 2 * cfg.ssm_state,) if cfg.mamba_version == 2 else (cfg.d_inner,)
+
+
+def _state_shape(cfg: ModelConfig) -> tuple:
+    if cfg.mamba_version == 2:
+        return (cfg.n_ssm_heads, cfg.mamba_headdim, cfg.ssm_state)
+    return (cfg.d_inner, cfg.ssm_state)
 
 
 def init_verify_ckpts(cfg: ModelConfig, B: int, C: int, dtype=None, device=None) -> dict:
-    """Buffers a Mamba1 verify forward of B rows x C candidates fills with
-    its rollback checkpoints: "ssm" (L, B, C, di, N) float32, the state
-    after every position, and "conv" (L, B, K-1+C, di), the raw input
-    history with the carried window. Allocated once and reused: at
-    falcon-mamba-7b's width and B = 4, C = 5 they hold ~0.7 GB."""
+    """Buffers a verify forward of B rows x C candidates fills with its
+    rollback checkpoints: "ssm" (L, B, C, *state) float32, the state after
+    every position, and "conv" (L, B, K-1+C, c), the raw input history with
+    the carried window. Allocated once and reused: at falcon-mamba-7b's
+    width and B = 4, C = 5 they hold ~0.7 GB, at zamba2-2.7b's ~1.4 GB."""
     dev = resolve_device(device)
     dt = dtype or torch_dtype(cfg.dtype)
-    Lc, di = cfg.num_layers, cfg.d_inner
-    return {"ssm": torch.empty((Lc, B, C, di, cfg.ssm_state), dtype=torch.float32,
+    Lc = cfg.num_layers
+    return {"ssm": torch.empty((Lc, B, C) + _state_shape(cfg), dtype=torch.float32,
                                device=dev),
-            "conv": torch.empty((Lc, B, cfg.ssm_conv - 1 + C, di), dtype=dt, device=dev)}
+            "conv": torch.empty((Lc, B, cfg.ssm_conv - 1 + C) + _conv_width(cfg), dtype=dt,
+                                device=dev)}
+
+
+def _mamba(cfg, S1, S2):
+    return S2 if cfg.mamba_version == 2 else S1
+
+
+def _mamba_decode(cfg, state):
+    """One decode step of each Mamba layer, updating `state` (conv/ssm, B
+    rows) in place: plain tensor ops, as the JAX step."""
+    step = _mamba(cfg, S.mamba1_decode, S.mamba2_decode)
+
+    def run(li, p, h):
+        y, state["conv"][li], state["ssm"][li] = step(
+            cfg, p, h, conv_state=state["conv"][li], ssm_state=state["ssm"][li])
+        return y
+    return run
+
+
+def _mamba_chunk(cfg, state, length):
+    """A right-padded chunk through each Mamba layer from the carried state
+    (updated in place, frozen past `length`): Mamba1's scan through K7,
+    Mamba2's SSD matrix form."""
+    chunk = _mamba(cfg, S.mamba1_chunk, S.mamba2_chunk)
+
+    def run(li, p, h):
+        y, state["conv"][li], state["ssm"][li] = chunk(
+            cfg, p, h, conv_state=state["conv"][li], ssm_state=state["ssm"][li],
+            length=length)
+        return y
+    return run
+
+
+def _mamba_verify(cfg, state, ckpts, C):
+    """A verify forward through each Mamba layer: the state advances through
+    all C candidates in place, and `ckpts` (`init_verify_ckpts`) receives
+    every position's state and the conv history. Mamba1 scans through K7,
+    Mamba2 steps its decode recurrence."""
+    fn = _mamba(cfg, S.mamba1_chunk_states, S.mamba2_chunk_states)
+
+    def run(li, p, h):
+        y, hist, hs = fn(cfg, p, h, conv_state=state["conv"][li],
+                         ssm_state=state["ssm"][li], states=ckpts["ssm"][li])
+        ckpts["conv"][li] = hist
+        state["conv"][li] = hist[:, C:]
+        state["ssm"][li] = hs[:, -1]
+        return y
+    return run
 
 
 def _logits(cfg, params, x):
@@ -274,50 +386,6 @@ def _embed(cfg, params, tokens, image_embeds=None):
     return torch.cat([img, x], dim=1), img.shape[1]
 
 
-def _ssm_decode(cfg, params, tokens, state):
-    """One Mamba1 decode step of every row of `state` (plain tensor ops, as
-    the JAX step), updating its conv and ssm in place."""
-    x = params["embed"][tokens.long()]
-    for li, lp in enumerate(params["layers"]):
-        y, state["conv"][li], state["ssm"][li] = S.mamba1_decode(
-            cfg, lp["mamba"], L.norm_apply(cfg, lp["norm"], x),
-            conv_state=state["conv"][li], ssm_state=state["ssm"][li])
-        x = x + y
-    return _logits(cfg, params, x)
-
-
-def _ssm_chunk(cfg, params, tokens, length, state):
-    """A right-padded Mamba1 prompt chunk through K7 from the carried state
-    (updated in place, frozen past `length`); logits at the last real
-    position."""
-    x = params["embed"][tokens.long()]
-    for li, lp in enumerate(params["layers"]):
-        y, state["conv"][li], state["ssm"][li] = S.mamba1_chunk(
-            cfg, lp["mamba"], L.norm_apply(cfg, lp["norm"], x),
-            conv_state=state["conv"][li], ssm_state=state["ssm"][li], length=length)
-        x = x + y
-    return _logits(cfg, params, x[:, length - 1:length])
-
-
-def _ssm_verify(cfg, params, tokens, state, ckpts):
-    """A Mamba1 verify forward: every position's logits; the state advances
-    through all C candidates in place, and `ckpts` (`init_verify_ckpts`)
-    receives every position's state and the conv history. Returns the
-    logits (B, C, V)."""
-    C = tokens.shape[1]
-    x = params["embed"][tokens.long()]
-    for li, lp in enumerate(params["layers"]):
-        y, hist, hs = S.mamba1_chunk_states(
-            cfg, lp["mamba"], L.norm_apply(cfg, lp["norm"], x),
-            conv_state=state["conv"][li], ssm_state=state["ssm"][li],
-            states=ckpts["ssm"][li])
-        ckpts["conv"][li] = hist
-        state["conv"][li] = hist[:, C:]
-        state["ssm"][li] = hs[:, -1]
-        x = x + y
-    return _logits(cfg, params, x)
-
-
 # ------------------------------------------------------------- decode ------
 
 
@@ -327,33 +395,36 @@ def decode_step(cfg: ModelConfig, params, tokens, pos, pools, table, write_pages
 
     tokens (B, 1) int; pos (B,) int32 -- row b's token sits at position
     pos[b]; table (B, nb) int32 page tables; write_pages (B,) the page that
-    holds position pos[b] (the sink page for a dead row). Writes each
-    layer's K/V at (write_pages[b], pos[b] % ps) and attends positions
-    < pos[b] + 1 with kernel K1. Returns logits (B, 1, V); the caller
-    advances pos. Mamba1 steps `state` (conv/ssm, B rows) in place
-    instead, with plain tensor ops; pools and tables go unused. MLA attends
-    each row's gathered view and writes the block holding pos back to
-    write_pages (`layers.mla_decode_apply`).
+    holds position pos[b]. Writes each layer's K/V at (write_pages[b],
+    pos[b] % ps) and attends positions < pos[b] + 1 through the table with
+    kernel K1. Returns logits (B, 1, V); the caller advances pos. The engine
+    gives a dead row an all-sink table and the sink as its write page; for a
+    MoE model it redirects the sink blocks a row writes to private scratch
+    pages (`cache_ops.sink_plan`). Mamba1 steps `state` (conv/ssm, B rows)
+    in place instead, with plain tensor ops; pools and tables go unused.
+    The hybrid family does both: attention on the pools (n_app layers),
+    Mamba2 on `state`. MLA attends each row's gathered view and writes the
+    block holding pos back to write_pages (`layers.mla_decode_apply`).
     """
     _check_family(cfg)
-    if cfg.family == "ssm":
-        return _ssm_decode(cfg, params, tokens, state)
     x = params["embed"][tokens.long()]
+    attend = None
     if cfg.use_mla:
-        def attend(li, p, h):
+        def attend(li, p, h, lora=None):
             return L.mla_decode_apply(cfg, p, h, pos=pos, ckv_pool=pools["ckv"][li],
                                       krope_pool=pools["krope"][li], table=table,
                                       write_pages=write_pages)
-    else:
+    elif cfg.family != "ssm":
         ps = pools["k"].shape[2]
         wp = write_pages.long()
         offs = (pos % ps).long()
 
-        def attend(li, p, h):
+        def attend(li, p, h, lora=None):
             return L.attn_decode_apply(cfg, p, h, pos=pos, k_pool=pools["k"][li],
                                        v_pool=pools["v"][li], table=table,
-                                       write_pages=wp, write_offsets=offs)
-    return _logits(cfg, params, _trunk(cfg, params, x, attend))
+                                       write_pages=wp, write_offsets=offs, lora=lora)
+    mamba = _mamba_decode(cfg, state)
+    return _logits(cfg, params, _trunk(cfg, params, x, attend, mamba))
 
 
 # ------------------------------------------------------- chunked prefill ---
@@ -372,32 +443,34 @@ def prefill_chunk(cfg: ModelConfig, params, tokens, start: int, length: int,
     the context causally. Returns the logits (1, 1, V) at the last real
     position; the sequence's position advances by `length`. Mamba1
     advances the sequence's B=1 `state` in place through K7, frozen past
-    `length`; pools and ctx_ids go unused. MLA attends the sequence's
-    gathered view (`layers.mla_chunk_apply`). A vlm sequence's first chunk
-    may carry `image_embeds` (1, n_img, VISION_DIM): the projected image
-    rows sit at [start, start+n_img) ahead of the text, ctx_ids covers
+    `length`; pools and ctx_ids go unused. The hybrid family runs its
+    attention on the pools and its Mamba2 layers on `state` (the SSD
+    form). MLA attends the sequence's gathered view
+    (`layers.mla_chunk_apply`). A vlm sequence's first chunk may carry
+    `image_embeds` (1, n_img, VISION_DIM): the projected image rows sit at
+    [start, start+n_img) ahead of the text, ctx_ids covers
     start+n_img+C-1, the logits are taken at the last real text position
     and the position advances by n_img + `length`.
     """
     _check_family(cfg)
-    if cfg.family == "ssm":
-        return _ssm_chunk(cfg, params, tokens, length, state)
     x, n_img = _embed(cfg, params, tokens, image_embeds)
+    attend = None
     if cfg.use_mla:
-        def attend(li, p, h):
+        def attend(li, p, h, lora=None):
             return L.mla_chunk_apply(cfg, p, h, start=start, ckv_pool=pools["ckv"][li],
                                      krope_pool=pools["krope"][li], ctx_ids=ctx_ids)
-    else:
+    elif cfg.family != "ssm":
         ps = pools["k"].shape[2]
         positions = start + torch.arange(x.shape[1], device=ctx_ids.device)
         wp = ctx_ids[positions // ps].long()
         offs = positions % ps
 
-        def attend(li, p, h):
+        def attend(li, p, h, lora=None):
             return L.attn_chunk_apply(cfg, p, h, start=start, k_pool=pools["k"][li],
                                       v_pool=pools["v"][li], ctx_ids=ctx_ids,
-                                      write_pages=wp, write_offsets=offs)
-    x = _trunk(cfg, params, x, attend)
+                                      write_pages=wp, write_offsets=offs, lora=lora)
+    mamba = _mamba_chunk(cfg, state, length)
+    x = _trunk(cfg, params, x, attend, mamba)
     last = n_img + length
     return _logits(cfg, params, x[:, last - 1:last])
 
@@ -413,35 +486,39 @@ def verify_chunk(cfg: ModelConfig, params, tokens, pos, pools, table,
     padded; pos (B,) int32 -- row b's candidate c sits at position
     pos[b] + c; table (B, nb) int32 page tables covering every candidate
     position; write_pages / write_offsets (B, C) the page and slot of each
-    candidate position (the sink page past the row's table). Each layer
-    writes the candidates' K/V in place, then kernel K4 attends causally
-    from pos[b]. Unlike `prefill_chunk` it returns the logits at every
-    position, (B, C, V): the acceptance test needs the greedy target after
-    each candidate. The dense family keeps no recurrent state, so there
-    are no checkpoints; rollback is the engine's page truncation. Mamba1
-    advances `state` (B rows) in place through all C candidates with K7
-    and writes the rollback checkpoints into `ckpts` (`init_verify_ckpts`);
-    pools and tables go unused. MLA attends each row's gathered view and
-    writes its blocks [block0s[b], block0s[b] + nb) back through the table
-    (`layers.mla_verify_apply`); block0s (B,) is the JAX engine's.
+    candidate position (the sink page past the row's table; for a MoE
+    model the engine's scratch pages and, where the JAX package drops the
+    write, a trash page). Each layer writes the candidates' K/V in place,
+    then kernel K4 attends causally from pos[b]. Unlike `prefill_chunk` it
+    returns the logits at every position, (B, C, V): the acceptance test
+    needs the greedy target after each candidate. The dense family keeps no
+    recurrent state, so there are no checkpoints; rollback is the engine's
+    page truncation. Mamba1 advances `state` (B rows) in place through all
+    C candidates with K7 and writes the rollback checkpoints into `ckpts`
+    (`init_verify_ckpts`); pools and tables go unused. The hybrid family's
+    attention runs on the pools and its Mamba2 layers step their
+    recurrence through the candidates, checkpointing likewise. MLA attends
+    each row's gathered view and writes its blocks [block0s[b], block0s[b]
+    + nb) back through the table (`layers.mla_verify_apply`); block0s (B,)
+    is the JAX engine's.
     """
     _check_family(cfg)
-    if cfg.family == "ssm":
-        return _ssm_verify(cfg, params, tokens, state, ckpts)
     x = params["embed"][tokens.long()]
+    attend = None
     if cfg.use_mla:
-        def attend(li, p, h):
+        def attend(li, p, h, lora=None):
             return L.mla_verify_apply(cfg, p, h, pos=pos, ckv_pool=pools["ckv"][li],
                                       krope_pool=pools["krope"][li], table=table,
                                       block0s=block0s)
-    else:
+    elif cfg.family != "ssm":
         wp, offs = write_pages.long(), write_offsets.long()
 
-        def attend(li, p, h):
+        def attend(li, p, h, lora=None):
             return L.attn_verify_apply(cfg, p, h, pos=pos, k_pool=pools["k"][li],
                                        v_pool=pools["v"][li], table=table,
-                                       write_pages=wp, write_offsets=offs)
-    return _logits(cfg, params, _trunk(cfg, params, x, attend))
+                                       write_pages=wp, write_offsets=offs, lora=lora)
+    mamba = _mamba_verify(cfg, state, ckpts, tokens.shape[1])
+    return _logits(cfg, params, _trunk(cfg, params, x, attend, mamba))
 
 
 # ------------------------------------------------------------ slab KV ------
@@ -453,14 +530,16 @@ def init_decode_cache(cfg: ModelConfig, B: int, max_len: int, dtype=None,
     pos a 0-d int32 (the engine makes it (B,)), k/v (L, B, max_len, Hkv,
     D) zeros in `dtype` (default cfg.dtype); MLA keeps ckv (L, B, max_len,
     r) and krope (L, B, max_len, rd) instead; Mamba1 keeps its state
-    (`init_state_cache`)."""
+    (`init_state_cache`); the hybrid family keeps its Mamba2 state and k/v
+    of n_app layers, one per shared-block application."""
     _check_family(cfg)
     dev = resolve_device(device)
     dt = dtype or torch_dtype(cfg.dtype)
-    cache = {"pos": torch.zeros((), dtype=torch.int32, device=dev)}
+    cache = {"pos": torch.zeros((), dtype=torch.int32, device=dev),
+             **init_state_cache(cfg, B, dtype=dt, device=dev)}
     if cfg.family == "ssm":
-        return {**cache, **init_state_cache(cfg, B, dtype=dt, device=dev)}
-    Lc = cfg.num_layers
+        return cache
+    Lc = n_applications(cfg) if cfg.family == "hybrid" else cfg.num_layers
     if cfg.use_mla:
         cache["ckv"] = torch.zeros((Lc, B, max_len, cfg.kv_lora_rank), dtype=dt, device=dev)
         cache["krope"] = torch.zeros((Lc, B, max_len, cfg.qk_rope_dim), dtype=dt, device=dev)
@@ -483,9 +562,11 @@ def prefill(cfg: ModelConfig, params, tokens, max_len: int, length=None,
     the slab from position 0, and cache["pos"] = length. MLA runs the
     non-absorbed causal attention over the prompt (`layers.mla_apply`) and
     writes its c_kv/k_rope. Mamba1 runs the prompt as one chunk through K7
-    from the fresh cache's zero state, frozen past `length`. The vlm family
-    takes the prompt's `image_embeds` (B, n_img, VISION_DIM) ahead of the
-    text (`length` counts text tokens only; pos = n_img + length).
+    from the fresh cache's zero state, frozen past `length`; Mamba2 (the
+    hybrid family) as one SSD chunk from the zero state, as the JAX
+    `prefill` runs `mamba2_ssd_ref` over the prompt. The vlm family takes
+    the prompt's `image_embeds` (B, n_img, VISION_DIM) ahead of the text
+    (`length` counts text tokens only; pos = n_img + length).
     """
     _check_family(cfg)
     B, S = tokens.shape
@@ -496,29 +577,27 @@ def prefill(cfg: ModelConfig, params, tokens, max_len: int, length=None,
     dev = params["embed"].device
     cache = init_decode_cache(cfg, B, max_len, device=dev)
     n = n_img + (S if length is None else int(length))
-    if cfg.family == "ssm":
-        # the fresh cache's zero conv window and state are the zero history
-        logits = _ssm_chunk(cfg, params, tokens, n, cache)
-        cache["pos"] = torch.tensor(n, dtype=torch.int32, device=dev)
-        return logits, cache
     x, _ = _embed(cfg, params, tokens, image_embeds)
     S = x.shape[1]
+    attend = None
     if cfg.use_mla:
         positions = torch.arange(S, device=dev)[None]
 
-        def attend(li, p, h):
+        def attend(li, p, h, lora=None):
             out, c_kv, k_rope = L.mla_apply(cfg, p, h, positions=positions)
             L.cache_write_chunk(cache["ckv"][li], c_kv, 0)
             L.cache_write_chunk(cache["krope"][li], k_rope, 0)
             return out
-    else:
+    elif cfg.family != "ssm":
         ps = L.slab_page_size(max_len)
         tables = L.slab_tables(B, max_len, ps, dev)
 
-        def attend(li, p, h):
+        def attend(li, p, h, lora=None):
             return L.attn_apply_slab(cfg, p, h, k_cache=cache["k"][li],
-                                     v_cache=cache["v"][li], tables=tables)
-    x = _trunk(cfg, params, x, attend)
+                                     v_cache=cache["v"][li], tables=tables, lora=lora)
+    # the fresh cache's zero conv window and state are the zero history
+    mamba = _mamba_chunk(cfg, cache, n)
+    x = _trunk(cfg, params, x, attend, mamba)
     cache["pos"] = torch.tensor(n, dtype=torch.int32, device=dev)
     return _logits(cfg, params, x[:, n - 1:n]), cache
 
@@ -531,24 +610,23 @@ def decode_step_slab(cfg: ModelConfig, params, tokens, cache):
     prefill) or (B,) per-row positions. Writes each layer's K/V at pos
     (rows at or past max_len dropped) and attends positions < pos + 1 with
     kernel K5 (MLA: `layers.mla_decode_apply_slab`). Returns (logits (B,
-    1, V), cache) with pos advanced by one. Mamba1 steps the cache's
-    conv/ssm in place.
+    1, V), cache) with pos advanced by one. Mamba1 and Mamba2 step the
+    cache's conv/ssm in place.
     """
     _check_family(cfg)
     pos = cache["pos"]
-    if cfg.family == "ssm":
-        cache["pos"] = pos + 1
-        return _ssm_decode(cfg, params, tokens, cache), cache
     x = params["embed"][tokens.long()]
+    attend = None
     if cfg.use_mla:
-        def attend(li, p, h):
+        def attend(li, p, h, lora=None):
             return L.mla_decode_apply_slab(cfg, p, h, pos=pos, ckv_cache=cache["ckv"][li],
                                            krope_cache=cache["krope"][li])
-    else:
-        def attend(li, p, h):
+    elif cfg.family != "ssm":
+        def attend(li, p, h, lora=None):
             return L.attn_decode_apply_slab(cfg, p, h, pos=pos, k_cache=cache["k"][li],
-                                            v_cache=cache["v"][li])
-    x = _trunk(cfg, params, x, attend)
+                                            v_cache=cache["v"][li], lora=lora)
+    mamba = _mamba_decode(cfg, cache)
+    x = _trunk(cfg, params, x, attend, mamba)
     cache["pos"] = pos + 1
     return _logits(cfg, params, x), cache
 
@@ -564,27 +642,26 @@ def verify_chunk_slab(cfg: ModelConfig, params, tokens, cache, ckpts=None):
     causally from pos[b] over the slab seen as pages (MLA: `layers.
     mla_chunk_apply_slab`). Returns (logits (B, C, V), cache) with pos
     advanced by C; the dense family keeps no recurrent state, so rollback
-    is the engine's position reset. Mamba1 advances the cache's conv/ssm in
-    place with K7 and fills `ckpts` as `verify_chunk` does.
+    is the engine's position reset. Mamba1 and Mamba2 advance the cache's
+    conv/ssm in place and fill `ckpts` as `verify_chunk` does.
     """
     _check_family(cfg)
     pos = cache["pos"]
-    if cfg.family == "ssm":
-        cache["pos"] = pos + tokens.shape[1]
-        return _ssm_verify(cfg, params, tokens, cache, ckpts), cache
     x = params["embed"][tokens.long()]
+    attend = None
     if cfg.use_mla:
-        def attend(li, p, h):
+        def attend(li, p, h, lora=None):
             return L.mla_chunk_apply_slab(cfg, p, h, start=pos, ckv_cache=cache["ckv"][li],
                                           krope_cache=cache["krope"][li])
-    else:
+    elif cfg.family != "ssm":
         S = cache["k"].shape[2]
         ps = L.slab_page_size(S)
         tables = L.slab_tables(tokens.shape[0], S, ps, pos.device)
 
-        def attend(li, p, h):
+        def attend(li, p, h, lora=None):
             return L.attn_chunk_apply_slab(cfg, p, h, start=pos, k_cache=cache["k"][li],
-                                           v_cache=cache["v"][li], tables=tables)
-    x = _trunk(cfg, params, x, attend)
+                                           v_cache=cache["v"][li], tables=tables, lora=lora)
+    mamba = _mamba_verify(cfg, cache, ckpts, tokens.shape[1])
+    x = _trunk(cfg, params, x, attend, mamba)
     cache["pos"] = pos + tokens.shape[1]
     return _logits(cfg, params, x), cache

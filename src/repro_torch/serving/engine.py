@@ -12,10 +12,21 @@ carried along), and live slots decode together in batched `decode_step`s.
 On the card both run their attention on the pool itself -- kernel K2 for a
 chunk, kernel K1 for a decode step -- where the JAX engine gathers the
 pages into dense views, runs jnp attention and scatters the pages back.
-MLA (deepseek-v2-lite-16b) keeps the JAX engine's form: it gathers each
-row's view, attends it in plain PyTorch and writes the dirtied blocks
-back, so the sink page holds what the JAX engine's holds -- a dead row
-reads it, and with MoE a dead row's tokens compete for expert capacity.
+The sink page (page 0) holds what the JAX engine's holds, on every
+family: a dead row's table is all sink and it attends the sink, and so
+does a padded position past a row's pages; with MoE those tokens compete
+for expert capacity, and a dead hybrid slot's Mamba2 state is kept. Each
+JAX row reads its gathered view -- the sink as it was before the call,
+plus the row's own new tokens -- and the scatter back leaves in the sink
+the last (row, block), in row-major order, of the blocks that map to it.
+MLA (deepseek-v2-lite-16b) keeps that form: it gathers each row's view,
+attends it in plain PyTorch and writes the dirtied blocks back. The
+dense paged path keeps its kernels on the pool and gets the same from
+`cache_ops.sink_plan`: each sink block a row writes is replaced in that
+row's table by a scratch page of its own (past the allocatable pages),
+seeded from the sink before the call, a write the JAX package drops goes
+to a trash page, and after the call the sink takes the winning block, so
+the write is deterministic on the card.
 A request whose prompt extends a cached prefix (`prefix_cache=True`)
 splices the entry's full page ids into its table (ref-counted), copies the
 partially filled boundary page (copy-on-write) and chunk-prefills only the
@@ -52,6 +63,12 @@ the state after every candidate into checkpoint buffers allocated once
 per engine (`models.init_verify_ckpts`), and a row that rejects part of
 its drafts is restored from the checkpoint at its kept length
 (`_restore_ckpt_rows`), on either layout.
+
+The hybrid family (zamba2-2.7b) has both: KV pools of one layer per
+shared-block application, and its Mamba2 conv window and state per slot
+beside them. A prefix entry holds the pages and a copy of the state at
+its boundary together, and verify rounds checkpoint and restore the
+Mamba2 state as Mamba1's.
 
 The vlm family (llava-next-mistral-7b) puts `n_image_tokens` image
 positions in front of every prompt (`_extra`, from the stub vision
@@ -91,8 +108,9 @@ from repro_torch.models import (decode_step, decode_step_slab,
 from repro_torch.models.cache_ops import (PAGE_SINK, PageAllocator,
                                           PagePoolExhausted, cache_nbytes,
                                           expand_snapshot, prefix_snapshot,
-                                          release_trailing_pages,
-                                          truncate_pages, write_slot)
+                                          release_trailing_pages, seed_scratch,
+                                          sink_plan, sink_take, truncate_pages,
+                                          write_slot)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import VISION_DIM
 from repro_torch.obs import MetricsRegistry, StatsDict, as_tracer
@@ -173,8 +191,8 @@ class ServingEngine:
         spec_k: draft tokens per verify round (each round emits 1..k+1).
         spec_ngram: longest n-gram the prompt-lookup drafter matches.
         draft_model: (ModelConfig, params) of the draft model, required for
-        spec_decode="draft" (dense/moe family, same vocab; the port runs a
-        dense or an MLA MoE draft); its params must live on `device`.
+        spec_decode="draft" (dense/moe family, same vocab); its params
+        must live on `device`.
         page_allocator: a `PageAllocator` shared with other engines (a
         replica group's one KV pool) in place of the engine's own; its page
         size must be `page_size` and its pools must live on `device`.
@@ -264,6 +282,13 @@ class ServingEngine:
                 raise ValueError(
                     f"max_len={max_len} must be a multiple of page_size={page_size}")
             self.pages_per_slot = max_len // self.page_size
+            # scratch pages a call may take (`cache_ops.sink_plan`): the sink
+            # blocks a padded chunk, or every row of a decode step or verify
+            # round, can write, and the trash page
+            ps, cs = self.page_size, self.chunk_size + self._extra
+            C = self.spec_k + 1 if self.spec else 1
+            n_scratch = max((cs + ps - 2) // ps + 1,
+                            slots * ((C + ps - 2) // ps + 1 if ps > 1 else C)) + 1
             if page_allocator is not None:
                 assert page_allocator.page_size == self.page_size, (
                     f"shared allocator page_size={page_allocator.page_size} "
@@ -279,6 +304,11 @@ class ServingEngine:
                     num_pages = (slots + 4) * self.pages_per_slot + 1
                 self.alloc = PageAllocator(cfg, num_pages, self.page_size,
                                            device=self.device)
+            # the dense paged path reads and writes the sink through scratch
+            # pages; MLA gathers views and writes their blocks back itself
+            self._sink_pages = "k" in self.alloc.pools
+            if self._sink_pages:
+                self.alloc.reserve_scratch(n_scratch)
 
     # ------------------------------------------------------------ intake --
 
@@ -417,12 +447,20 @@ class ServingEngine:
             with_images = self._extra > 0 and lpos == 0
             extra = self._extra if with_images else 0
             llen_pad = cs + extra         # positions the padded chunk touches
+            winner = PAGE_SINK
             if has_pool:
                 # blocks the padded chunk can dirty, and the context they need
                 nb = (llen_pad + ps - 2) // ps + 1 if ps > 1 else llen_pad
                 n_ctx = _pow2_at_least(max(-(-(lpos + llen_pad) // ps), nb))
-                ctx = self._ids([pages[b] if b < len(pages) else PAGE_SINK
-                                 for b in range(n_ctx)])
+                ctx = np.asarray([[pages[b] if b < len(pages) else PAGE_SINK
+                                   for b in range(n_ctx)]], np.int32)
+                if self._sink_pages:
+                    b0 = min(lpos // ps, n_ctx - nb)
+                    ctx, _, seeds, winner = sink_plan(
+                        ctx, lpos + np.arange(llen_pad)[None], b0 + np.arange(nb)[None],
+                        ps, self.alloc.scratch)
+                    seed_scratch(self.alloc.pools, seeds)
+                ctx = self._ids(ctx[0])
             else:
                 n_ctx, ctx = 0, None
             chunk = list(tokens[i:i + true_clen]) + [0] * (cs - true_clen)
@@ -431,6 +469,7 @@ class ServingEngine:
                 torch.as_tensor([chunk], dtype=torch.int64, device=self.device),
                 lpos, true_clen, self.alloc.pools, ctx, state=state,
                 image_embeds=self._image_embeds() if with_images else None)
+            sink_take(self.alloc.pools, winner)
             self.stats["prefill_invocations"] += 1
             self.stats["prefill_chunks"] += 1
             self.stats["prefill_ctx_positions"] += \
@@ -530,7 +569,7 @@ class ServingEngine:
             self.alloc.release(self.slot_pages[slot])
             self.slot_pages[slot] = []
 
-    def _page_table(self, width: int) -> torch.Tensor:
+    def _page_table(self, width: int) -> np.ndarray:
         """Page table truncated to the live rows' block high-water mark
         (pow2-bucketed by the caller): decode attends only the blocks
         actually in use instead of the full max_len."""
@@ -538,7 +577,7 @@ class ServingEngine:
         for s, pages in enumerate(self.slot_pages):
             if self._live[s]:
                 tbl[s, :min(len(pages), width)] = pages[:width]
-        return self._ids(tbl)
+        return tbl
 
     def _insert_paged_co(self, slot: int, req: Request):
         """Chunked prefill of `req` into `slot`. Pages are acquired all at
@@ -656,6 +695,7 @@ class ServingEngine:
     def _step(self):
         if self.paged:
             table = write_ids = None
+            winner = PAGE_SINK
             if self.alloc.pools:
                 write_ids = np.full((self.slots,), PAGE_SINK, np.int32)
                 maxb = 1
@@ -666,10 +706,21 @@ class ServingEngine:
                         if b < len(self.slot_pages[s]):
                             write_ids[s] = self.slot_pages[s][b]
                 width = min(_pow2_at_least(maxb), self.pages_per_slot)
-                table, write_ids = self._page_table(width), self._ids(write_ids)
+                table = self._page_table(width)
+                if self._sink_pages:
+                    # the block holding pos, clamped into the view, as the
+                    # JAX engine's token scatter takes it back
+                    wpos = self._pos_h[:, None]
+                    table, wp, seeds, winner = sink_plan(
+                        table, wpos, np.minimum(wpos // self.page_size, width - 1),
+                        self.page_size, self.alloc.scratch)
+                    write_ids = wp[:, 0]
+                    seed_scratch(self.alloc.pools, seeds)
+                table, write_ids = self._ids(table), self._ids(write_ids)
             pos = self.cache["pos"]
             logits = decode_step(self.cfg, self.params, self._tokens, pos,
                                  self.alloc.pools, table, write_ids, state=self.cache)
+            sink_take(self.alloc.pools, winner)
             self.cache["pos"] = pos + 1
         else:
             # every row steps, live or not: a free slot's position runs on
@@ -768,6 +819,7 @@ class ServingEngine:
             ckpts = self._ckpts
         if self.paged:
             ctx = wpages = woffs = b0s = None
+            winner = PAGE_SINK
             if self.alloc.pools:
                 # context width bucketed as the JAX engine's gathered view
                 nb_probe = (C + ps - 2) // ps + 1 if ps > 1 else C
@@ -785,21 +837,25 @@ class ServingEngine:
                     pages = self.slot_pages[s]
                     ctx[s, :min(len(pages), n_ctx)] = pages[:n_ctx]
                     b0s[s] = min(int(pos_h[s]) // ps, n_ctx - nb_probe)
-                # every candidate's page and slot; a position past the row's
-                # table (or past max_len) goes to the sink, where JAX drops
-                # the write
+                # every candidate's page and slot (MLA writes its blocks
+                # itself): a sink block a row writes becomes its scratch
+                # page, and a position past the row's view goes to the trash
+                # page, where JAX drops the write
                 cpos = pos_h[:, None] + np.arange(C)[None, :]
-                blk = cpos // ps
-                wpages = np.where(blk < n_ctx,
-                                  np.take_along_axis(ctx, np.minimum(blk, n_ctx - 1), 1),
-                                  PAGE_SINK)
-                ctx, wpages, woffs = self._ids(ctx), self._ids(wpages), self._ids(cpos % ps)
-                b0s = self._ids(b0s)
+                wpages = None
+                if self._sink_pages:
+                    ctx, wpages, seeds, winner = sink_plan(
+                        ctx, cpos, b0s[:, None] + np.arange(nb_probe)[None, :], ps,
+                        self.alloc.scratch)
+                    seed_scratch(self.alloc.pools, seeds)
+                    wpages = self._ids(wpages)
+                ctx, woffs, b0s = self._ids(ctx), self._ids(cpos % ps), self._ids(b0s)
             logits = verify_chunk(
                 self.cfg, self.params,
                 torch.as_tensor(toks, device=self.device), self.cache["pos"],
                 self.alloc.pools, ctx, wpages, woffs, state=self.cache, ckpts=ckpts,
                 block0s=b0s)
+            sink_take(self.alloc.pools, winner)
         else:
             logits, self.cache = verify_chunk_slab(
                 self.cfg, self.params, torch.as_tensor(toks, device=self.device),

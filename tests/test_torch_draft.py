@@ -134,7 +134,8 @@ def test_drafter_resync_internals(weights):
 def test_draft_validation(weights):
     """The JAX engine's validation: a missing draft model, a vocab
     mismatch and a family other than dense/moe raise ValueError; a MoE
-    draft passes it and then meets the port's unported MoE family."""
+    draft (standard attention, as grok-1-314b) passes it and gets its slab
+    cache; mesh= is not ported."""
     _, _, tcfg, tparams, _ = weights
     with pytest.raises(ValueError, match="draft_model"):
         ServingEngine(tcfg, tparams, device="cpu", spec_decode="draft")
@@ -144,9 +145,10 @@ def test_draft_validation(weights):
     with pytest.raises(ValueError, match="dense/moe"):
         ServingEngine(tcfg, tparams, device="cpu", spec_decode="draft",
                       draft_model=(tcfg.replace(family="ssm"), tparams))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
-        ServingEngine(tcfg, tparams, device="cpu", spec_decode="draft",
-                      draft_model=(tcfg.replace(family="moe", n_experts=4), tparams))
+    moe = ServingEngine(tcfg, tparams, device="cpu", spec_decode="draft",
+                        draft_model=(tcfg.replace(family="moe", n_experts=4), tparams))
+    assert moe.drafter.cfg.family == "moe" and moe.drafter.cache["k"].shape[0] == \
+        tcfg.num_layers
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
         DraftModelDrafter(tcfg, tparams, slots=1, max_len=64, mesh=object(), device="cpu")
 

@@ -623,3 +623,86 @@ def test_no_silent_cpu_fallback():
     with pytest.raises(ValueError):
         k4.paged_verify_attention(torch.empty((1, 2, 3, 8), device="meta"),
                                   None, None, None, None)
+
+
+# ------------------------- the new families' shapes: D = 80, E = 8 top 2 --
+# zamba2-2.7b's shared attention runs the paged-attention core at head
+# width 80 (its DP = 128 instance, 32 heads over 32: G = 1); G = 4 covers
+# a grouped launch at that width. grok-1-314b gates 8 experts, top 2, over
+# a 128-token chunk and a verify round of 4 slots x 5.
+
+
+@pytest.mark.parametrize("H,Hkv", [(4, 4), (8, 2)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kernel", ["K1", "K2", "K4", "K5"])
+def test_paged_core_plain_at_head_width_80(kernel, H, Hkv, dtype):
+    """K1, K2, K4 and K5's plain versions at D = 80 against the Pallas
+    kernels in interpret mode (bf16 to 2e-2, float32 to F32_TOL)."""
+    from repro.kernels.decode_attention import decode_attention_pallas
+    rng = np.random.default_rng(80 + H)
+    D, ps, nb, B, C = 80, 16, 4, 3, 5
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    tdt = torch.float32 if dtype == "float32" else torch.bfloat16
+    tol = F32_TOL if dtype == "float32" else 2e-2
+
+    def pair(*shapes):
+        js = [jnp.asarray(_rand(rng, s)).astype(jdt) for s in shapes]
+        return js, [_t(np.array(a, np.float32)).to(tdt) for a in js]
+    P = B * nb + 2
+    table = rng.permutation(P)[: B * nb].reshape(B, nb).astype(np.int32)
+    if kernel == "K1":
+        (q, kp, vp), targs = pair((B, H, D), (P, ps, Hkv, D), (P, ps, Hkv, D))
+        lengths = np.asarray([1, 37, nb * ps], np.int32)
+        want = paged_decode_attention_pallas(q, kp, vp, jnp.asarray(table),
+                                             jnp.asarray(lengths), interpret=True)
+        got = k1.paged_decode_attention(*targs, _t(table), _t(lengths))
+    elif kernel == "K2":
+        S = nb * ps
+        (q, k, v), (tq, tk, tv) = pair((1, S, H, D), (1, S, Hkv, D), (1, S, Hkv, D))
+        want = flash_attention_pallas(q, k, v, causal=True, bq=S // 2, bk=S // 2,
+                                      interpret=True)[0]
+        ident = _t(np.arange(nb, dtype=np.int32))
+        got = k2.chunk_prefill_attention(tq[0], tk[0].reshape(nb, ps, Hkv, D),
+                                         tv[0].reshape(nb, ps, Hkv, D), ident, 0)
+    elif kernel == "K4":
+        (q, kp, vp), targs = pair((B, H, C, D), (P, ps, Hkv, D), (P, ps, Hkv, D))
+        starts = np.asarray([0, 29, nb * ps - C], np.int32)
+        want = paged_verify_attention_pallas(q, kp, vp, jnp.asarray(table),
+                                             jnp.asarray(starts), interpret=True)
+        got = k4.paged_verify_attention(*targs, _t(table), _t(starts))
+    else:
+        S = 256
+        (q, kc, vc), targs = pair((B, H, D), (B, S, Hkv, D), (B, S, Hkv, D))
+        want = decode_attention_pallas(q, kc, vc, 201, bk=128, interpret=True)
+        got = k1.decode_attention(*targs, 201)
+    assert got.dtype == tdt and tuple(got.shape) == tuple(want.shape)
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                               atol=tol, rtol=tol)
+    assert k1.launches == k2.launches == k4.launches == k1.dense_launches == 0
+
+
+@pytest.mark.parametrize("T", [128, 20])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_gating_plain_at_grok_shapes(T, dtype):
+    """K6's plain version at E = 8, k = 2 with grok's capacities (40 slots
+    for a chunk of 128 tokens, 8 for a verify round of 20): weights and
+    indices against the Pallas kernel in interpret mode, the slots and kept
+    weights against the JAX `moe_apply`'s numbering."""
+    from repro.kernels.moe_gating import moe_gating_pallas
+    from repro_torch.kernels import moe_gating as k6
+    from test_torch_moe import GATE_TOL, _jax_numbering
+    E, k = 8, 2
+    C = max(8, -(-int(np.ceil(1.25 * k * T / E)) // 8) * 8)
+    tdt = torch.float32 if dtype == "float32" else torch.bfloat16
+    logits = _t(_rand(np.random.default_rng(T), (T, E), 0.9)).to(tdt)
+    f32 = logits.float().numpy()                        # bf16 -> f32 is exact
+    w, idx, slot, kept = k6.moe_gating(logits, k, C)
+    pw, pi = moe_gating_pallas(jnp.asarray(f32), k, bt=64 if T % 64 == 0 else T,
+                               interpret=True)
+    np.testing.assert_allclose(w.numpy(), np.asarray(pw), atol=GATE_TOL, rtol=GATE_TOL)
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(pi))
+    ji, jslot, jkept, _ = _jax_numbering(f32, k, C)
+    np.testing.assert_array_equal(idx.numpy(), ji)
+    np.testing.assert_array_equal(slot.numpy(), jslot)
+    np.testing.assert_allclose(kept.numpy(), jkept, atol=GATE_TOL, rtol=GATE_TOL)
+    assert k6.launches == 0

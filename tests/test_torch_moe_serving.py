@@ -213,13 +213,3 @@ def test_served_legal_query_identical(weights, served):
         assert teng.stats["prefix_hits"] > 0 and teng.stats["spec_rounds"] > 0
     else:
         assert teng.stats["decode_steps"] > 0 and teng.stats["prefill_chunks"] > 0
-
-
-def test_moe_without_mla_raises(weights):
-    """MoE with standard attention (grok-1-314b) is not ported: the engine
-    refuses it on either layout, pointing at the roadmap."""
-    _, _, tcfg, tparams, _ = weights
-    for layout in ("paged", "slab"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
-            ServingEngine(tcfg.replace(use_mla=False), tparams, device="cpu",
-                          kv_layout=layout)

@@ -248,10 +248,10 @@ def test_served_legal_query_identical(weights, served):
 
 
 def test_unported_families_raise(weights):
-    """Mamba2 and the hybrid family are not ported: the engine refuses them
-    on either layout, pointing at the roadmap."""
+    """Mamba2 in the ssm family and the encdec family are not ported: the
+    engine refuses them on either layout, pointing at the roadmap."""
     _, _, tcfg, tparams, _ = weights
-    for cfg in (tcfg.replace(mamba_version=2), tcfg.replace(family="hybrid")):
+    for cfg in (tcfg.replace(mamba_version=2), tcfg.replace(family="encdec")):
         for layout in ("paged", "slab"):
             with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
                 ServingEngine(cfg, tparams, device="cpu", kv_layout=layout)
