@@ -6,19 +6,19 @@
 Runs from the root of a checkout, imports nothing of JAX or of the JAX
 package, and goes through its phases, each printing one JSON line. By
 default it runs every phase; `--phases` names some (main, spec, slab,
-draft, frontend, cascade, live, ssm, moe, vlm, grok, hybrid,
+draft, frontend, cascade, live, ssm, moe, vlm, grok, hybrid, whisper,
 dense_family, kernels, reference), and each brings the phases it needs
 (`NEEDS`: the paths on the legal corpus's 100 documents compare with
-main's rows, kernels checks the launches the nine model paths captured):
+main's rows, kernels checks the launches the ten model paths captured):
 
   device     the card's name and power limit (nvidia-smi);
   build      nvcc build of the port's CUDA kernels from the checkout's sources,
              with ptxas' registers, spills and shared memory of the
-             paged-attention core's K4 and K5 instantiations (`ptxas_core`)
-             and of K7's (`ptxas_scan`);
+             paged-attention core's K4, K5 and non-causal K2 instantiations
+             (`ptxas_core`) and of K7's (`ptxas_scan`);
   main       one QUEST query on qwen2.5-3b at its published width
              (d_model 2048, bf16, random weights from --seed), cut to its
-             first MAIN_LAYERS = 12 of 36 layers to fit the time limit,
+             first MAIN_LAYERS = 8 of 36 layers to fit the time limit,
              through the entry points a user calls: Session.prepare(q).
              submit() -> TwoLevelRetriever over the legal corpus ->
              ServedExtractor -> paged ServingEngine; the kernel launch
@@ -74,7 +74,7 @@ main's rows, kernels checks the launches the nine model paths captured):
              (K2, K3, K4); reembedded / edited bytes are reported;
   ssm        with the qwen2.5-3b weights freed, the same query on
              falcon-mamba-7b (Mamba1) at its published width, cut to its
-             first SSM_LAYERS = 32 of 64 layers (d_model 4096, d_inner 8192,
+             first SSM_LAYERS = 16 of 64 layers (d_model 4096, d_inner 8192,
              bf16, random weights from --seed), with the spec phase's served
              settings and chunk_size=128: every prompt chunk and every
              verify round runs the selective scan through K7 (one launch a
@@ -86,11 +86,11 @@ main's rows, kernels checks the launches the nine model paths captured):
              elsewhere); K1, K2, K4, K5 and K6 must stay at 0;
   moe        with the falcon-mamba-7b weights freed, the same query on
              deepseek-v2-lite-16b (MLA attention + MoE, 15.7B parameters)
-             at its published width, cut to its first MOE_LAYERS = 14 of 27
+             at its published width, cut to its first MOE_LAYERS = 7 of 27
              layers (d_model 2048, 64 routed experts of which 6 a token,
              bf16, random weights from --seed), with the ssm phase's
              settings: every prompt chunk and verify round gates each of
-             its 13 MoE layers through K6; MLA
+             its 6 MoE layers through K6; MLA
              attends the compressed ckv/krope pool in plain PyTorch, as the
              JAX package does. Rows and the ledger's input tokens must equal
              the main phase's; K6 = 13 x (chunks + verify rounds); K1, K2,
@@ -126,6 +126,19 @@ main's rows, kernels checks the launches the nine model paths captured):
              documents with the same settings: K2 = 3 x chunks, K4 = 3 x
              verify rounds, no K1, K5, K6 or K7; at least one prefix hit
              (rollback is held by the reference phase's scripted drafts);
+  whisper    with the zamba2 weights freed, whisper-medium (the
+             encoder-decoder family: 24 LayerNorm encoder layers over the
+             stub frontend's 1,500 zero frames, 24 decoder layers with
+             learned positions and cross-attention, 16 heads over 16 at D
+             64, 844,666,880 parameters) at its published width and all its
+             layers, on the same documents with the same settings, rows held
+             to SMOKE qwen2.5-3b's: the engine encodes the frames once (K2's
+             non-causal form, "K2nc", 24 launches) into each slot's cross
+             K/V; every chunk runs K2 and every verify round K4 for the
+             decoder's self-attention, and each of them K2nc for every
+             decoder layer's cross-attention; K5 for the cross-attention of
+             decode steps (none with prompt lookup), no K1, K6 or K7. Not
+             profiled;
   dense_family  with the zamba2 weights freed, qwen3-32b (qk-norm),
              nemotron-4-15b (ungated squared-ReLU MLP, 48 heads over 8:
              GQA group 6) and deepseek-67b at their published widths, each
@@ -141,13 +154,18 @@ main's rows, kernels checks the launches the nine model paths captured):
              and K7: a prefill chunk and a verify round; K2 also the slab
              phase's largest whole-prompt launch and the vlm phase's first
              chunk with the image prefix, K2 and K4 also at grok's and
-             zamba2's shapes, K6 also at grok's E 8, k 2; K1
+             zamba2's shapes, K6 also at grok's E 8, k 2; K2's non-causal
+             form at whisper's encoder, cross-attention chunk and verify
+             round, K5 also at whisper's cross-attention of a decode step
+             (four slots over 1,500 keys); K1
              also its captured
              launch with every length at the full table; K4 in the engine's
              layout and as a contiguous input), plus edge cases (K1, K2, K4
-             and K5: ~64-71 each in bf16 and float32, `_paged_edges`,
-             GQA group 6, the dense family's head counts and zamba2's head
-             width 80 among them; K3 12 shapes, N up to 16,384 and exact
+             and K5: ~66-74 each in bf16 and float32, `_paged_edges`,
+             GQA group 6, the dense family's head counts, zamba2's head
+             width 80 and whisper's 16 heads over 16 at D 64 among them;
+             K2's non-causal form 16, Skv 1 to 1,500 x Sq 1 to 1,500; K3 12
+             shapes, N up to 16,384 and exact
              ties; K6 20, with the capacity numbering, grok's E 8, k 2 at
              T 128 and 20 among them; K7 11 shapes in both dtypes), held
              against its plain PyTorch version (an attention row in its
@@ -188,8 +206,10 @@ main's rows, kernels checks the launches the nine model paths captured):
              deepseek-67b with prompt lookup and the prefix cache,
              grok-1-314b in llava's three (its K/V pools, sink page
              included, card against CPU to TOL, and its prompt-lookup mode
-             twice on the card with bit-identical pools) and zamba2-2.7b in
-             falcon-mamba-7b's four (these eight models' modes and every
+             twice on the card with bit-identical pools), zamba2-2.7b in
+             falcon-mamba-7b's four and whisper-medium in llava's three with a
+             position table of REF_WHISPER_POSITIONS rows, its slots' cross
+             K/V card against CPU (these nine models' modes and every
              slab mode on the first REF_NEW_DOCS = 10 documents); and the serving
              tier in three qwen2.5-3b modes (the frontend phase's two
              tenants over two replicas; cascade="on" with the cheap tier;
@@ -207,12 +227,13 @@ main's rows, kernels checks the launches the nine model paths captured):
              llava's first mode's on the same documents, as are the slab
              modes' of the models whose other modes run on 20, whose tokens
              must equal their off mode's for every prompt the two share);
-             falcon-mamba-7b's and zamba2-2.7b's recurrent state must also
+             falcon-mamba-7b's and zamba2-2.7b's recurrent state and
+             whisper-medium's cross K/V must also
              agree across the devices.
 
 Every phase raises on a mismatch. Then it prints each phase's seconds,
-the `kernels` summary line (K1-K7; empty when the kernels phase did not
-run), the nvidia-smi line, and as its last line
+the `kernels` summary line (K1-K7 and K2's non-causal form; empty when
+the kernels phase did not run), the nvidia-smi line, and as its last line
 {"ok": true, "device": {...}}. Any failure exits non-zero before that
 line. It needs one CUDA device and exits non-zero without one, or when
 the repository's `src/repro_torch` is not beside it.
@@ -226,6 +247,7 @@ import sys
 import time
 import traceback
 from pathlib import Path
+from types import SimpleNamespace
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
@@ -465,8 +487,9 @@ SLAB = {"kv_layout": "slab"}
 # the four paths at 36 layers took 1,128 s of the 1,200 s with --profile
 # on one H100 80GB HBM3; main and spec were cut first, then slab and draft
 # when the moe phase and its reference modes came in (1,223 s with
-# --profile, slab and draft still at 36 layers).
-MAIN_LAYERS = 12
+# --profile, slab and draft still at 36 layers); the whisper phase brought
+# them from 12 to 8 layers, after the cuts of SSM_LAYERS and MOE_LAYERS.
+MAIN_LAYERS = 8
 # The ssm and moe phases feed prompts in 128-token chunks: their walls
 # follow the number of forwards, and each chunk gives K7 a real sequence and
 # K6 a real batch of tokens.
@@ -479,8 +502,14 @@ DEEP_CHUNK = 128
 # of 64 and MOE_LAYERS of 27 layers at full width (drawn whole, then cut).
 REF_NEW_DOCS = 10
 VLM_DOCS = 40
-SSM_LAYERS = 32
-MOE_LAYERS = 14
+# With the whisper phase, its kernel rows and its three reference modes
+# the command would pass its limit with --profile, so the earlier depths
+# were cut again (whisper itself runs on FAMILY_DOCS, its reference modes
+# on REF_NEW_DOCS, and it is not profiled): deepseek-v2-lite-16b to its
+# first 7 layers, then falcon-mamba-7b to its first 16, then the qwen2.5-3b
+# paths to MAIN_LAYERS = 8.
+SSM_LAYERS = 16
+MOE_LAYERS = 7
 # The vlm phase's cache bound: llava's 2,880 image positions, the longest
 # legal prompt and max_new fit in 4,096 positions (256 pages of 16).
 VLM_MAX_LEN = 4096
@@ -548,15 +577,16 @@ def _check_like_main(name, result, main_result):
 
 
 def _launch_counts():
+    """Every kernel's launches; "K2nc" is K2's non-causal form."""
     from repro_torch.kernels import decode_attention as k15
     from repro_torch.kernels import flash_attention as k2
     from repro_torch.kernels import moe_gating as k6
     from repro_torch.kernels import ssm_scan as k7
     from repro_torch.kernels import topk_l2 as k3
     from repro_torch.kernels import verify_attention as k4
-    return {"K1": k15.launches, "K2": k2.launches, "K3": k3.launches,
-            "K4": k4.launches, "K5": k15.dense_launches, "K6": k6.launches,
-            "K7": k7.launches}
+    return {"K1": k15.launches, "K2": k2.launches, "K2nc": k2.bidirectional_launches,
+            "K3": k3.launches, "K4": k4.launches, "K5": k15.dense_launches,
+            "K6": k6.launches, "K7": k7.launches}
 
 
 def _zero_launches():
@@ -567,7 +597,7 @@ def _zero_launches():
     from repro_torch.kernels import topk_l2 as k3
     from repro_torch.kernels import verify_attention as k4
     k15.launches = k15.dense_launches = k2.launches = k3.launches = k4.launches = 0
-    k6.launches = k7.launches = 0
+    k2.bidirectional_launches = k6.launches = k7.launches = 0
 
 
 def _timed_query(session):
@@ -1376,9 +1406,17 @@ def _family_phase(phase: str, arch: str, n_layers: int, seed: int, captures: dic
     published count comes from the meta device), with the ssm
     phase's settings. Captures K2 at the widest chunk (C = DEEP_CHUNK, the
     latest start), K4 at the widest verify round and, for MoE, K6 at a
-    chunk (T = DEEP_CHUNK) and at a verify round of all four slots. Rows
-    and ledger input tokens must equal SMOKE qwen2.5-3b's on the same
-    documents; every forward of the path must have launched its kernels."""
+    chunk (T = DEEP_CHUNK) and at a verify round of all four slots; for the
+    encdec family K2's non-causal form at the encoder (encoder_seq over
+    encoder_seq), at a chunk's cross-attention (C = DEEP_CHUNK) and at a
+    verify round's of all four slots, and, for K5 at a decode step's
+    cross-attention, the four slots' cross K/V of the first decoder layer
+    with a seeded query. Rows and ledger input tokens must equal SMOKE
+    qwen2.5-3b's on the same documents; every forward of the path must
+    have launched its kernels: the encdec family's encoder once (the
+    engine encodes the frames once) and its cross-attention every decoder
+    layer of every forward (K2's non-causal form in chunks and verify
+    rounds, K5 in decode steps)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.data.corpus import make_legal_corpus
@@ -1386,6 +1424,7 @@ def _family_phase(phase: str, arch: str, n_layers: int, seed: int, captures: dic
     from repro_torch.kernels import moe_gating as k6
     from repro_torch.kernels import verify_attention as k4
     from repro_torch.models import init_params, param_count
+    from repro_torch.models.cache_ops import cache_nbytes
     from repro_torch.models.model import n_applications
 
     full_cfg = get_config(arch)
@@ -1403,8 +1442,10 @@ def _family_phase(phase: str, arch: str, n_layers: int, seed: int, captures: dic
     H = cfg.n_heads
     verify_T = 4 * (SPEC["spec_k"] + 1)
     # in the order they wrap, so that reversed they unwrap
+    encdec = cfg.family == "encdec"
     tags = [f"K2_{phase}", f"K4_{phase}"] + ([f"K6_{phase}_verify", f"K6_{phase}"]
-                                              if cfg.n_experts else [])
+                                              if cfg.n_experts else []) + \
+        ([f"K2nc_{phase}_{w}" for w in ("encoder", "chunk", "verify")] if encdec else [])
     captures[f"K2_{phase}"] = Capture(
         k2, "chunk_prefill_attention",
         lambda q, kp, vp, ctx, start: start if q.shape[:2] == (DEEP_CHUNK, H) else -1)
@@ -1416,6 +1457,13 @@ def _family_phase(phase: str, arch: str, n_layers: int, seed: int, captures: dic
             k6, "moe_gating", lambda lg, k, C=None: 1 if lg.shape[0] == verify_T else -1)
         captures[f"K6_{phase}"] = Capture(
             k6, "moe_gating", lambda lg, k, C=None: 1 if lg.shape[0] == DEEP_CHUNK else -1)
+    if encdec:
+        shapes = {"encoder": (1, cfg.encoder_seq), "chunk": (1, DEEP_CHUNK),
+                  "verify": (4, SPEC["spec_k"] + 1)}
+        for w, shape in shapes.items():
+            captures[f"K2nc_{phase}_{w}"] = Capture(
+                k2, "bidirectional_attention",
+                lambda q, k, v, n, shape=shape: 1 if q.shape[:2] == shape else -1)
     result, wall, launches = _timed_query(session)
     for tag in reversed(tags):
         captures[tag].restore()
@@ -1425,6 +1473,21 @@ def _family_phase(phase: str, arch: str, n_layers: int, seed: int, captures: dic
     st = engine.stats
     gen_tokens = extractor.stats.generated_tokens
     attn_layers = n_applications(cfg) if cfg.family == "hybrid" else cfg.num_layers
+    extra = {}
+    if encdec:
+        # K5 as a decode step's cross-attention runs it: every slot's cross
+        # K/V of the first decoder layer, at length encoder_seq
+        ck, cv = engine.cache["ck"][0].clone(), engine.cache["cv"][0].clone()
+        q = torch.randn((ck.shape[0], H, cfg.resolved_head_dim), device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(seed + 5))
+        captures[f"K5_{phase}_cross"] = SimpleNamespace(
+            args=(q.to(ck.dtype), ck, cv, torch.full((ck.shape[0],), cfg.encoder_seq,
+                                                     dtype=torch.int32, device="cuda")))
+        extra = {"encoder_layers": cfg.n_encoder_layers, "encoder_seq": cfg.encoder_seq,
+                 "cross_kv_bytes_per_slot": ck[0].numel() * ck.element_size() * 2 *
+                 cfg.num_layers,
+                 "cross_kv_bytes_all_slots": cache_nbytes(
+                     {k: engine.cache[k] for k in ("ck", "cv")})}
     out = {"phase": phase, "model": cfg.name, "layers": cfg.num_layers,
            "layers_published": full_cfg.num_layers, "attention_layers": attn_layers,
            "d_model": cfg.d_model, "heads": H, "kv_heads": cfg.n_kv_heads,
@@ -1440,7 +1503,7 @@ def _family_phase(phase: str, arch: str, n_layers: int, seed: int, captures: dic
            "generated_tokens_per_s": gen_tokens / wall,
            "verify_rounds": st["spec_rounds"], "drafted": st["draft_tokens"],
            "accepted": st["accepted_tokens"], "prefix_hits": st["prefix_hits"],
-           "kv_bytes_peak": st["kv_bytes_peak"], "launches": launches}
+           "kv_bytes_peak": st["kv_bytes_peak"], "launches": launches, **extra}
     emit(out)
     if not result.rows or result.rows != want.rows or \
             result.ledger.input_tokens != want.ledger.input_tokens:
@@ -1459,9 +1522,17 @@ def _family_phase(phase: str, arch: str, n_layers: int, seed: int, captures: dic
     if launches["K6"] != moe_layers * (chunks + rounds):
         raise AssertionError(f"{phase}: K6 launched {launches['K6']} times for "
                              f"{chunks + rounds} forwards of {moe_layers} MoE layers")
-    stray = {k: launches[k] for k in ("K1", "K5", "K7") if launches[k]}
+    steps = st["decode_steps"] - rounds             # decode steps that are not rounds
+    want_nc = cfg.n_encoder_layers + cfg.num_layers * (chunks + rounds) if encdec else 0
+    want_k5 = cfg.num_layers * steps if encdec else 0
+    if launches["K2nc"] != want_nc or launches["K5"] != want_k5:
+        raise AssertionError(f"{phase}: K2's non-causal form launched {launches['K2nc']} "
+                             f"times (want {want_nc}: the encoder once, then every layer's "
+                             f"cross-attention in {chunks} chunks and {rounds} verify "
+                             f"rounds), K5 {launches['K5']} (want {want_k5})")
+    stray = {k: launches[k] for k in ("K1", "K7") if launches[k]}
     if stray:
-        raise AssertionError(f"{phase}: K1, K5 or K7 launched: {launches}")
+        raise AssertionError(f"{phase}: K1 or K7 launched: {launches}")
     return out, (session, extractor)
 
 
@@ -1471,6 +1542,16 @@ def phase_grok(seed: int, captures: dict) -> tuple:
     first GROK_LAYERS of 64 layers: K2, K3, K4 on the pool, K6 every MoE
     layer, the sink page written as the JAX engine writes it."""
     return _family_phase("grok", "grok-1-314b", GROK_LAYERS, seed, captures)
+
+
+def phase_whisper(seed: int, captures: dict) -> tuple:
+    """whisper-medium (the encoder-decoder family: 24 LayerNorm encoder
+    layers over the stub frontend's 1,500 zero frames, 24 decoder layers
+    with learned positions and cross-attention, 16 heads over 16 at D 64)
+    at its published width and all its layers: K2, K3 and K4 on the pool,
+    K2's non-causal form for the encoder once and for each decoder layer's
+    cross-attention in every chunk and verify round."""
+    return _family_phase("whisper", "whisper-medium", 24, seed, captures)
 
 
 def phase_hybrid(seed: int, captures: dict) -> tuple:
@@ -1625,6 +1706,7 @@ def phase_profile(session, extractor, out_dir, path: str) -> dict:
               "K4 paged_verify": ("PagedVerify",),
               "K5 dense_decode": ("DenseDecode",),
               "K6 moe_gating": ("moe_gating_kernel",),
+              "K2nc bidirectional": ("Bidirectional",),
               "K7 ssm_scan": ("ssm_scan_kernel",)}
     by_group = dict.fromkeys(list(groups) + ["gemm", "other"], 0.0)
     count_by_group = dict.fromkeys(by_group, 0)
@@ -1687,6 +1769,9 @@ def phase_kernels(captures: dict, launches: dict) -> list:
     rows += [_k4_row(captures[f"K4_{p}"].args, launches[f"K4_{p}"], f" [{name}]")
              for p, name in (("grok", "grok"), ("hybrid", "zamba2"))]
     rows.append(_kernel_k5(captures, launches, edges))
+    rows.append(_k5_row(*captures["K5_whisper_cross"].args, launches["K5_whisper"],
+                        " [whisper cross decode]"))
+    rows += _kernel_k2nc(captures, launches, edges)
     rows += _kernel_k6(captures, launches)
     rows.append(_kernel_k7(captures, launches))
 
@@ -1793,7 +1878,8 @@ def _kernel_k3(captures: dict, launches: dict) -> dict:
 
 
 def _paged_edges() -> tuple:
-    """K1, K2, K4 and K5 -- the kernels on the paged-attention core --
+    """K1, K2, K4, K5 and K2's non-causal form -- the kernels on the
+    paged-attention core --
     against their plain versions, bf16 and float32, on seeded inputs at edge
     cases: the JAX package's K1, K2 and K4 test shapes; every G = 1, 2, 4, 8
     x D = 32, 64, 128 x ps = 8, 16, 32, 256 for K1 and K2; for K1 a dead row
@@ -1816,7 +1902,14 @@ def _paged_edges() -> tuple:
     (llava-next-mistral-7b). Last, zamba2-2.7b's head width D = 80 (the
     core's DP = 128 instance): G = 1 and 4 for every kernel (K1 and K2 at
     ps 8, 16, 32; K4 at C = 1, 3, 5; K5 at every S) and its 32 heads over
-    32. Returns ({(kernel, dtype): max error}, {kernel: number of cases})."""
+    32. Then whisper-medium's head width D = 64 at G = 1 (16 heads over 16)
+    for every kernel (K1 and K2 at ps 8 and 16, K2 also a 128-token chunk at
+    start 820, K4 at C = 1, 3, 5, K5 at S 64, 700, 1,000 and 1,500); and K2's
+    non-causal form ("K2nc"): Skv = 1, 65, 1,500 x Sq = 1, 5, 128, 1,500 at
+    B = 2, 16 heads over 16, D 64 (partial query and key tiles, one query
+    tile shared by key quarters, and whisper's encoder), then GQA group 4
+    with a key limit below Skv, group 6, D 32 and D 256. Returns ({(kernel,
+    dtype): max error}, {kernel: number of cases})."""
     import torch
     from repro_torch.kernels import decode_attention as k1
     from repro_torch.kernels import flash_attention as k2
@@ -1867,6 +1960,18 @@ def _paged_edges() -> tuple:
                  for H, Hkv in ((2, 2), (8, 2), (32, 32)) for C in (1, 3, 5)]
     k5_cases += [(4, H, Hkv, 80, S) for H, Hkv in ((2, 2), (8, 2), (32, 32))
                  for S in (64, 700, 1000)]
+    # whisper-medium's head width D = 64 at G = 1: 16 heads over 16
+    k1_cases += [(4, 16, 16, 64, 4 * max(2, 512 // ps) + 3, ps, max(2, 512 // ps))
+                 for ps in (8, 16)]
+    k2_cases += [(37, 16, 16, 64, ps, (ps + ps // 2 + 1 + 37) // ps + 2, ps + ps // 2 + 1,
+                  False) for ps in (8, 16)] + [(128, 16, 16, 64, 16, 64, 820, False)]
+    k4_cases += [(4, 16, 16, C, 64, 4 * 32 + 3, 16, 32) for C in (1, 3, 5)]
+    k5_cases += [(4, 16, 16, 64, S) for S in (64, 700, 1000, 1500)]
+    # K2's non-causal form: (B, Sq, Skv, H, Hkv, D, n_keys)
+    nc_cases = [(2, Sq, Skv, 16, 16, 64, Skv) for Skv in (1, 65, 1500)
+                for Sq in (1, 5, 128, 1500)] + \
+        [(3, 37, 100, 8, 2, 128, 77), (2, 5, 65, 12, 2, 128, 65), (2, 128, 1500, 4, 4, 32, 1500),
+         (1, 16, 300, 4, 1, 256, 299)]
     errs = {}
 
     def note(kernel, name, err):
@@ -1911,8 +2016,12 @@ def _paged_edges() -> tuple:
             note("K5", name, max_err(got, k1.decode_attention_plain(q, kc, vc, lens)))
             if float(got[3].float().abs().max()) != 0.0:
                 raise AssertionError(f"K5: a zero length must give zeros ({name}, D={D})")
+        for B, Sq, Skv, H, Hkv, D, n in nc_cases:
+            q, k, v = r(B, Sq, H, D).to(dt), r(B, Skv, Hkv, D).to(dt), r(B, Skv, Hkv, D).to(dt)
+            note("K2nc", name, max_err(k2.bidirectional_attention(q, k, v, n),
+                                       k2.bidirectional_attention_plain(q, k, v, n)))
     return errs, {"K1": len(k1_cases), "K2": len(k2_cases), "K4": len(k4_cases),
-                  "K5": len(k5_cases)}
+                  "K5": len(k5_cases), "K2nc": len(nc_cases)}
 
 
 def _k1_row(q, kp, vp, tbl, lens, launches: int, variant: str) -> dict:
@@ -2157,12 +2266,9 @@ def _kernel_k5(captures: dict, launches: dict, edges: tuple) -> dict:
     that is not live), a zero length (whose zeros are asserted) and a
     scalar length."""
     import torch
-    import torch.nn.functional as F
     from repro_torch.kernels import decode_attention as k1
     q, kc, vc, lens = captures["K5"].args
-    dt = str(q.dtype).removeprefix("torch.")
-    B, H, D = q.shape
-    S, Hkv = kc.shape[1], kc.shape[2]
+    B, S = q.shape[0], kc.shape[1]
 
     def err(q_, kc_, vc_, lens_):
         return max_err(k1.decode_attention(q_, kc_, vc_, lens_),
@@ -2177,6 +2283,26 @@ def _kernel_k5(captures: dict, launches: dict, edges: tuple) -> dict:
     edge_bf16 = max_err(got_bf, k1.decode_attention_plain(q, kc, vc, lens_e))
     if B >= 4 and (float(got[3].abs().max()) != 0.0 or float(got_bf[3].abs().max()) != 0.0):
         raise AssertionError("K5: a zero length must give zeros")
+    row = _k5_row(q, kc, vc, lens, launches["K5"], "")
+    row["launches_slab"] = launches.get("K5_slab")
+    row = _with_edges(row, "K5", edges, edge)
+    row["max_abs_err_edge_bf16"] = max(row["max_abs_err_edge_bf16"], edge_bf16)
+    return row
+
+
+def _k5_row(q, kc, vc, lens, launches: int, variant: str) -> dict:
+    """K5 at one launch's inputs, as `_k1_row`, with SDPA over the slab as
+    yardstick."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as k1
+    dt = str(q.dtype).removeprefix("torch.")
+    B, H, D = q.shape
+    S, Hkv = kc.shape[1], kc.shape[2]
+
+    def err(q_, kc_, vc_, lens_):
+        return max_err(k1.decode_attention(q_, kc_, vc_, lens_),
+                       k1.decode_attention_plain(q_, kc_, vc_, lens_))
     vis = torch.clamp(lens.long(), 0, S)
     nbytes = (2 * int(vis.sum()) * Hkv * D + 2 * B * H * D) * q.element_size() \
         + lens.numel() * 4
@@ -2192,15 +2318,16 @@ def _kernel_k5(captures: dict, launches: dict, edges: tuple) -> dict:
 
     def library():
         return F.scaled_dot_product_attention(q4, kg, vg, attn_mask=mask)
-    row = dict(
-        name="dense_decode_attention", route="cuda",
+    return dict(
+        name="dense_decode_attention" + variant, route="cuda",
         source="src/repro_torch/kernels/csrc/dense_decode_attention.cu",
         core="src/repro_torch/kernels/csrc/paged_attention.cuh",
         replaces="src/repro/kernels/decode_attention.py:274",
-        launches=launches["K5"], launches_slab=launches.get("K5_slab"),
+        launches=launches,
         shape=f"q{tuple(q.shape)} cache{tuple(kc.shape)} lengths {lens.tolist()} {dt}",
         max_abs_err=err(q, kc, vc, lens), tol=TOL[dt],
-        max_abs_err_float32=err(q32, kc32, vc32, lens), tol_float32=TOL["float32"],
+        max_abs_err_float32=err(q.float(), kc.float(), vc.float(), lens),
+        tol_float32=TOL["float32"],
         ms=cuda_ms(kernel),
         plain_ms=cuda_ms(lambda: k1.decode_attention_plain(q, kc, vc, lens)),
         library_ms=cuda_ms(library),
@@ -2209,9 +2336,71 @@ def _kernel_k5(captures: dict, launches: dict, edges: tuple) -> dict:
         library_call="F.scaled_dot_product_attention over the slab in (B, H, S, D) "
                      "with a per-row length mask",
         bound_ms=b_ms, bound_by=b_by)
-    row = _with_edges(row, "K5", edges, edge)
-    row["max_abs_err_edge_bf16"] = max(row["max_abs_err_edge_bf16"], edge_bf16)
-    return row
+
+
+def _k2nc_row(q, k, v, n_keys, launches: int, variant: str) -> dict:
+    """K2's non-causal form at one launch's inputs, as `_k1_row`, with SDPA
+    over the same dense K/V (transposed to (B, H, S, D) and its KV heads
+    repeated outside the timing) as yardstick."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as k2
+    dt = str(q.dtype).removeprefix("torch.")
+
+    def err(q_, k_, v_, n_, e=max_err):
+        return e(k2.bidirectional_attention(q_, k_, v_, n_),
+                 k2.bidirectional_attention_plain(q_, k_, v_, n_))
+    B, Sq, H, D = q.shape
+    Hkv = k.shape[2]
+    G = H // Hkv
+    nbytes = (2 * B * n_keys * Hkv * D + 2 * B * Sq * H * D) * q.element_size()
+    b_ms, b_by = bound(nbytes, 4 * B * Sq * n_keys * H * D, dt)
+    qt = q.transpose(1, 2).contiguous()
+    kt = k[:, :n_keys].transpose(1, 2).repeat_interleave(G, 1).contiguous()
+    vt = v[:, :n_keys].transpose(1, 2).repeat_interleave(G, 1).contiguous()
+
+    def kernel():
+        return k2.bidirectional_attention(q, k, v, n_keys)
+
+    def library():
+        return F.scaled_dot_product_attention(qt, kt, vt)
+    return dict(
+        name="bidirectional_attention" + variant, route="cuda",
+        source="src/repro_torch/kernels/csrc/bidirectional_attention.cu",
+        core="src/repro_torch/kernels/csrc/paged_attention.cuh",
+        replaces="src/repro/kernels/flash_attention.py:71 (causal=False)",
+        launches=launches,
+        shape=f"q{tuple(q.shape)} k/v{tuple(k.shape)} n_keys {n_keys} {dt}",
+        max_abs_err=err(q, k, v, n_keys), max_close_err=err(q, k, v, n_keys, close_err),
+        tol=TOL[dt], max_abs_err_float32=err(q.float(), k.float(), v.float(), n_keys),
+        tol_float32=TOL["float32"],
+        ms=cuda_ms(kernel),
+        plain_ms=cuda_ms(lambda: k2.bidirectional_attention_plain(q, k, v, n_keys)),
+        library_ms=cuda_ms(library),
+        device_ms=device_ms(kernel), library_device_ms=device_ms(library),
+        device_ms_method=DEVICE_MS_METHOD,
+        library_call="F.scaled_dot_product_attention over the same K/V in (B, H, S, D), "
+                     "no mask",
+        bound_ms=b_ms, bound_by=b_by)
+
+
+def _kernel_k2nc(captures: dict, launches: dict, edges: tuple) -> list:
+    """K2's non-causal form at the whisper path's three launches: the
+    encoder (1,500 frames over 1,500), a chunk's cross-attention (C = 128
+    over the cross K/V) and a verify round's (4 slots x 5 candidates), with
+    `_paged_edges`' non-causal cases and, on the chunk's captured K/V in
+    float32, a key limit of 1 and of encoder_seq - 37."""
+    from repro_torch.kernels import flash_attention as k2
+    q, k, v, n = captures["K2nc_whisper_chunk"].args
+    q32, k32, v32 = q.float(), k.float(), v.float()
+    edge = max(max_err(k2.bidirectional_attention(q32, k32, v32, m),
+                       k2.bidirectional_attention_plain(q32, k32, v32, m))
+               for m in (1, n - 37))
+    n_all = launches["K2nc_whisper"]
+    rows = [_k2nc_row(*captures[f"K2nc_whisper_{w}"].args, n_all, f" [whisper {name}]")
+            for w, name in (("encoder", "encoder"), ("chunk", "cross chunk"),
+                            ("verify", "cross verify round"))]
+    rows[1] = _with_edges(rows[1], "K2nc", edges, edge)
+    return rows
 
 
 def _k6_cap(T, k, E, factor=1.25):
@@ -2647,6 +2836,18 @@ def _tier_modes(seed: int, corpus, device) -> dict:
 # machine's cores; the card's half runs in the reference phase itself.
 CPU_REFERENCE_THREADS = 2
 MOE_ARCHS = ("deepseek-v2-lite-16b", "grok-1-314b")
+# SMOKE whisper-medium's decoder position table has 256 rows, while the
+# legal prompts run past 256 positions and the engine's max_len is 1,024.
+# Past the table the JAX model clips a chunk's positions, clamps a scalar
+# decode position, and reads NaN for a per-row decode position; a slab
+# prompt longer than the table cannot be prefilled at all. A slot that is
+# not live keeps advancing its position in plain decode steps, so its
+# NaN K/V would reach the sink page, which the CPU's plain attention
+# multiplies by zero probabilities (NaN) and the kernels never read. The
+# reference modes therefore run whisper with a table of REF_WHISPER_POSITIONS
+# rows, past every position a row reaches there; tests/test_torch_whisper.py
+# holds the behaviour past the table against the JAX package.
+REF_WHISPER_POSITIONS = 4096
 
 
 def _reference_models() -> dict:
@@ -2660,7 +2861,8 @@ def _reference_models() -> dict:
             "llava-next-mistral-7b": {"off": {}, "spec": SPEC, "slab": slab},
             **{arch: {"spec": SPEC} for arch in DENSE_FAMILY},
             "grok-1-314b": {"off": {}, "spec": SPEC, "slab": slab},
-            "zamba2-2.7b": {"off": {}, "spec": SPEC, "slab": slab, "rollback": rollback}}
+            "zamba2-2.7b": {"off": {}, "spec": SPEC, "slab": slab, "rollback": rollback},
+            "whisper-medium": {"off": {}, "spec": SPEC, "slab": slab}}
 
 
 def _reference_docs(arch: str, mode: str) -> int:
@@ -2689,6 +2891,8 @@ def reference_runs(seed: int, device: str) -> dict:
     runs, states, pools, gating, seconds = {}, {}, {}, {}, {}
     for arch, modes in _reference_models().items():
         cfg = get_smoke_config(arch).replace(vocab_size=lm_data.VOCAB)
+        if cfg.family == "encdec":
+            cfg = cfg.replace(max_position=REF_WHISPER_POSITIONS)
         gen = torch.Generator().manual_seed(seed)
         cpu_params = init_params(cfg, gen, device="cpu")
         if cfg.qk_norm:
@@ -2721,6 +2925,11 @@ def reference_runs(seed: int, device: str) -> dict:
                     {tuple(q.prompt): q.out for q in engine.finished.values()})
                 if "ssm" in engine.cache:
                     states[arch, tag] = {k: engine.cache[k].cpu() for k in ("conv", "ssm")}
+                if "ck" in engine.cache:                # the slots' cross K/V
+                    states[arch, tag] = {k: engine.cache[k].cpu() for k in ("ck", "cv")}
+                    runs[arch, tag] += ((max(len(q.prompt) + len(q.out)
+                                             for q in engine.finished.values()),
+                                         int(engine._pos_h.max())),)
                 if arch == "grok-1-314b" and engine.paged:
                     n = engine.alloc.num_pages
                     pools[tag] = {k: p[:, :n].cpu() for k, p in engine.alloc.pools.items()}
@@ -2809,11 +3018,13 @@ def phase_reference(seed: int, cpu_half) -> dict:
     through each layout), qwen3-32b (random q/k-norm weights: ones would
     hide a norm on the wrong axis), nemotron-4-15b and deepseek-67b with
     prompt lookup and the prefix cache, grok-1-314b in three (off, prompt
-    lookup with the prefix cache, slab with the prefix cache) and
-    zamba2-2.7b in falcon-mamba-7b's four. Every slab mode and every mode
-    of the last six models runs on the first REF_NEW_DOCS documents, the
-    rest on 20. Falcon-mamba-7b's and zamba2-2.7b's per-slot recurrent
-    state after the query must also agree across the devices to STATE_TOL:
+    lookup with the prefix cache, slab with the prefix cache),
+    zamba2-2.7b in falcon-mamba-7b's four and whisper-medium in grok's
+    three (with REF_WHISPER_POSITIONS learned positions). Every slab mode
+    and every mode of the last seven models runs on the first REF_NEW_DOCS
+    documents, the rest on 20. Falcon-mamba-7b's and zamba2-2.7b's per-slot
+    recurrent state, and whisper-medium's per-slot cross K/V, after the
+    query must also agree across the devices to STATE_TOL:
     with random SMOKE weights the skip path D * x dominates each block, so
     their tokens alone say little about the state. grok-1-314b's K/V pools,
     the sink page included, must agree across the devices to TOL, and its
@@ -2869,7 +3080,7 @@ def phase_reference(seed: int, cpu_half) -> dict:
                   for a in moe_archs for m in models[a] if m != "off"
                   and docs(a, m) == docs(a, "off") for dev in ("cuda", "cpu")}
     state_err = {f"{a}/{m}": max(max_err(states[a, m, "cuda"][k], states[a, m, "cpu"][k])
-                                 for k in ("conv", "ssm"))
+                                 for k in states[a, m, "cpu"])
                  for a, m in keys if (a, m, "cpu") in states}
     pool_err = {m: max(max_err(pools[m, "cuda"][k], pools[m, "cpu"][k]) for k in ("k", "v"))
                 for m in models["grok-1-314b"] if (m, "cpu") in pools}
@@ -2887,6 +3098,9 @@ def phase_reference(seed: int, cpu_half) -> dict:
            "identical": same, "same_rows_and_tokens_as_off": invariant,
            "moe_token_agreement_with_off": moe_tokens,
            "state_max_abs_err": state_err, "state_tol": STATE_TOL,
+           "whisper_position_table": REF_WHISPER_POSITIONS,
+           "whisper_longest_sequence_and_last_position": {
+               m: runs["whisper-medium", m, "cpu"][8] for m in models["whisper-medium"]},
            "grok_pool_max_abs_err": pool_err, "pool_tol": TOL["float32"],
            "grok_spec_pools_bit_identical_on_the_card": pools_repeat,
            "grok_sink_max_abs": sink_written, "engine": st,
@@ -2962,14 +3176,15 @@ def _to(tree, device):
 
 # every phase, in the order they run; the device and build phases always run
 PHASES = ("main", "spec", "slab", "draft", "frontend", "cascade", "live", "ssm", "moe",
-          "vlm", "grok", "hybrid", "dense_family", "kernels", "reference")
+          "vlm", "grok", "hybrid", "whisper", "dense_family", "kernels", "reference")
 # the phases whose results a phase reads: the qwen2.5-3b paths and the
 # ssm and moe phases compare with main's rows, draft with slab's tokens,
 # and kernels checks the launches the model paths captured
 NEEDS = {**{p: ("main",) for p in ("spec", "slab", "frontend", "cascade", "live", "ssm",
                                    "moe")},
          "draft": ("main", "slab"),
-         "kernels": ("main", "spec", "slab", "draft", "ssm", "moe", "vlm", "grok", "hybrid")}
+         "kernels": ("main", "spec", "slab", "draft", "ssm", "moe", "vlm", "grok", "hybrid",
+                     "whisper")}
 
 
 def _phases(arg: str) -> set:
@@ -3030,7 +3245,8 @@ def main() -> int:
                            "nvcc_seconds": _build.build_info["seconds"],
                            "cached": _build.build_info["cached"], "ptxas": ptxas[:12],
                            "ptxas_core": core_ptxas(_build.build_info.get("ptxas", ""),
-                                                    ("PagedVerify", "DenseDecode")),
+                                                    ("PagedVerify", "DenseDecode",
+                                                     "Bidirectional")),
                            "ptxas_scan": scan_ptxas(_build.build_info.get("ptxas", "")),
                            "ptxas_k3_k6": gating_topk_ptxas(_build.build_info.get("ptxas", ""))}
         emit(report["build"])
@@ -3119,6 +3335,11 @@ def main() -> int:
                 lap("profile_hybrid")
             del served_hybrid
             torch.cuda.empty_cache()
+        if "whisper" in phases:             # not profiled, to keep the time limit
+            report["whisper"], served_whisper = phase_whisper(args.seed, captures)
+            lap("whisper")
+            del served_whisper
+            torch.cuda.empty_cache()
         if "dense_family" in phases:
             report["dense_family"] = phase_dense_family(args.seed)
             lap("dense_family")
@@ -3131,6 +3352,8 @@ def main() -> int:
                         **{f"{k}_{p}": report[p]["launches"][k]
                            for p in ("grok", "hybrid") for k in ("K2", "K4")},
                         "K6_grok": report["grok"]["launches"]["K6"],
+                        "K2nc_whisper": report["whisper"]["launches"]["K2nc"],
+                        "K5_whisper": report["whisper"]["launches"]["K5"],
                         "K7": report["ssm"]["launches"]["K7"],
                         "K2_vlm": report["vlm"]["launches"]["K2"],
                         "K4_vlm": report["vlm"]["launches"]["K4"]}

@@ -5,10 +5,11 @@
 layers stacked on axis 0 -- and returns the port's parameters: the same
 names and per-layer shapes, each stack ("layers"; the moe family's
 "dense_layers"; the hybrid family's "shared_blocks" and its
-per-application "lora" adapters) as a list of per-entry dicts, tensors in
-`dtype` (default cfg.dtype) on `device`, for every family the port serves
-(dense, vlm with its "mm_proj", Mamba1, MoE with MLA or standard
-attention, hybrid). This module imports no JAX; the parity tests call JAX
+per-application "lora" adapters; the encdec family's "enc_layers" and
+"dec_layers") as a list of per-entry dicts, tensors in `dtype` (default
+cfg.dtype) on `device`, for every family the port serves (dense, vlm with
+its "mm_proj", Mamba1, MoE with MLA or standard attention, hybrid, encdec
+with "dec_pos", "enc_final_norm" and every LayerNorm's bias). This module imports no JAX; the parity tests call JAX
 on one side and this function on the other.
 """
 from __future__ import annotations
@@ -20,7 +21,8 @@ from repro_torch.device import resolve_device
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import _check_family, torch_dtype
 
-STACKS = ("dense_layers", "layers", "shared_blocks", "lora")   # stacked on axis 0
+STACKS = ("dense_layers", "layers", "shared_blocks", "lora",   # stacked on axis 0
+          "enc_layers", "dec_layers")
 
 
 def _to_torch(tree, dev, dt):

@@ -4,9 +4,9 @@ Mirrors `repro.configs`. The port serves the dense family (qwen2.5-3b,
 qwen3-32b, nemotron-4-15b, deepseek-67b), the image-prefix vlm family
 (llava-next-mistral-7b), the Mamba1 ssm family (falcon-mamba-7b), MoE with
 MLA attention (deepseek-v2-lite-16b) and with standard attention
-(grok-1-314b), and the hybrid family (zamba2-2.7b) so far; the other id of
-the JAX registry raises a clear error until its family is ported
-(ROADMAP.md Queue 1).
+(grok-1-314b), the hybrid family (zamba2-2.7b) and the encoder-decoder
+family (whisper-medium): every id of the JAX registry. An id whose family
+is not ported would be listed in NOT_YET_PORTED and raise a clear error.
 """
 from __future__ import annotations
 
@@ -24,10 +24,11 @@ _MODULES = {
     "llava-next-mistral-7b": "llava_next_mistral_7b",
     "grok-1-314b": "grok_1_314b",
     "zamba2-2.7b": "zamba2_2_7b",
+    "whisper-medium": "whisper_medium",
 }
 
 # ids the JAX registry knows whose model family is not ported yet
-NOT_YET_PORTED = ["whisper-medium"]
+NOT_YET_PORTED: list = []
 
 ARCH_IDS = list(_MODULES)
 

@@ -105,6 +105,7 @@ struct PagedDecode;
 struct ChunkPrefill;
 struct PagedVerify;
 struct DenseDecode;
+struct Bidirectional;
 
 namespace {  // one copy per translation unit: no kernel symbol is shared
 

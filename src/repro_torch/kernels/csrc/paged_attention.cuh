@@ -1,5 +1,6 @@
 // Paged attention core shared by paged decode (K1), paged chunk prefill
-// (K2), paged verify (K4) and dense-cache decode (K5).
+// (K2), paged verify (K4), dense-cache decode (K5) and K2's non-causal form
+// over a dense K/V (bidirectional_attention.cu).
 //
 // What one launch computes. B sequences, each with C query positions and H
 // query heads over Hkv KV heads (G = H / Hkv). Query row (b, c, h) sits at
@@ -7,9 +8,10 @@
 // K5: lengths with -1 (C = 1); K4: the candidates' starts with 0; K2: no
 // array, its scalar start (B = 1) -- and attends the keys at logical
 // positions < min(base_b + c + 1, nb * ps) that row b's page table maps,
-// with KV head h / G. Without a table the layout is the identity: position
-// pos of row b is pool row b * nb * ps + pos (K5's slab (B, S, Hkv, D) as
-// one page of S a row). Layouts: q, out (B, C, H, D); pools (P, ps, Hkv,
+// with KV head h / G; with key_limit > 0 (the non-causal form) every row
+// attends the keys < min(key_limit, nb * ps) instead. Without a table the
+// layout is the identity: position pos of row b is pool row b * nb * ps +
+// pos (K5's slab (B, S, Hkv, D) as one page of S a row). Layouts: q, out (B, C, H, D); pools (P, ps, Hkv,
 // D); table (B, nb). fp32 online softmax; output in q's dtype.
 //
 // Bound on the H100: device-memory bytes at the paths' shapes. The K/V of a
@@ -79,6 +81,7 @@ struct PagedArgs {
   float* part_acc;      // (B * C * H, nsplit, D)
   int B, C, H, Hkv, D, ps, nb, span;
   float scale;
+  int key_limit = 0;    // > 0: every row sees the keys < key_limit, not the causal limit
 };
 
 namespace {  // one copy per translation unit: no kernel symbol is shared
@@ -311,9 +314,13 @@ __global__ void __launch_bounds__(kPaThreads) paged_attention_kernel(const Paged
   // table) plus c + 1 must not wrap
   const long long base =
       (a.row_base ? max(a.row_base[b], 0) : 0) + static_cast<long long>(a.base_offset);
-  // the block's rows see keys < min(base + c + 1, cap); its last row most
+  // the block's rows see keys < min(base + c + 1, cap), its last row most;
+  // non-causal (key_limit > 0): every row sees keys < min(key_limit, cap)
+  auto row_limit = [&](int r) -> long long {
+    return a.key_limit > 0 ? a.key_limit : base + r / G + 1;
+  };
   const int k_end =
-      static_cast<int>(min(static_cast<long long>(span_end), base + (r0 + nq - 1) / G + 1));
+      static_cast<int>(min(static_cast<long long>(span_end), row_limit(r0 + nq - 1)));
 
   if (k_begin >= k_end) {  // no row of the block sees a key of this span
     if (nparts == 1) {      // ... nor any key at all: zeros
@@ -352,8 +359,7 @@ __global__ void __launch_bounds__(kPaThreads) paged_attention_kernel(const Paged
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int i = wrow + (lane >> 2) + 8 * h;
-    lim[h] = i < nq ? static_cast<int>(min(base + (r0 + i) / G + 1, static_cast<long long>(k_end)))
-                    : 0;
+    lim[h] = i < nq ? static_cast<int>(min(row_limit(r0 + i), static_cast<long long>(k_end))) : 0;
   }
   const int warp_lim = __reduce_max_sync(0xffffffffu, max(lim[0], lim[1]));
   const float scale =

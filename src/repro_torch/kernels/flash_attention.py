@@ -1,4 +1,5 @@
-"""K2: causal chunk-prefill attention over the paged KV pool.
+"""K2: causal chunk-prefill attention over the paged KV pool, and K2's
+non-causal form over a dense per-row K/V (`bidirectional_attention`).
 
 Replaces `repro.kernels.flash_attention.flash_attention_pallas`
 (src/repro/kernels/flash_attention.py:71) in the form the serving engine's
@@ -23,6 +24,19 @@ blocks (`decode_attention.plan_spans`) and merged by a second kernel; a
 tile skips the spans past its last row and a warp the keys past its rows
 (the TPU kernel's diagonal skip). float32 inputs take the same blocks with
 the products in fp32 FMA. Nothing is gathered into a dense context copy.
+
+The non-causal form, `flash_attention_pallas(causal=False)`, serves the
+encoder-decoder family: the encoder's self-attention over its frames and
+the decoder's cross-attention over the encoder's K/V in chunks, verify
+rounds and whole-prompt prefill. CUDA source: `csrc/
+bidirectional_attention.cu`, on the same core. Every query row sees every
+key < n_keys, so the core's causal limit is replaced by n_keys; the K/V
+is a dense (B, Skv, Hkv, D) tensor, which the core reads in its identity
+layout (row b's keys are one page of Skv), and a (batch, KV head)'s G x Sq
+query rows are packed into its 64-row tiles. Bound on the H100: the
+tensor cores for the encoder (1,500 queries over 1,500 keys, ~750 flops a
+byte), the K/V bytes for a cross-attention chunk or verify round (C x G
+queries a key: 128 or 5).
 """
 from __future__ import annotations
 
@@ -101,4 +115,72 @@ def chunk_prefill_attention(q, k_pool, v_pool, ctx_table, start: int):
         _build.stream_handle(q.device))
     _build.check(rc, "chunk_prefill_attention")
     launches += 1
+    return out
+
+
+# ------------------------------------------------------ non-causal form --
+
+bidirectional_launches = 0
+
+
+def bidirectional_attention_plain(q, k, v, n_keys: int):
+    """Plain PyTorch version: the JAX package's dense attention without a
+    causal mask (`repro_torch.models.layers.sdpa(..., causal=False,
+    kv_len=n_keys)`): float32 scores times the scale, a float32 softmax,
+    probabilities cast to V's dtype. q (B, Sq, H, D); k, v (B, Skv, Hkv,
+    D) -> (B, Sq, H, D)."""
+    from repro_torch.models.layers import sdpa     # layers imports this module
+    B, Sq, H, D = q.shape
+    Hkv = k.shape[2]
+    out = sdpa(q.reshape(B, Sq, Hkv, H // Hkv, D), k, v, causal=False, kv_len=n_keys)
+    return out.reshape(B, Sq, H, D).to(q.dtype)
+
+
+def bidirectional_attention(q, k, v, n_keys: int):
+    """q (B, Sq, H, D); k, v (B, Skv, Hkv, D) in q's dtype, contiguous;
+    every query sees the keys at positions < n_keys (1 <= n_keys <= Skv)
+    -> (B, Sq, H, D). CPU tensors take the plain version; CUDA tensors
+    launch the kernel or raise."""
+    global bidirectional_launches
+    if q.device.type == "cpu":
+        return bidirectional_attention_plain(q, k, v, n_keys)
+    if q.device.type != "cuda":
+        raise ValueError(f"bidirectional_attention: device {q.device}")
+    q = q.contiguous()
+    for name, t in (("k", k), ("v", v)):
+        if t.device != q.device or not t.is_contiguous():
+            raise ValueError(f"bidirectional_attention: {name} must be a contiguous "
+                             f"tensor on {q.device}")
+    if q.dtype not in (torch.float32, torch.bfloat16) or \
+            k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"bidirectional_attention: dtypes {q.dtype}/{k.dtype}/{v.dtype}")
+    if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape or k.shape[0] != q.shape[0] \
+            or k.shape[3] != q.shape[3]:
+        raise ValueError(f"bidirectional_attention: q {tuple(q.shape)}, "
+                         f"k/v {tuple(k.shape)}/{tuple(v.shape)}")
+    B, Sq, H, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    n_keys = int(n_keys)
+    if H % Hkv or D > 256 or D % (16 // q.element_size()) or not 1 <= n_keys <= Skv:
+        raise ValueError(f"bidirectional_attention: unsupported H={H} Hkv={Hkv} D={D} "
+                         f"n_keys={n_keys} Skv={Skv} ({q.dtype} rows must be whole "
+                         f"16-byte chunks)")
+    if not (_aligned(k) and _aligned(v)):
+        raise ValueError("bidirectional_attention: k and v must start on a 16-byte boundary")
+    if not _aligned(q):
+        q = q.clone()
+    out = torch.empty_like(q)
+    if B == 0 or Sq == 0:
+        return out
+    plan = plan_spans((H // Hkv) * Sq, B * Hkv, n_keys)
+    ws = torch.empty((B * Sq * H * plan.nsplit * (D + 2),), dtype=torch.float32,
+                     device=q.device)
+    lib = _build.library()
+    rc = lib.repro_bidirectional_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), ws.data_ptr(),
+        B, Sq, Skv, H, Hkv, D, n_keys, plan.key_groups, plan.nsplit, plan.span,
+        _build.DTYPE_CODES[str(q.dtype).removeprefix("torch.")],
+        _build.stream_handle(q.device))
+    _build.check(rc, "bidirectional_attention")
+    bidirectional_launches += 1
     return out

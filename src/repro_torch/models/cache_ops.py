@@ -50,7 +50,8 @@ PAGE_SINK = 0  # reserved page id, never allocated: dead rows' tables and blocks
 
 # Buffers indexed by token position: the dense family's "k" and "v", MLA's
 # compressed "ckv" and "krope". Every other cache entry (the Mamba blocks'
-# "conv" and "ssm") is per-slot state, copied whole.
+# "conv" and "ssm", the encdec family's cross K/V "ck" and "cv") is
+# per-slot state, copied whole.
 LENGTH_KEYS = ("k", "v", "ckv", "krope")
 
 

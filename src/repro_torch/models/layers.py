@@ -7,6 +7,11 @@ attention (with the hybrid family's per-application LoRA adapters on q,
 k, v and the output) and MLP, and DeepSeek-V2's MLA attention and
 capacity-limited MoE.
 
+The encoder-decoder family (whisper) adds LayerNorm, the encoder's
+self-attention and the decoder's cross-attention over the encoder's
+output, all of which see every key (kernel K2's non-causal form; K5 for a
+decode step's cross-attention).
+
 The attention of the serving path runs through kernels on either KV
 layout. On the paged pool: K1 (decode), K2 (chunk prefill) and K4
 (speculative verify). On the slab -- one contiguous (B, max_len, Hkv, hd)
@@ -51,10 +56,18 @@ def rms_norm(x, w, eps: float):
     return (y * w.float()).to(dt)
 
 
+def layer_norm(x, w, b, eps: float):
+    dt = x.dtype
+    x = x.float()
+    mu = x.mean(dim=-1, keepdim=True)
+    var = torch.square(x - mu).mean(dim=-1, keepdim=True)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return (y * w.float() + b.float()).to(dt)
+
+
 def norm_apply(cfg: ModelConfig, p, x):
     if cfg.use_layernorm:
-        raise NotImplementedError(
-            "LayerNorm models (whisper) are not yet ported, see ROADMAP.md Queue 1")
+        return layer_norm(x, p["w"], p["b"], cfg.norm_eps)
     return rms_norm(x, p["w"], cfg.norm_eps)
 
 
@@ -75,6 +88,15 @@ def apply_rope(x, positions, theta: float):
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_positions(n: int, d: int, device=None):
+    """(n, d) float32: sin of position / 10000^(2i/d) in the first half of
+    the features, cos in the second (the encoder's fixed positions)."""
+    pos = torch.arange(n, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(0, d, 2, dtype=torch.float32, device=device)[None, :]
+    ang = pos / torch.pow(torch.tensor(10_000.0, device=device), dim / d)
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 # ------------------------------------------------------------ activation ----
@@ -392,6 +414,53 @@ def attn_chunk_apply_slab(cfg: ModelConfig, p, x, *, start, k_cache, v_cache, ta
                                      slab_pages(v_cache, ps), tables, start)
     out = out.transpose(1, 2).reshape(B, C, nq, hd)
     return _out_proj(p, out, lora)
+
+
+# -------------------------------------------- encoder-decoder (whisper) ----
+# The encoder's self-attention and the decoder's cross-attention see every
+# key. Kernel K2's non-causal form (`flash_attention.bidirectional_attention`)
+# runs the encoder over its frames and a chunk's, a verify round's or a
+# whole prompt's queries over the cross K/V; kernel K5 runs a decode step's
+# one query a row over it, at length encoder_seq.
+
+
+def attn_apply_bidirectional(cfg: ModelConfig, p, x):
+    """The encoder's self-attention (the JAX `attn_apply(causal=False)`):
+    every position attends every position (no rope: the family's configs
+    use learned and fixed positions). x (B, S, d) -> (B, S, d)."""
+    q, k, v = _project_qkv(cfg, p, x)
+    out = _k2.bidirectional_attention(q, k.contiguous(), v.contiguous(), k.shape[1])
+    return _out_proj(p, out)
+
+
+def cross_kv(p, enc_out):
+    """A decoder layer's cross K/V of the encoder output (B, S, d): each
+    (B, S, Hkv, hd), without bias, as the JAX package projects them."""
+    return (torch.einsum("bsd,dhe->bshe", enc_out, p["wk"]).contiguous(),
+            torch.einsum("bsd,dhe->bshe", enc_out, p["wv"]).contiguous())
+
+
+def _cross_query(cfg: ModelConfig, p, x):
+    q = torch.einsum("bsd,dhe->bshe", x, p["wq"])
+    return q + p["bq"] if cfg.attn_bias else q
+
+
+def cross_attn_apply(cfg: ModelConfig, p, x, *, ck, cv):
+    """Cross-attention of C queries a row over that row's cross K/V (the
+    JAX `attn_chunk_apply(cross=True)` and `attn_apply(kv_override=)`):
+    x (B, C, d); ck, cv (B, S, Hkv, hd), contiguous. Every query sees all S
+    keys. Returns (B, C, d)."""
+    out = _k2.bidirectional_attention(_cross_query(cfg, p, x), ck, cv, ck.shape[1])
+    return _out_proj(p, out)
+
+
+def cross_decode_apply(cfg: ModelConfig, p, x, *, ck, cv):
+    """A decode step's cross-attention (the JAX `attn_decode_apply(cross=
+    True)`): x (B, 1, d), one query a row over its cross K/V ck, cv (B, S,
+    Hkv, hd) at length S. Returns (B, 1, d)."""
+    q = _cross_query(cfg, p, x)
+    out = _k1.decode_attention(q[:, 0], ck, cv, ck.shape[1])
+    return _out_proj(p, out[:, None])
 
 
 # ------------------------------------------------------------------ MLA ----

@@ -1,8 +1,9 @@
 """Model assembly in PyTorch: parameters, and the forward passes of the
 serving engine on both KV layouts (counterpart of `repro.models.model`:
 the dense family, the vlm family (a dense decoder behind an image prefix),
-the Mamba1 ssm family, the moe family with MLA or standard attention, and
-the hybrid family: a Mamba2 trunk with shared attention blocks).
+the Mamba1 ssm family, the moe family with MLA or standard attention, the
+hybrid family: a Mamba2 trunk with shared attention blocks, and the
+encdec family: an encoder and a decoder that cross-attends it).
 
 Parameters are a nested dict of tensors with the JAX package's names and
 shapes, except that each layer stack is a Python list of per-layer dicts
@@ -70,6 +71,17 @@ or whole prompt (`prefill`) may carry `image_embeds` (1, n_image_tokens,
 VISION_DIM): the projected rows are prepended to the text, take the first
 cache positions and are always real (`length` counts text tokens only).
 Every later forward sees positions that already include them.
+
+The encoder-decoder family (whisper) runs `_encoder` over the stub
+frontend's frames -- LayerNorm pre-norm blocks whose self-attention sees
+every frame (K2's non-causal form) -- and a decoder of LayerNorm blocks
+("dec_layers") that add learned positions ("dec_pos") and, after causal
+self-attention on the paths above, cross-attend the encoder's K/V. Its
+per-slot state is that cross K/V, "ck" and "cv" (L, B, encoder_seq, Hkv,
+D), which the engine computes once (`encode_cross_kv`) and the paged
+functions read from `state=`; the slab `prefill` runs the encoder itself
+and writes the cache's. Chunks, verify rounds and whole prompts
+cross-attend through K2's non-causal form, decode steps through K5.
 """
 from __future__ import annotations
 
@@ -100,12 +112,12 @@ def _check_family(cfg: ModelConfig) -> None:
         return
     if cfg.family == "hybrid" and cfg.mamba_version == 2:
         return
-    if cfg.family == "moe":
+    if cfg.family in ("moe", "encdec"):
         return
     raise NotImplementedError(
-        f"model family {cfg.family!r} (mamba_version {cfg.mamba_version}) is not yet "
-        f"ported, see ROADMAP.md Queue 1 (the port serves the dense, vlm, moe and "
-        f"hybrid families and Mamba1)")
+        f"model family {cfg.family!r} (mamba_version {cfg.mamba_version}) is not "
+        f"ported: no config of the registry uses it (the port serves the dense, vlm, "
+        f"moe, hybrid and encdec families and Mamba1)")
 
 
 def n_applications(cfg: ModelConfig) -> int:
@@ -125,7 +137,10 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
     mamba1_init` and `mamba2_init`, drawn in float32; MLA and MoE blocks as
     `mla_init` and `moe_init`; the vlm projector "mm_proj" normal * 0.02,
     drawn in float32; the hybrid family's per-application LoRA adapters as
-    `lora_init`: a_* normal * 0.02, b_* zeros), drawn from `generator` -- a
+    `lora_init`: a_* normal * 0.02, b_* zeros; the encdec family's
+    "enc_layers", "enc_final_norm", "dec_layers" with "cross_norm" and
+    "cross_attn", and "dec_pos" normal * 0.02; LayerNorm with unit weight
+    and zero bias), drawn from `generator` -- a
     different
     draw from JAX's, made on `device` in `dtype` (default cfg.dtype). A
     generator must live on `device`; None seeds one with 0. On the meta
@@ -150,7 +165,10 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
     def zeros(shape):
         return torch.zeros(shape, device=dev, dtype=dt)
 
-    p = {"embed": normal((cfg.vocab_size, d), 0.02), "final_norm": ones(d)}
+    def norm(n):               # LayerNorm: unit weight, zero bias
+        return {**ones(n), "b": zeros((n,))} if cfg.use_layernorm else ones(n)
+
+    p = {"embed": normal((cfg.vocab_size, d), 0.02), "final_norm": norm(d)}
     if not cfg.tie_embeddings:
         p["lm_head"] = normal((d, cfg.vocab_size), 0.02)
     if cfg.family == "ssm":
@@ -183,7 +201,7 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
         return a
 
     def block(moe=False):
-        b = {"attn_norm": ones(d), "attn": attn(), "mlp_norm": ones(d)}
+        b = {"attn_norm": norm(d), "attn": attn(), "mlp_norm": norm(d)}
         if not moe:
             b["mlp"] = mlp()
             return b
@@ -203,6 +221,13 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
         if nd_layers:
             p["dense_layers"] = [block() for _ in range(nd_layers)]
         p["layers"] = [block(moe=True) for _ in range(cfg.num_layers - nd_layers)]
+        return p
+    if cfg.family == "encdec":
+        p["enc_layers"] = [block() for _ in range(cfg.n_encoder_layers)]
+        p["enc_final_norm"] = norm(d)
+        p["dec_layers"] = [{**block(), "cross_norm": norm(d), "cross_attn": attn()}
+                           for _ in range(cfg.num_layers)]
+        p["dec_pos"] = normal((cfg.max_position, d), 0.02)
         return p
     if cfg.family == "hybrid":
         p["layers"] = [{"norm": ones(d), "mamba": S.mamba2_init(cfg, generator, dev, dt)}
@@ -241,19 +266,24 @@ def _head(cfg: ModelConfig, params):
 def _blocks(params) -> list:
     """Every attention block in cache order: the moe family's dense layers
     first, then its MoE layers (the JAX package concatenates their caches
-    so)."""
+    so); the encdec family's decoder layers."""
+    if "dec_layers" in params:
+        return params["dec_layers"]
     return params.get("dense_layers", []) + params["layers"]
 
 
-def _trunk(cfg, params, x, attend=None, mamba=None):
+def _trunk(cfg, params, x, attend=None, mamba=None, cross=None):
     """Run the blocks on x. Attention blocks: x + attend(li, attn params,
-    normed x, lora), then the MLP or MoE feed-forward on the residual.
-    Mamba blocks: x + mamba(li, mamba params, normed x). The ssm family
-    runs only Mamba blocks; the hybrid family runs application i of its
-    shared blocks (with adapter "lora"[i], pool layer i) before Mamba
+    normed x, lora), then (the encdec family's decoder) x + cross(li,
+    cross_attn params, normed x), then the MLP or MoE feed-forward on the
+    residual. Mamba blocks: x + mamba(li, mamba params, normed x). The ssm
+    family runs only Mamba blocks; the hybrid family runs application i of
+    its shared blocks (with adapter "lora"[i], pool layer i) before Mamba
     layers [i * attn_every, (i + 1) * attn_every)."""
     def attention_block(li, lp, x, lora=None):
         x = x + attend(li, lp["attn"], L.norm_apply(cfg, lp["attn_norm"], x), lora)
+        if cross is not None:
+            x = x + cross(li, lp["cross_attn"], L.norm_apply(cfg, lp["cross_norm"], x))
         h = L.norm_apply(cfg, lp["mlp_norm"], x)
         return x + (L.moe_apply(cfg, lp["moe"], h) if "moe" in lp
                     else L.mlp_apply(cfg, lp["mlp"], h))
@@ -278,20 +308,25 @@ def _trunk(cfg, params, x, attend=None, mamba=None):
     return x
 
 
-# ------------------------------------------- recurrent state (ssm, hybrid) --
+# ---------------------------- per-slot state (ssm, hybrid; encdec cross K/V) --
 
 
 def init_state_cache(cfg: ModelConfig, B: int, dtype=None, device=None) -> dict:
     """The per-slot state that is not indexed by token position: the conv
     window (L, B, K-1, c) in `dtype` (default cfg.dtype) -- Mamba1 c = di,
     Mamba2 c = di + 2N -- and the scan state in float32, (L, B, di, N) for
-    Mamba1 and (L, B, h, p, N) for Mamba2, zeros; the other families have
-    none."""
+    Mamba1 and (L, B, h, p, N) for Mamba2, zeros; the encdec family's cross
+    K/V "ck" and "cv" (L, B, encoder_seq, Hkv, D) in `dtype`, zeros; the
+    other families have none."""
     _check_family(cfg)
-    if cfg.family not in ("ssm", "hybrid"):
+    if cfg.family not in ("ssm", "hybrid", "encdec"):
         return {}
     dev = resolve_device(device)
     dt = dtype or torch_dtype(cfg.dtype)
+    if cfg.family == "encdec":
+        shape = (cfg.num_layers, B, cfg.encoder_seq, cfg.n_kv_heads, cfg.resolved_head_dim)
+        return {"ck": torch.zeros(shape, dtype=dt, device=dev),
+                "cv": torch.zeros(shape, dtype=dt, device=dev)}
     Lc, K = cfg.num_layers, cfg.ssm_conv
     return {"conv": torch.zeros((Lc, B, K - 1) + _conv_width(cfg), dtype=dt, device=dev),
             "ssm": torch.zeros((Lc, B) + _state_shape(cfg), dtype=torch.float32, device=dev)}
@@ -386,6 +421,74 @@ def _embed(cfg, params, tokens, image_embeds=None):
     return torch.cat([img, x], dim=1), img.shape[1]
 
 
+# ------------------------------------------------ encoder-decoder (encdec) --
+
+
+def _encoder(cfg, params, frames):
+    """The encoder over the stub frontend's frames (B, S, d): fixed
+    sinusoidal positions added in the model dtype, then LayerNorm pre-norm
+    blocks of non-causal self-attention (kernel K2's non-causal form) and
+    the MLP, then the final LayerNorm (the JAX `_encoder`)."""
+    x = frames.to(params["embed"].dtype)
+    x = x + L.sinusoidal_positions(x.shape[1], cfg.d_model, x.device).to(x.dtype)
+    for lp in params["enc_layers"]:
+        x = x + L.attn_apply_bidirectional(cfg, lp["attn"], L.norm_apply(cfg, lp["attn_norm"], x))
+        x = x + L.mlp_apply(cfg, lp["mlp"], L.norm_apply(cfg, lp["mlp_norm"], x))
+    return L.norm_apply(cfg, params["enc_final_norm"], x)
+
+
+def encode_cross_kv(cfg: ModelConfig, params, frames):
+    """Run the encoder once over frames (B, encoder_seq, d) and project every
+    decoder layer's cross K/V: (ck, cv), each (L, B, encoder_seq, Hkv, D)
+    in the model dtype -- what `prefill_chunk`, `decode_step` and
+    `verify_chunk` read from their state (the slab `prefill` computes them
+    inside the decoder blocks)."""
+    _check_family(cfg)
+    enc = _encoder(cfg, params, frames)
+    kvs = [L.cross_kv(lp["cross_attn"], enc) for lp in params["dec_layers"]]
+    return torch.stack([k for k, _ in kvs]), torch.stack([v for _, v in kvs])
+
+
+def _add_dec_pos(cfg, params, x, positions, *, fill_nan=False):
+    """x plus the learned decoder positions at `positions` (broadcast
+    against x's leading axes), as the JAX package reads them: clipped into
+    the table (a chunk's and a verify round's `jnp.clip`, a scalar decode
+    position's `dynamic_slice`), or, for per-row decode positions
+    (`fill_nan`), NaN past the table (`jnp.take`'s fill)."""
+    if cfg.family != "encdec":
+        return x
+    table = params["dec_pos"]
+    idx = positions.long()
+    rows = table[idx.clamp(0, table.shape[0] - 1)]
+    if fill_nan:
+        rows = torch.where((idx < table.shape[0])[..., None], rows,
+                           rows.new_full((), float("nan")))
+    return x + rows
+
+
+def _cross_chunk(cfg, state):
+    """The decoder's cross-attention of a chunk or verify round over the
+    cross K/V in `state` (K2's non-causal form); None for the other
+    families."""
+    if cfg.family != "encdec":
+        return None
+
+    def run(li, p, h):
+        return L.cross_attn_apply(cfg, p, h, ck=state["ck"][li], cv=state["cv"][li])
+    return run
+
+
+def _cross_decode(cfg, state):
+    """The decoder's cross-attention of a decode step over the cross K/V in
+    `state` (K5 at length encoder_seq); None for the other families."""
+    if cfg.family != "encdec":
+        return None
+
+    def run(li, p, h):
+        return L.cross_decode_apply(cfg, p, h, ck=state["ck"][li], cv=state["cv"][li])
+    return run
+
+
 # ------------------------------------------------------------- decode ------
 
 
@@ -404,10 +507,14 @@ def decode_step(cfg: ModelConfig, params, tokens, pos, pools, table, write_pages
     in place instead, with plain tensor ops; pools and tables go unused.
     The hybrid family does both: attention on the pools (n_app layers),
     Mamba2 on `state`. MLA attends each row's gathered view and writes the
-    block holding pos back to write_pages (`layers.mla_decode_apply`).
+    block holding pos back to write_pages (`layers.mla_decode_apply`). The
+    encdec family adds the learned position of pos[b] (NaN past the table,
+    as the JAX package's per-row read) and cross-attends the cross K/V in
+    `state` (the engine's per-slot "ck"/"cv") through K5.
     """
     _check_family(cfg)
-    x = params["embed"][tokens.long()]
+    x = _add_dec_pos(cfg, params, params["embed"][tokens.long()], pos.reshape(-1, 1),
+                     fill_nan=True)
     attend = None
     if cfg.use_mla:
         def attend(li, p, h, lora=None):
@@ -424,7 +531,8 @@ def decode_step(cfg: ModelConfig, params, tokens, pos, pools, table, write_pages
                                        v_pool=pools["v"][li], table=table,
                                        write_pages=wp, write_offsets=offs, lora=lora)
     mamba = _mamba_decode(cfg, state)
-    return _logits(cfg, params, _trunk(cfg, params, x, attend, mamba))
+    return _logits(cfg, params, _trunk(cfg, params, x, attend, mamba,
+                                       _cross_decode(cfg, state)))
 
 
 # ------------------------------------------------------- chunked prefill ---
@@ -450,10 +558,14 @@ def prefill_chunk(cfg: ModelConfig, params, tokens, start: int, length: int,
     `image_embeds` (1, n_img, VISION_DIM): the projected image rows sit at
     [start, start+n_img) ahead of the text, ctx_ids covers
     start+n_img+C-1, the logits are taken at the last real text position
-    and the position advances by n_img + `length`.
+    and the position advances by n_img + `length`. The encdec family adds
+    the learned positions of [start, start+C), clipped into the table, and
+    cross-attends the cross K/V in the sequence's B=1 `state` ("ck"/"cv",
+    `encode_cross_kv`) through K2's non-causal form.
     """
     _check_family(cfg)
     x, n_img = _embed(cfg, params, tokens, image_embeds)
+    x = _add_dec_pos(cfg, params, x, start + torch.arange(x.shape[1], device=x.device))
     attend = None
     if cfg.use_mla:
         def attend(li, p, h, lora=None):
@@ -470,7 +582,7 @@ def prefill_chunk(cfg: ModelConfig, params, tokens, start: int, length: int,
                                       v_pool=pools["v"][li], ctx_ids=ctx_ids,
                                       write_pages=wp, write_offsets=offs, lora=lora)
     mamba = _mamba_chunk(cfg, state, length)
-    x = _trunk(cfg, params, x, attend, mamba)
+    x = _trunk(cfg, params, x, attend, mamba, _cross_chunk(cfg, state))
     last = n_img + length
     return _logits(cfg, params, x[:, last - 1:last])
 
@@ -500,10 +612,13 @@ def verify_chunk(cfg: ModelConfig, params, tokens, pos, pools, table,
     recurrence through the candidates, checkpointing likewise. MLA attends
     each row's gathered view and writes its blocks [block0s[b], block0s[b]
     + nb) back through the table (`layers.mla_verify_apply`); block0s (B,)
-    is the JAX engine's.
+    is the JAX engine's. The encdec family adds the learned positions of
+    pos[b] + c, clipped into the table, and cross-attends the cross K/V in
+    `state` through K2's non-causal form.
     """
     _check_family(cfg)
-    x = params["embed"][tokens.long()]
+    x = _add_dec_pos(cfg, params, params["embed"][tokens.long()],
+                     L.chunk_positions(pos, tokens.shape[0], tokens.shape[1], tokens.device))
     attend = None
     if cfg.use_mla:
         def attend(li, p, h, lora=None):
@@ -518,7 +633,8 @@ def verify_chunk(cfg: ModelConfig, params, tokens, pos, pools, table,
                                        v_pool=pools["v"][li], table=table,
                                        write_pages=wp, write_offsets=offs, lora=lora)
     mamba = _mamba_verify(cfg, state, ckpts, tokens.shape[1])
-    return _logits(cfg, params, _trunk(cfg, params, x, attend, mamba))
+    return _logits(cfg, params, _trunk(cfg, params, x, attend, mamba,
+                                       _cross_chunk(cfg, state)))
 
 
 # ------------------------------------------------------------ slab KV ------
@@ -551,7 +667,7 @@ def init_decode_cache(cfg: ModelConfig, B: int, max_len: int, dtype=None,
 
 
 def prefill(cfg: ModelConfig, params, tokens, max_len: int, length=None,
-            image_embeds=None):
+            image_embeds=None, frames=None):
     """Process a prompt into a fresh slab cache; return (last-position
     logits (B, 1, V), cache).
 
@@ -566,7 +682,12 @@ def prefill(cfg: ModelConfig, params, tokens, max_len: int, length=None,
     hybrid family) as one SSD chunk from the zero state, as the JAX
     `prefill` runs `mamba2_ssd_ref` over the prompt. The vlm family takes
     the prompt's `image_embeds` (B, n_img, VISION_DIM) ahead of the text
-    (`length` counts text tokens only; pos = n_img + length).
+    (`length` counts text tokens only; pos = n_img + length). The encdec
+    family takes the stub frontend's `frames` (B, encoder_seq, d): the
+    encoder runs on every call, as in the JAX `prefill`; each decoder layer
+    adds the learned positions [0, S) (S past the table raises, as the JAX
+    slice does), projects its cross K/V of the encoder output into the
+    cache's "ck"/"cv" and cross-attends it through K2's non-causal form.
     """
     _check_family(cfg)
     B, S = tokens.shape
@@ -579,7 +700,20 @@ def prefill(cfg: ModelConfig, params, tokens, max_len: int, length=None,
     n = n_img + (S if length is None else int(length))
     x, _ = _embed(cfg, params, tokens, image_embeds)
     S = x.shape[1]
-    attend = None
+    attend = cross = None
+    if cfg.family == "encdec":
+        if frames is None:
+            raise ValueError("prefill: the encdec family needs `frames`")
+        if S > cfg.max_position:
+            raise ValueError(f"prefill: {S} positions exceed the decoder's position "
+                             f"table ({cfg.max_position})")
+        x = _add_dec_pos(cfg, params, x, torch.arange(S, device=dev))
+        enc = _encoder(cfg, params, frames)
+
+        def cross(li, p, h):
+            ck, cv = L.cross_kv(p, enc)
+            cache["ck"][li], cache["cv"][li] = ck, cv
+            return L.cross_attn_apply(cfg, p, h, ck=ck, cv=cv)
     if cfg.use_mla:
         positions = torch.arange(S, device=dev)[None]
 
@@ -597,7 +731,7 @@ def prefill(cfg: ModelConfig, params, tokens, max_len: int, length=None,
                                      v_cache=cache["v"][li], tables=tables, lora=lora)
     # the fresh cache's zero conv window and state are the zero history
     mamba = _mamba_chunk(cfg, cache, n)
-    x = _trunk(cfg, params, x, attend, mamba)
+    x = _trunk(cfg, params, x, attend, mamba, cross)
     cache["pos"] = torch.tensor(n, dtype=torch.int32, device=dev)
     return _logits(cfg, params, x[:, n - 1:n]), cache
 
@@ -611,11 +745,15 @@ def decode_step_slab(cfg: ModelConfig, params, tokens, cache):
     (rows at or past max_len dropped) and attends positions < pos + 1 with
     kernel K5 (MLA: `layers.mla_decode_apply_slab`). Returns (logits (B,
     1, V), cache) with pos advanced by one. Mamba1 and Mamba2 step the
-    cache's conv/ssm in place.
+    cache's conv/ssm in place. The encdec family adds the learned position
+    of pos (a 0-d pos clamped into the table, per-row positions NaN past
+    it, as the JAX package reads them) and cross-attends the cache's
+    "ck"/"cv" through K5.
     """
     _check_family(cfg)
     pos = cache["pos"]
-    x = params["embed"][tokens.long()]
+    x = _add_dec_pos(cfg, params, params["embed"][tokens.long()], pos.reshape(-1, 1),
+                     fill_nan=pos.ndim > 0)
     attend = None
     if cfg.use_mla:
         def attend(li, p, h, lora=None):
@@ -626,7 +764,7 @@ def decode_step_slab(cfg: ModelConfig, params, tokens, cache):
             return L.attn_decode_apply_slab(cfg, p, h, pos=pos, k_cache=cache["k"][li],
                                             v_cache=cache["v"][li], lora=lora)
     mamba = _mamba_decode(cfg, cache)
-    x = _trunk(cfg, params, x, attend, mamba)
+    x = _trunk(cfg, params, x, attend, mamba, _cross_decode(cfg, cache))
     cache["pos"] = pos + 1
     return _logits(cfg, params, x), cache
 
@@ -643,11 +781,14 @@ def verify_chunk_slab(cfg: ModelConfig, params, tokens, cache, ckpts=None):
     mla_chunk_apply_slab`). Returns (logits (B, C, V), cache) with pos
     advanced by C; the dense family keeps no recurrent state, so rollback
     is the engine's position reset. Mamba1 and Mamba2 advance the cache's
-    conv/ssm in place and fill `ckpts` as `verify_chunk` does.
+    conv/ssm in place and fill `ckpts` as `verify_chunk` does. The encdec
+    family adds the learned positions (clipped) and cross-attends the
+    cache's "ck"/"cv" through K2's non-causal form.
     """
     _check_family(cfg)
     pos = cache["pos"]
-    x = params["embed"][tokens.long()]
+    x = _add_dec_pos(cfg, params, params["embed"][tokens.long()],
+                     L.chunk_positions(pos, tokens.shape[0], tokens.shape[1], tokens.device))
     attend = None
     if cfg.use_mla:
         def attend(li, p, h, lora=None):
@@ -662,6 +803,6 @@ def verify_chunk_slab(cfg: ModelConfig, params, tokens, cache, ckpts=None):
             return L.attn_chunk_apply_slab(cfg, p, h, start=pos, k_cache=cache["k"][li],
                                            v_cache=cache["v"][li], tables=tables, lora=lora)
     mamba = _mamba_verify(cfg, cache, ckpts, tokens.shape[1])
-    x = _trunk(cfg, params, x, attend, mamba)
+    x = _trunk(cfg, params, x, attend, mamba, _cross_chunk(cfg, cache))
     cache["pos"] = pos + tokens.shape[1]
     return _logits(cfg, params, x), cache

@@ -70,6 +70,13 @@ beside them. A prefix entry holds the pages and a copy of the state at
 its boundary together, and verify rounds checkpoint and restore the
 Mamba2 state as Mamba1's.
 
+The encoder-decoder family (whisper-medium) keeps the cross K/V of the
+stub frontend's zero frames, "ck"/"cv", per slot beside `pos`, as the JAX
+engine does: not in the pool, and whole in every prefix entry, whose
+byte size counts it. The paged layout encodes the frames once per engine
+(`encode_cross_kv`) into each request's state; the slab `prefill` runs
+the encoder on every call. The frames take no cache position.
+
 The vlm family (llava-next-mistral-7b) puts `n_image_tokens` image
 positions in front of every prompt (`_extra`, from the stub vision
 tower's zero embeddings), as the JAX engine does: a sequence's first
@@ -102,7 +109,7 @@ import torch
 from repro_torch.data import lm_data
 from repro_torch.device import resolve_device
 from repro_torch.models import (decode_step, decode_step_slab,
-                                init_decode_cache, init_state_cache,
+                                encode_cross_kv, init_decode_cache, init_state_cache,
                                 init_verify_ckpts, prefill, prefill_chunk,
                                 verify_chunk, verify_chunk_slab)
 from repro_torch.models.cache_ops import (PAGE_SINK, PageAllocator,
@@ -274,6 +281,7 @@ class ServingEngine:
                                    device=self.device)
         self.slot_pages: list = [[] for _ in range(slots)]   # empty for slab
         self._ckpts = None          # Mamba1 verify checkpoints, made once
+        self._cross_kv = None       # encdec: the frames' cross K/V, computed once
         # vlm: image tokens occupy the first cache positions of every prompt
         self._extra = cfg.n_image_tokens if cfg.family == "vlm" else 0
 
@@ -347,11 +355,19 @@ class ServingEngine:
         return torch.zeros((1, self._extra, VISION_DIM), dtype=torch.float32,
                            device=self.device)
 
+    def _frames(self):
+        """The stub audio frontend's output for one prompt: zeros (1,
+        encoder_seq, d_model) in the model dtype, as the JAX engine feeds
+        the encoder."""
+        return torch.zeros((1, self.cfg.encoder_seq, self.cfg.d_model),
+                           dtype=self.params["embed"].dtype, device=self.device)
+
     def _prefill_sub(self, tokens: list):
         """Exact-state prefill of `tokens` into a B=1 slab sub-cache, padded
         to a bucketed length (`length` keeps the logits and the cache
         position exact at the true length; a vlm prompt carries its image
-        prefix). Returns (last-position logits, sub-cache)."""
+        prefix, an encdec prompt the frames its encoder runs on). Returns
+        (last-position logits, sub-cache)."""
         n = len(tokens)
         bucket = self._bucket_len(n)
         self._prefill_buckets.add(bucket)
@@ -361,7 +377,8 @@ class ServingEngine:
         # attention-FLOPs proxy: KV positions computed against (S x S matrix)
         self.stats["prefill_ctx_positions"] += (self._extra + bucket) ** 2
         return prefill(self.cfg, self.params, toks, self.max_len, length=n,
-                       image_embeds=self._image_embeds() if self._extra else None)
+                       image_embeds=self._image_embeds() if self._extra else None,
+                       frames=self._frames() if self.cfg.family == "encdec" else None)
 
     def _insert_slab_co(self, slot: int, req: Request):
         """Slab-layout insert, yielding between prefill units (one bucketed
@@ -561,7 +578,14 @@ class ServingEngine:
 
     def _init_state_sub(self) -> dict:
         """A fresh B=1 pure state (zeros shaped as one slot of the
-        per-slot cache, `pos` aside)."""
+        per-slot cache, `pos` aside). For the encdec family it is the cross
+        K/V of the frames, which the engine encodes once
+        (`encode_cross_kv`, as the JAX engine) and every request shares:
+        no forward writes a state's "ck"/"cv", and snapshots copy them."""
+        if self.cfg.family == "encdec":
+            if self._cross_kv is None:
+                self._cross_kv = encode_cross_kv(self.cfg, self.params, self._frames())
+            return dict(zip(("ck", "cv"), self._cross_kv))
         return {k: torch.zeros_like(a[:, :1]) for k, a in self.cache.items() if k != "pos"}
 
     def _free_slot_pages(self, slot: int):

@@ -3,8 +3,9 @@ modules loads no `jax` and no module of the JAX package `repro`; the
 jax-free modules it keeps as copies stay verbatim copies, and those copied
 with named edits differ from their originals in those lines only; the config
 registry serves qwen2.5-3b, qwen3-32b, nemotron-4-15b, deepseek-67b,
-llava-next-mistral-7b, falcon-mamba-7b, deepseek-v2-lite-16b, grok-1-314b
-and zamba2-2.7b and refuses the family not yet ported."""
+llava-next-mistral-7b, falcon-mamba-7b, deepseek-v2-lite-16b, grok-1-314b,
+zamba2-2.7b and whisper-medium -- every id of the JAX registry -- and
+refuses an unknown one."""
 import os
 import subprocess
 import sys
@@ -28,7 +29,7 @@ COPIES = ["core/__init__.py", "core/difficulty.py", "core/executor.py",
           "configs/deepseek_v2_lite_16b.py", "configs/qwen3_32b.py",
           "configs/nemotron_4_15b.py", "configs/deepseek_67b.py",
           "configs/llava_next_mistral_7b.py", "configs/grok_1_314b.py",
-          "configs/zamba2_2_7b.py",
+          "configs/zamba2_2_7b.py", "configs/whisper_medium.py",
           "serving/prefix_cache.py", "serving/frontend.py",
           "extract/cascade.py", "extract/__init__.py",
           "live/__init__.py", "live/log.py", "live/corpus.py",
@@ -148,19 +149,19 @@ def test_config_registry():
     import repro.configs.nemotron_4_15b as jn
     import repro.configs.qwen2_5_3b as jq
     import repro.configs.qwen3_32b as jq3
+    import repro.configs.whisper_medium as jw
     import repro.configs.zamba2_2_7b as jz
     ported = (("qwen2.5-3b", jq), ("falcon-mamba-7b", jf), ("deepseek-v2-lite-16b", jd),
               ("qwen3-32b", jq3), ("nemotron-4-15b", jn), ("deepseek-67b", jd67),
-              ("llava-next-mistral-7b", jl), ("grok-1-314b", jg), ("zamba2-2.7b", jz))
+              ("llava-next-mistral-7b", jl), ("grok-1-314b", jg), ("zamba2-2.7b", jz),
+              ("whisper-medium", jw))
     for arch, mod in ported:
         for get in ("CONFIG", "SMOKE"):
             ours = (get_config if get == "CONFIG" else get_smoke_config)(arch)
             assert vars(ours) == vars(getattr(mod, get))
-    assert NOT_YET_PORTED == ["whisper-medium"]
-    assert sorted(NOT_YET_PORTED + [a for a, _ in ported]) == sorted(JAX_ARCH_IDS)
-    for arch in NOT_YET_PORTED:
+    assert NOT_YET_PORTED == []
+    assert sorted(a for a, _ in ported) == sorted(JAX_ARCH_IDS)
+    for arch, _ in ported:
         jax_get_config(arch)                     # known to the reference
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
-            get_config(arch)
     with pytest.raises(KeyError):
         get_config("no-such-model")

@@ -1,5 +1,6 @@
 """Plain PyTorch versions of the port's kernels (K1 paged decode attention,
-K2 paged chunk-prefill attention, K3 L2 top-k, K4 paged verify attention)
+K2 paged chunk-prefill attention and its non-causal form, K3 L2 top-k, K4
+paged verify attention, K5 dense decode attention)
 against the JAX package's
 Pallas kernels in interpret mode and its jnp references, on the same
 numpy inputs; and the span plan of the paged-attention core that K1, K2,
@@ -239,6 +240,9 @@ def _span_keys(plan, split, limit, cap):
     (6, 5, 32, 4096),     # K4, group 6: 30 rows
     (4, 3008, 8, 3008),   # K2: llava's first chunk, 2,880 image + 128 text positions
     (4, 5, 32, 4096),     # K4 at llava width over its image prefix
+    (1, 1500, 16, 1500),  # K2 non-causal: whisper's encoder, 16 heads over 16
+    (1, 128, 16, 1500),   # K2 non-causal: a cross-attention chunk
+    (1, 5, 64, 1500),     # K2 non-causal: a verify round's cross-attention, 4 slots
 ])
 def test_span_plan_partitions_visible_keys(G, C, groups, n_keys):
     plan = k1.plan_spans(G * C, groups, n_keys)
@@ -376,6 +380,30 @@ def test_split_merge_emulation_matches_paged_verify_plain():
             rows = _t(q)[b, heads].transpose(0, 1).reshape(C * G, D)  # row = c * G + g
             got[b, heads] = _split_merge(rows, k, v, limits, plan, D ** -0.5) \
                 .reshape(C, G, D).transpose(0, 1)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-6, rtol=1e-6)
+
+
+def test_split_merge_emulation_matches_bidirectional_plain():
+    """K2's non-causal plan on the identity layout: every row's limit is
+    n_keys (here 137 of 150 keys, so the last span stops inside a tile),
+    37 positions x G = 2 rows a KV head (a ragged second query tile), two
+    batch rows: equals the plain version."""
+    rng = np.random.default_rng(16)
+    B, Sq, Skv, H, Hkv, D, n_keys = 2, 37, 150, 4, 2, 16, 137
+    q = _rand(rng, (B, Sq, H, D))
+    k, v = _rand(rng, (B, Skv, Hkv, D)), _rand(rng, (B, Skv, Hkv, D))
+    G = H // Hkv
+    plan = k1.plan_spans(G * Sq, B * Hkv, n_keys)
+    assert plan.nsplit > 1 and plan.key_groups == 1
+    want = k2.bidirectional_attention_plain(_t(q), _t(k), _t(v), n_keys)
+    got = torch.zeros_like(want)
+    for b in range(B):
+        for kvh in range(Hkv):
+            heads = slice(kvh * G, (kvh + 1) * G)
+            rows = _t(q)[b, :, heads].reshape(Sq * G, D)              # row = c * G + g
+            got[b, :, heads] = _split_merge(rows, _t(k)[b, :, kvh], _t(v)[b, :, kvh],
+                                            [n_keys] * (Sq * G), plan,
+                                            D ** -0.5).reshape(Sq, G, D)
     np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-6, rtol=1e-6)
 
 
@@ -623,6 +651,8 @@ def test_no_silent_cpu_fallback():
     with pytest.raises(ValueError):
         k4.paged_verify_attention(torch.empty((1, 2, 3, 8), device="meta"),
                                   None, None, None, None)
+    with pytest.raises(ValueError):
+        k2.bidirectional_attention(torch.empty((1, 2, 2, 8), device="meta"), None, None, 2)
 
 
 # ------------------------- the new families' shapes: D = 80, E = 8 top 2 --
@@ -706,3 +736,73 @@ def test_moe_gating_plain_at_grok_shapes(T, dtype):
     np.testing.assert_array_equal(slot.numpy(), jslot)
     np.testing.assert_allclose(kept.numpy(), jkept, atol=GATE_TOL, rtol=GATE_TOL)
     assert k6.launches == 0
+
+
+# ------------------- K2's non-causal form and K5 at whisper's head width --
+# whisper-medium's encoder self-attention and decoder cross-attention see
+# every key (flash_attention_pallas(causal=False)); its decode steps'
+# cross-attention is K5 over the whole cross K/V. 16 heads over 16: G = 1,
+# D = 64.
+
+
+@pytest.mark.parametrize("B,S,H,Hkv,D", [
+    (1, 128, 2, 2, 64),
+    (2, 256, 4, 2, 64),
+    (1, 256, 8, 1, 128),
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_bidirectional_plain_matches_flash_pallas(B, S, H, Hkv, D, dtype):
+    """`tests/test_kernels.py`'s flash-attention shapes, causal=False: the
+    plain version against the Pallas kernel in interpret mode and the jnp
+    reference (bf16 to 2e-2, float32 to F32_TOL)."""
+    rng = np.random.default_rng(S + H)
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    tdt = torch.float32 if dtype == "float32" else torch.bfloat16
+    tol = F32_TOL if dtype == "float32" else BF16_TOL
+    q, k, v = (jnp.asarray(_rand(rng, s)).astype(jdt)
+               for s in ((B, S, H, D), (B, S, Hkv, D), (B, S, Hkv, D)))
+    want = flash_attention_pallas(q, k, v, causal=False, bq=64, bk=64, interpret=True)
+    want_ref = ref.flash_attention_ref(q, k, v, causal=False)
+    got = k2.bidirectional_attention(*(_t(np.array(a, np.float32)).to(tdt) for a in (q, k, v)),
+                                     S)
+    assert got.dtype == tdt and tuple(got.shape) == (B, S, H, D)
+    for w in (want, want_ref):
+        np.testing.assert_allclose(got.float().numpy(), np.asarray(w, np.float32),
+                                   atol=tol, rtol=tol)
+    assert k2.bidirectional_launches == 0
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,Hkv,n_keys", [
+    (1, 1, 100, 16, 16, 100),     # one query over every key (a decode-sized row)
+    (4, 5, 100, 16, 16, 100),     # a verify round of 4 rows x 5 candidates
+    (1, 37, 100, 8, 2, 100),      # a ragged chunk, GQA group 4
+    (2, 64, 100, 4, 4, 77),       # a key limit below Skv
+])
+def test_bidirectional_plain_matches_ref_ragged(B, Sq, Skv, H, Hkv, n_keys):
+    """Sq != Skv, Skv = 100 (not a multiple of the 64-key tile), D = 64:
+    against `ref.flash_attention_ref(causal=False)` over the first n_keys
+    keys."""
+    rng = np.random.default_rng(Sq + n_keys)
+    D = 64
+    q, k, v = _rand(rng, (B, Sq, H, D)), _rand(rng, (B, Skv, Hkv, D)), \
+        _rand(rng, (B, Skv, Hkv, D))
+    want = ref.flash_attention_ref(jnp.asarray(q), jnp.asarray(k[:, :n_keys]),
+                                   jnp.asarray(v[:, :n_keys]), causal=False)
+    got = k2.bidirectional_attention(_t(q), _t(k), _t(v), n_keys)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=F32_TOL, rtol=F32_TOL)
+
+
+def test_dense_decode_plain_at_whisper_cross_shape():
+    """K5's plain version as whisper's cross-attention in a decode step
+    runs it: S 100, G 1 (16 heads over 16), D 64, every row's length S,
+    against `ref.decode_attention_ref` and the model's `decode_attention`."""
+    rng = np.random.default_rng(64)
+    B, S, H, D = 4, 100, 16, 64
+    q, kc, vc = _rand(rng, (B, H, D)), _rand(rng, (B, S, H, D)), _rand(rng, (B, S, H, D))
+    want = ref.decode_attention_ref(jnp.asarray(q), jnp.asarray(kc), jnp.asarray(vc), S)
+    want_model = jl.decode_attention(jnp.asarray(q).reshape(B, 1, H, 1, D), jnp.asarray(kc),
+                                     jnp.asarray(vc), S).reshape(B, H, D)
+    got = k1.decode_attention(_t(q), _t(kc), _t(vc), S)
+    for w in (want, want_model):
+        np.testing.assert_allclose(got.numpy(), np.asarray(w), atol=F32_TOL, rtol=F32_TOL)
+    assert k1.dense_launches == 0
