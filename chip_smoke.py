@@ -15,7 +15,8 @@ main's rows, kernels checks the launches the ten model paths captured):
   build      nvcc build of the port's CUDA kernels from the checkout's sources,
              with ptxas' registers, spills and shared memory of the
              paged-attention core's K4, K5 and non-causal K2 instantiations
-             (`ptxas_core`) and of K7's (`ptxas_scan`);
+             (`ptxas_core`), of K2's non-causal form on Hopper's wgmma
+             (`ptxas_k2nc_sm90`: no spill allowed) and of K7's (`ptxas_scan`);
   main       one QUEST query on qwen2.5-3b at its published width
              (d_model 2048, bf16, random weights from --seed), cut to its
              first MAIN_LAYERS = 8 of 36 layers to fit the time limit,
@@ -133,12 +134,13 @@ main's rows, kernels checks the launches the ten model paths captured):
              64, 844,666,880 parameters) at its published width and all its
              layers, on the same documents with the same settings, rows held
              to SMOKE qwen2.5-3b's: the engine encodes the frames once (K2's
-             non-causal form, "K2nc", 24 launches) into each slot's cross
-             K/V; every chunk runs K2 and every verify round K4 for the
-             decoder's self-attention, and each of them K2nc for every
-             decoder layer's cross-attention; K5 for the cross-attention of
-             decode steps (none with prompt lookup), no K1, K6 or K7. Not
-             profiled;
+             non-causal form, "K2nc", 24 launches, all on its Hopper kernel,
+             `bidirectional_attention_sm90.cu`) into each slot's cross K/V;
+             every chunk runs K2 and every verify round K4 for the decoder's
+             self-attention, and each of them K2nc on the paged-attention
+             core for every decoder layer's cross-attention; K5 for the
+             cross-attention of decode steps (none with prompt lookup), no
+             K1, K6 or K7. Not profiled;
   dense_family  with the zamba2 weights freed, qwen3-32b (qk-norm),
              nemotron-4-15b (ungated squared-ReLU MLP, 48 heads over 8:
              GQA group 6) and deepseek-67b at their published widths, each
@@ -164,7 +166,9 @@ main's rows, kernels checks the launches the ten model paths captured):
              and K5: ~66-74 each in bf16 and float32, `_paged_edges`,
              GQA group 6, the dense family's head counts, zamba2's head
              width 80 and whisper's 16 heads over 16 at D 64 among them;
-             K2's non-causal form 16, Skv 1 to 1,500 x Sq 1 to 1,500; K3 12
+             K2's non-causal form 16, Skv 1 to 1,500 x Sq 1 to 1,500, and 21
+             bf16 cases on its Hopper kernel, partial query and key tiles and
+             key limits inside a tile; K3 12
              shapes, N up to 16,384 and exact
              ties; K6 20, with the capacity numbering, grok's E 8, k 2 at
              T 128 and 20 among them; K7 11 shapes in both dtypes), held
@@ -312,6 +316,21 @@ def core_ptxas(log: str, tags) -> dict:
         out[f"{tag} {'float32' if size == 4 else 'bf16'} DP={dp} KW={kw}"] = (
             f"{regs} registers, spill {spill} B, smem {smem} B static + {dyn} B dynamic")
     return out
+
+
+def sm90_ptxas(log: str) -> dict:
+    """K2's non-causal form on Hopper's wgmma (`bidirectional_attention_sm90.cu`)
+    from nvcc's `-Xptxas -v` log: its one kernel's registers a thread at
+    launch (before `setmaxnreg` moves them), spill bytes and static shared
+    memory; raises if the kernel is missing or spills."""
+    found = [(spill, regs, smem) for name, spill, regs, smem in _ptxas_entries(log)
+             if "bidirectional_attention_sm90_kernel" in name]
+    if len(found) != 1:
+        raise AssertionError(f"bidirectional_attention_sm90: {len(found)} kernels in the log")
+    spill, regs, smem = found[0]
+    if spill != "0":
+        raise AssertionError(f"bidirectional_attention_sm90 spills {spill} B")
+    return {"kernel": f"{regs} registers, spill {spill} B, smem {smem} B static"}
 
 
 def gating_topk_ptxas(log: str) -> dict:
@@ -577,7 +596,8 @@ def _check_like_main(name, result, main_result):
 
 
 def _launch_counts():
-    """Every kernel's launches; "K2nc" is K2's non-causal form."""
+    """Every kernel's launches; "K2nc" is K2's non-causal form on either of
+    its kernels, "K2nc_sm90" those of them on its Hopper kernel."""
     from repro_torch.kernels import decode_attention as k15
     from repro_torch.kernels import flash_attention as k2
     from repro_torch.kernels import moe_gating as k6
@@ -585,8 +605,8 @@ def _launch_counts():
     from repro_torch.kernels import topk_l2 as k3
     from repro_torch.kernels import verify_attention as k4
     return {"K1": k15.launches, "K2": k2.launches, "K2nc": k2.bidirectional_launches,
-            "K3": k3.launches, "K4": k4.launches, "K5": k15.dense_launches,
-            "K6": k6.launches, "K7": k7.launches}
+            "K2nc_sm90": k2.bidirectional_sm90_launches, "K3": k3.launches,
+            "K4": k4.launches, "K5": k15.dense_launches, "K6": k6.launches, "K7": k7.launches}
 
 
 def _zero_launches():
@@ -597,7 +617,7 @@ def _zero_launches():
     from repro_torch.kernels import topk_l2 as k3
     from repro_torch.kernels import verify_attention as k4
     k15.launches = k15.dense_launches = k2.launches = k3.launches = k4.launches = 0
-    k2.bidirectional_launches = k6.launches = k7.launches = 0
+    k2.bidirectional_launches = k2.bidirectional_sm90_launches = k6.launches = k7.launches = 0
 
 
 def _timed_query(session):
@@ -1530,6 +1550,11 @@ def _family_phase(phase: str, arch: str, n_layers: int, seed: int, captures: dic
                              f"times (want {want_nc}: the encoder once, then every layer's "
                              f"cross-attention in {chunks} chunks and {rounds} verify "
                              f"rounds), K5 {launches['K5']} (want {want_k5})")
+    if launches["K2nc_sm90"] != (cfg.n_encoder_layers if encdec else 0):
+        raise AssertionError(f"{phase}: K2's non-causal form launched its Hopper kernel "
+                             f"{launches['K2nc_sm90']} times (want the encoder's "
+                             f"{cfg.n_encoder_layers if encdec else 0}; every cross-"
+                             f"attention launch on the core)")
     stray = {k: launches[k] for k in ("K1", "K7") if launches[k]}
     if stray:
         raise AssertionError(f"{phase}: K1 or K7 launched: {launches}")
@@ -1706,7 +1731,8 @@ def phase_profile(session, extractor, out_dir, path: str) -> dict:
               "K4 paged_verify": ("PagedVerify",),
               "K5 dense_decode": ("DenseDecode",),
               "K6 moe_gating": ("moe_gating_kernel",),
-              "K2nc bidirectional": ("Bidirectional",),
+              "K2nc bidirectional": ("Bidirectional",
+                                     "bidirectional_attention_sm90"),
               "K7 ssm_scan": ("ssm_scan_kernel",)}
     by_group = dict.fromkeys(list(groups) + ["gemm", "other"], 0.0)
     count_by_group = dict.fromkeys(by_group, 0)
@@ -1908,8 +1934,16 @@ def _paged_edges() -> tuple:
     non-causal form ("K2nc"): Skv = 1, 65, 1,500 x Sq = 1, 5, 128, 1,500 at
     B = 2, 16 heads over 16, D 64 (partial query and key tiles, one query
     tile shared by key quarters, and whisper's encoder), then GQA group 4
-    with a key limit below Skv, group 6, D 32 and D 256. Returns ({(kernel,
-    dtype): max error}, {kernel: number of cases})."""
+    with a key limit below Skv, group 6, D 32 and D 256; the bf16 ones whose
+    shape `bidirectional_route` sends to the Hopper kernel run there. Then
+    that kernel ("K2nc_sm90", bf16) through the same wrapper: B 2, Sq 1,500
+    over Skv 1,500, and Sq 257 and 385 (partial 192-row query tiles: one
+    warpgroup and a row, a row) over Skv 129 and 1,500 with n_keys 1, 127
+    (limits inside a key tile) and 1,463, 16 heads over 16 and over 4; its
+    launch count must have moved once for each launch routed there and for
+    no other. Returns ({(kernel, dtype): max error}, {kernel: number of
+    cases}); "K2nc_sm90_close" holds the allclose-form error
+    (`close_err`)."""
     import torch
     from repro_torch.kernels import decode_attention as k1
     from repro_torch.kernels import flash_attention as k2
@@ -1972,10 +2006,16 @@ def _paged_edges() -> tuple:
                 for Sq in (1, 5, 128, 1500)] + \
         [(3, 37, 100, 8, 2, 128, 77), (2, 5, 65, 12, 2, 128, 65), (2, 128, 1500, 4, 4, 32, 1500),
          (1, 16, 300, 4, 1, 256, 299)]
+    # K2's non-causal form on its Hopper kernel: (B, Sq, Skv, H, Hkv, D, n_keys)
+    sm90_cases = [(2, 1500, 1500, 16, 16, 64, 1500)] + \
+        [(2, Sq, Skv, 16, Hkv, 64, n) for Sq in (257, 385)
+         for Skv, n in ((129, 1), (129, 127), (1500, 1), (1500, 127), (1500, 1463))
+         for Hkv in (16, 4)]
     errs = {}
 
     def note(kernel, name, err):
         errs[kernel, name] = max(errs.get((kernel, name), 0.0), err)
+    sm90_before = k2.bidirectional_sm90_launches
     for dt in (torch.float32, torch.bfloat16):
         name = str(dt).removeprefix("torch.")
         for B, H, Hkv, D, P, ps, nb in k1_cases:
@@ -2020,8 +2060,24 @@ def _paged_edges() -> tuple:
             q, k, v = r(B, Sq, H, D).to(dt), r(B, Skv, Hkv, D).to(dt), r(B, Skv, Hkv, D).to(dt)
             note("K2nc", name, max_err(k2.bidirectional_attention(q, k, v, n),
                                        k2.bidirectional_attention_plain(q, k, v, n)))
+    routed = sum(k2.bidirectional_route(torch.bfloat16, B, Sq, H, Hkv, D) == "sm90"
+                 for B, Sq, Skv, H, Hkv, D, n in nc_cases)
+    for B, Sq, Skv, H, Hkv, D, n in sm90_cases:
+        if k2.bidirectional_route(torch.bfloat16, B, Sq, H, Hkv, D) != "sm90":
+            raise AssertionError(f"K2nc_sm90: ({B}, {Sq}, {Skv}, {H}, {Hkv}, {D}) routes "
+                                 f"to the core")
+        q, k, v = (r(B, S, h, D).bfloat16() for S, h in ((Sq, H), (Skv, Hkv), (Skv, Hkv)))
+        got = k2.bidirectional_attention(q, k, v, n)
+        want = k2.bidirectional_attention_plain(q, k, v, n)
+        note("K2nc_sm90", "bfloat16", max_err(got, want))
+        note("K2nc_sm90_close", "bfloat16", close_err(got, want))
+    moved = k2.bidirectional_sm90_launches - sm90_before
+    if moved != routed + len(sm90_cases):
+        raise AssertionError(f"K2nc_sm90: {moved} launches of the Hopper kernel for "
+                             f"{routed} + {len(sm90_cases)} launches routed there")
     return errs, {"K1": len(k1_cases), "K2": len(k2_cases), "K4": len(k4_cases),
-                  "K5": len(k5_cases), "K2nc": len(nc_cases)}
+                  "K5": len(k5_cases), "K2nc": len(nc_cases),
+                  "K2nc_sm90": routed + len(sm90_cases)}
 
 
 def _k1_row(q, kp, vp, tbl, lens, launches: int, variant: str) -> dict:
@@ -2338,22 +2394,39 @@ def _k5_row(q, kc, vc, lens, launches: int, variant: str) -> dict:
         bound_ms=b_ms, bound_by=b_by)
 
 
-def _k2nc_row(q, k, v, n_keys, launches: int, variant: str) -> dict:
+# the encoder launch's device time on the core, `bidirectional_attention.cu`,
+# before it had the Hopper kernel (this script's kernels phase on an H100,
+# 700 W)
+K2NC_ENCODER_CORE_MS = 0.07081
+
+
+def _k2nc_row(q, k, v, n_keys, launches: int, variant: str, before=None) -> dict:
     """K2's non-causal form at one launch's inputs, as `_k1_row`, with SDPA
     over the same dense K/V (transposed to (B, H, S, D) and its KV heads
-    repeated outside the timing) as yardstick."""
+    repeated outside the timing) as yardstick. The row names the kernel
+    `bidirectional_route` picks ("sm90": the Hopper kernel, with the core's
+    device time on the same inputs in this run; "core"); `before`: the row's device time before the Hopper kernel, in
+    brackets."""
+    import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as k2
     dt = str(q.dtype).removeprefix("torch.")
+    B, Sq, H, D = q.shape
+    route = k2.bidirectional_route(q.dtype, B, Sq, H, k.shape[2], D)
+    extra = {}
+    if route == "sm90":
+        out = torch.empty_like(q)
+        extra = {"core_device_ms": device_ms(lambda: k2._launch_core(q, k, v, out, n_keys))}
+    if before is not None:
+        extra["before_device_ms"] = f"[{before}] (the core, before the Hopper kernel)"
 
     def err(q_, k_, v_, n_, e=max_err):
         return e(k2.bidirectional_attention(q_, k_, v_, n_),
                  k2.bidirectional_attention_plain(q_, k_, v_, n_))
-    B, Sq, H, D = q.shape
     Hkv = k.shape[2]
     G = H // Hkv
     nbytes = (2 * B * n_keys * Hkv * D + 2 * B * Sq * H * D) * q.element_size()
-    b_ms, b_by = bound(nbytes, 4 * B * Sq * n_keys * H * D, dt)
+    b_ms, b_by = bound(nbytes, 4 * B * Sq * n_keys * H * D, dt, exps=B * Sq * n_keys * H)
     qt = q.transpose(1, 2).contiguous()
     kt = k[:, :n_keys].transpose(1, 2).repeat_interleave(G, 1).contiguous()
     vt = v[:, :n_keys].transpose(1, 2).repeat_interleave(G, 1).contiguous()
@@ -2363,11 +2436,13 @@ def _k2nc_row(q, k, v, n_keys, launches: int, variant: str) -> dict:
 
     def library():
         return F.scaled_dot_product_attention(qt, kt, vt)
+    sources = {"sm90": {"source": "src/repro_torch/kernels/csrc/bidirectional_attention_sm90.cu"},
+               "core": {"source": "src/repro_torch/kernels/csrc/bidirectional_attention.cu",
+                        "core": "src/repro_torch/kernels/csrc/paged_attention.cuh"}}
     return dict(
-        name="bidirectional_attention" + variant, route="cuda",
-        source="src/repro_torch/kernels/csrc/bidirectional_attention.cu",
-        core="src/repro_torch/kernels/csrc/paged_attention.cuh",
-        replaces="src/repro/kernels/flash_attention.py:71 (causal=False)",
+        name=f"bidirectional_attention{variant[:-1]}, {route}]", route="cuda",
+        kernel_route=route, **sources[route],
+        replaces="src/repro/kernels/flash_attention.py:86 (causal=False)",
         launches=launches,
         shape=f"q{tuple(q.shape)} k/v{tuple(k.shape)} n_keys {n_keys} {dt}",
         max_abs_err=err(q, k, v, n_keys), max_close_err=err(q, k, v, n_keys, close_err),
@@ -2380,7 +2455,7 @@ def _k2nc_row(q, k, v, n_keys, launches: int, variant: str) -> dict:
         device_ms_method=DEVICE_MS_METHOD,
         library_call="F.scaled_dot_product_attention over the same K/V in (B, H, S, D), "
                      "no mask",
-        bound_ms=b_ms, bound_by=b_by)
+        bound_ms=b_ms, bound_by=b_by, **extra)
 
 
 def _kernel_k2nc(captures: dict, launches: dict, edges: tuple) -> list:
@@ -2388,7 +2463,9 @@ def _kernel_k2nc(captures: dict, launches: dict, edges: tuple) -> list:
     encoder (1,500 frames over 1,500), a chunk's cross-attention (C = 128
     over the cross K/V) and a verify round's (4 slots x 5 candidates), with
     `_paged_edges`' non-causal cases and, on the chunk's captured K/V in
-    float32, a key limit of 1 and of encoder_seq - 37."""
+    float32, a key limit of 1 and of encoder_seq - 37. The encoder's launch
+    runs on the Hopper kernel and carries its edge cases
+    (`_paged_edges`' "K2nc_sm90"); the other two on the core."""
     from repro_torch.kernels import flash_attention as k2
     q, k, v, n = captures["K2nc_whisper_chunk"].args
     q32, k32, v32 = q.float(), k.float(), v.float()
@@ -2396,9 +2473,18 @@ def _kernel_k2nc(captures: dict, launches: dict, edges: tuple) -> list:
                        k2.bidirectional_attention_plain(q32, k32, v32, m))
                for m in (1, n - 37))
     n_all = launches["K2nc_whisper"]
-    rows = [_k2nc_row(*captures[f"K2nc_whisper_{w}"].args, n_all, f" [whisper {name}]")
+    rows = [_k2nc_row(*captures[f"K2nc_whisper_{w}"].args,
+                      launches["K2nc_sm90_whisper"] if w == "encoder"
+                      else n_all - launches["K2nc_sm90_whisper"],
+                      f" [whisper {name}]", K2NC_ENCODER_CORE_MS if w == "encoder" else None)
             for w, name in (("encoder", "encoder"), ("chunk", "cross chunk"),
                             ("verify", "cross verify round"))]
+    if [r["kernel_route"] for r in rows] != ["sm90", "core", "core"]:
+        raise AssertionError(f"K2nc routes {[r['kernel_route'] for r in rows]}")
+    errs, n_cases = edges
+    rows[0].update(max_abs_err_edge_bf16=errs["K2nc_sm90", "bfloat16"],
+                   max_close_err_edge_bf16=errs["K2nc_sm90_close", "bfloat16"],
+                   edge_cases=n_cases["K2nc_sm90"], tol_bf16=TOL["bfloat16"])
     rows[1] = _with_edges(rows[1], "K2nc", edges, edge)
     return rows
 
@@ -3247,6 +3333,7 @@ def main() -> int:
                            "ptxas_core": core_ptxas(_build.build_info.get("ptxas", ""),
                                                     ("PagedVerify", "DenseDecode",
                                                      "Bidirectional")),
+                           "ptxas_k2nc_sm90": sm90_ptxas(_build.build_info.get("ptxas", "")),
                            "ptxas_scan": scan_ptxas(_build.build_info.get("ptxas", "")),
                            "ptxas_k3_k6": gating_topk_ptxas(_build.build_info.get("ptxas", ""))}
         emit(report["build"])
@@ -3353,6 +3440,7 @@ def main() -> int:
                            for p in ("grok", "hybrid") for k in ("K2", "K4")},
                         "K6_grok": report["grok"]["launches"]["K6"],
                         "K2nc_whisper": report["whisper"]["launches"]["K2nc"],
+                        "K2nc_sm90_whisper": report["whisper"]["launches"]["K2nc_sm90"],
                         "K5_whisper": report["whisper"]["launches"]["K5"],
                         "K7": report["ssm"]["launches"]["K7"],
                         "K2_vlm": report["vlm"]["launches"]["K2"],

@@ -37,6 +37,13 @@ query rows are packed into its 64-row tiles. Bound on the H100: the
 tensor cores for the encoder (1,500 queries over 1,500 keys, ~750 flops a
 byte), the K/V bytes for a cross-attention chunk or verify round (C x G
 queries a key: 128 or 5).
+
+The encoder's launch, and every bf16 launch at D 64 with at least
+SM90_MIN_ROWS query rows a query head, takes a second CUDA kernel designed
+for Hopper instead, `csrc/bidirectional_attention_sm90.cu`: TMA loads into
+a ring of 128-key tiles, both products on `wgmma`, one CTA per (batch,
+query head, 192 query rows) with no key split. `bidirectional_route` is
+the rule between the two kernels: by shape, not a fallback.
 """
 from __future__ import annotations
 
@@ -120,7 +127,36 @@ def chunk_prefill_attention(q, k_pool, v_pool, ctx_table, start: int):
 
 # ------------------------------------------------------ non-causal form --
 
-bidirectional_launches = 0
+bidirectional_launches = 0          # every launch of the non-causal form, either kernel
+bidirectional_sm90_launches = 0     # those on the Hopper kernel
+
+SM90_D = 64             # the head width the Hopper kernel takes (one 128-byte row)
+SM90_Q_TILE = 192       # query rows a CTA: three consumer warpgroups of 64
+SM90_KEY_TILE = 128     # keys a TMA stage
+# Query rows a query head from which the Hopper kernel is the faster. On an
+# H100 (700 W) over whisper's 1,500 cross keys, 16 query heads over 16 and
+# over 4, it took 0.0202-0.0211 ms at every Sq from 128 to 1,024 (one wave
+# of CTAs); the core 0.0187-0.0193 at Sq 192 and 0.0216-0.0224 at 224, the
+# first measured Sq where it is the slower at both groups
+# (`tools/kernel_ab.py --kernel K2nc`'s sweep; PERF.md §6).
+SM90_MIN_ROWS = 224
+
+
+def bidirectional_route(dtype, B, Sq, H, Hkv, D) -> str:
+    """The kernel that runs a launch of the non-causal form: "sm90" (the
+    Hopper kernel, `csrc/bidirectional_attention_sm90.cu`) for bf16 at D =
+    SM90_D with Sq >= SM90_MIN_ROWS query rows a query head, the
+    tensor-core-bound shapes (whisper's encoder, a slab prompt's
+    whole-prompt cross-attention); "core" (the paged-attention core,
+    `csrc/bidirectional_attention.cu`) for the rest: float32, other head
+    widths, and the bytes-bound cross-attention chunks and verify rounds,
+    whose few query rows a key the core splits over key spans. The rule
+    reads Sq, not G x Sq: the Hopper kernel tiles each query head's rows on
+    its own and reads the K/V once for each, where the core packs a KV
+    head's G x Sq rows into its tiles."""
+    if dtype == torch.bfloat16 and D == SM90_D and Sq >= SM90_MIN_ROWS:
+        return "sm90"
+    return "core"
 
 
 def bidirectional_attention_plain(q, k, v, n_keys: int):
@@ -141,7 +177,6 @@ def bidirectional_attention(q, k, v, n_keys: int):
     every query sees the keys at positions < n_keys (1 <= n_keys <= Skv)
     -> (B, Sq, H, D). CPU tensors take the plain version; CUDA tensors
     launch the kernel or raise."""
-    global bidirectional_launches
     if q.device.type == "cpu":
         return bidirectional_attention_plain(q, k, v, n_keys)
     if q.device.type != "cuda":
@@ -172,15 +207,39 @@ def bidirectional_attention(q, k, v, n_keys: int):
     out = torch.empty_like(q)
     if B == 0 or Sq == 0:
         return out
+    if bidirectional_route(q.dtype, B, Sq, H, Hkv, D) == "sm90":
+        _launch_sm90(q, k, v, out, n_keys)
+    else:
+        _launch_core(q, k, v, out, n_keys)
+    return out
+
+
+def _launch_core(q, k, v, out, n_keys: int) -> None:
+    """The paged-attention core's launch (checked inputs, out allocated)."""
+    global bidirectional_launches
+    B, Sq, H, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
     plan = plan_spans((H // Hkv) * Sq, B * Hkv, n_keys)
     ws = torch.empty((B * Sq * H * plan.nsplit * (D + 2),), dtype=torch.float32,
                      device=q.device)
-    lib = _build.library()
-    rc = lib.repro_bidirectional_attention(
+    rc = _build.library().repro_bidirectional_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), ws.data_ptr(),
         B, Sq, Skv, H, Hkv, D, n_keys, plan.key_groups, plan.nsplit, plan.span,
         _build.DTYPE_CODES[str(q.dtype).removeprefix("torch.")],
         _build.stream_handle(q.device))
     _build.check(rc, "bidirectional_attention")
     bidirectional_launches += 1
-    return out
+
+
+def _launch_sm90(q, k, v, out, n_keys: int) -> None:
+    """The Hopper kernel's launch (checked bf16 inputs at D = SM90_D, out
+    allocated)."""
+    global bidirectional_launches, bidirectional_sm90_launches
+    B, Sq, H, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    rc = _build.library().repro_bidirectional_attention_sm90(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq, Skv, H, Hkv, D,
+        n_keys, _build.stream_handle(q.device))
+    _build.check(rc, "bidirectional_attention (sm90)")
+    bidirectional_launches += 1
+    bidirectional_sm90_launches += 1

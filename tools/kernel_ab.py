@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""One kernel (K3, K6 or K7) of two checkouts on one card: device times in
-turns and the outputs compared bit for bit.
+"""One kernel (K3, K6, K7 or K2nc) of two checkouts on one card: device
+times in turns and the outputs compared, bit for bit (K3, K6, K7) or
+within a tolerance (K2nc).
 
-    python3 tools/kernel_ab.py --kernel K3|K6|K7 --baseline DIR [--seed N] [--out FILE]
+    python3 tools/kernel_ab.py --kernel K3|K6|K7|K2nc --baseline DIR [--seed N] [--out FILE]
 
 DIR is another checkout of this repository (for example the parent
 commit, unpacked with `git archive` into a git-ignored directory). Each
@@ -10,7 +11,8 @@ side runs in its own process (its own `src/repro_torch`, its own kernel
 build), in the order baseline, change, change, baseline, on the same
 inputs made from --seed on the card. Prints one JSON line a run and a
 summary line; exits non-zero when a side's outputs differ from the other's
-in any bit, or without a CUDA device. Device times are
+(in any bit; for K2nc by more than chip_smoke.TOL["bfloat16"] in the
+allclose form, `close_err`), or without a CUDA device. Device times are
 `chip_smoke.device_ms` (a CUDA graph of 20 calls replayed under events).
 
 K3 (L2 top-k): the retriever's launch (db 309 x 256 of unit rows, 4
@@ -33,6 +35,22 @@ K7 (selective scan): falcon-mamba-7b's launches (di 8192, N 16: a
 S 5, writing its states) in bf16 and float32, at the unit scale of the
 JAX package's K7 test, plus edge shapes (N 32, B 8, a ragged di 200, an
 unaligned di 100, S 0); outputs: y, the final state and the states.
+
+K2nc (K2's non-causal form, `flash_attention.bidirectional_attention`, bf16):
+whisper-medium's three launch shapes, the encoder (1,500 frames over
+1,500, 16 heads over 16, D 64), a chunk's cross-attention (128 queries
+over the 1,500 cross keys) and a verify round's (4 rows x 5 candidates),
+on seeded unit-scale inputs; output: the attention. A side routes each
+launch as its own wrapper does (a tree without `bidirectional_route` runs
+every launch on the paged-attention core). The comparison is not bitwise:
+the Hopper kernel rounds the unnormalised probabilities to bf16 where the
+core keeps them as two bf16 halves, which changes low bits by design; the
+sides must agree within TOL["bfloat16"] in the allclose form. A side with
+the Hopper kernel also times, over the 1,500 cross keys, both kernels at Sq
+128 to 1,024 query rows a head, 16 query heads over 16 and over 4 KV heads
+(`sweep`), the numbers behind `flash_attention.SM90_MIN_ROWS`, and the
+encoder's launch at n_keys 128 to 1,500 (`keys_sweep`: a launch's fixed
+cost and the cost of each 128-key tile).
 """
 from __future__ import annotations
 
@@ -80,7 +98,14 @@ K7_CASES = (("chunk", 1, 128, 8192, 16, "bfloat16", True, False, True),
             ("ragged_di200", 2, 37, 200, 16, "float32", True, True, False),
             ("unaligned_di100", 2, 19, 100, 8, "bfloat16", False, True, False),
             ("S0", 2, 0, 8192, 16, "bfloat16", True, True, False))
-CASES = {"K3": K3_CASES, "K6": K6_CASES, "K7": K7_CASES}
+# K2nc: (name, B, Sq, Skv, H, Hkv, n_keys), bf16, D 64
+K2NC_CASES = (("encoder", 1, 1500, 1500, 16, 16, 1500),
+              ("cross_chunk", 1, 128, 1500, 16, 16, 1500),
+              ("cross_verify", 4, 5, 1500, 16, 16, 1500))
+K2NC_SWEEP = (128, 160, 192, 224, 256, 384, 512, 858, 1024)
+K2NC_SWEEP_GROUPS = (1, 4)      # query heads a KV head: whisper's 16 over 16, and 16 over 4
+K2NC_KEYS_SWEEP = (128, 256, 512, 1024, 1500)
+CASES = {"K3": K3_CASES, "K6": K6_CASES, "K7": K7_CASES, "K2nc": K2NC_CASES}
 
 
 def _gen(torch, seed):
@@ -128,6 +153,12 @@ def _k7_inputs(torch, seed, B, S, di, N, dtype, h0, states):
             torch.empty((B, S, di, N), device="cuda") if states else None)
 
 
+def _k2nc_inputs(torch, seed, B, Sq, Skv, H, Hkv):
+    r = _gen(torch, seed)
+    return tuple(r(*shape).bfloat16() for shape in ((B, Sq, H, 64), (B, Skv, Hkv, 64),
+                                                     (B, Skv, Hkv, 64)))
+
+
 def _k6_route(torch, k6):
     """What `moe_apply` runs for the gating and the numbering on this side:
     the fused launch, or (before it) the float32 cast, the gating launch
@@ -172,6 +203,28 @@ def side(src: str, kernel: str, seed: int, out: str) -> None:
                 times[f"{name}_route"] = chip_smoke.device_ms(lambda: route(*args))
                 f32 = args[0].float()
                 times[f"{name}_gate"] = chip_smoke.device_ms(lambda: k6.moe_gating(f32, args[1]))
+    elif kernel == "K2nc":
+        from repro_torch.kernels import flash_attention as k2
+        for i, (name, B, Sq, Skv, H, Hkv, n) in enumerate(K2NC_CASES):
+            q, k, v = _k2nc_inputs(torch, seed + i, B, Sq, Skv, H, Hkv)
+            results[name] = [k2.bidirectional_attention(q, k, v, n).cpu()]
+            times[name] = chip_smoke.device_ms(lambda: k2.bidirectional_attention(q, k, v, n))
+        if hasattr(k2, "bidirectional_route"):
+            extra["route"] = {name: k2.bidirectional_route(torch.bfloat16, B, Sq, H, Hkv, 64)
+                              for name, B, Sq, Skv, H, Hkv, n in K2NC_CASES}
+            extra["sweep"] = {}
+            for G in K2NC_SWEEP_GROUPS:
+                for Sq in K2NC_SWEEP:
+                    q, k, v = _k2nc_inputs(torch, seed + Sq, 1, Sq, 1500, 16, 16 // G)
+                    dst = torch.empty_like(q)
+                    extra["sweep"][f"G{G} Sq{Sq}"] = {
+                        "core": chip_smoke.device_ms(lambda: k2._launch_core(q, k, v, dst, 1500)),
+                        "sm90": chip_smoke.device_ms(lambda: k2._launch_sm90(q, k, v, dst, 1500)),
+                        "route": k2.bidirectional_route(torch.bfloat16, 1, Sq, 16, 16 // G, 64)}
+            q, k, v = _k2nc_inputs(torch, seed, 1, 1500, 1500, 16, 16)
+            extra["keys_sweep"] = {n: chip_smoke.device_ms(
+                lambda: k2.bidirectional_attention(q, k, v, n)) for n in K2NC_KEYS_SWEEP}
+            extra["ptxas"] = chip_smoke.sm90_ptxas(_build.build_info["ptxas"])
     else:
         from repro_torch.kernels import ssm_scan as k7
         for i, (name, B, S, di, N, dtype, h0, states, timed) in enumerate(K7_CASES):
@@ -219,15 +272,26 @@ def main() -> int:
             print(json.dumps(run), flush=True)
             runs.append(run)
             outputs.setdefault(name, torch.load(out))
+    if args.kernel == "K2nc":   # not bitwise: the P rounding differs by design
+        def same(a, b):
+            return a.shape == b.shape and chip_smoke.close_err(a, b) <= chip_smoke.TOL["bfloat16"]
+    else:
+        same = torch.equal
     differ = [c for c in outputs["baseline"]
               if len(outputs["baseline"][c]) != len(outputs["change"][c])
-              or not all(torch.equal(a, b) for a, b in zip(outputs["baseline"][c],
-                                                             outputs["change"][c]))]
-    summary = {"kernel": args.kernel, "identical": not differ, "differ": differ,
+              or not all(same(a, b) for a, b in zip(outputs["baseline"][c],
+                                                    outputs["change"][c]))]
+    agree = "within_tol_bf16" if args.kernel == "K2nc" else "identical"
+    summary = {"kernel": args.kernel, agree: not differ, "differ": differ,
                "cases": [c[0] for c in CASES[args.kernel]],
                "device_ms": {name: [r["device_ms"] for r in runs if r["side"] == name]
                              for name in roots},
                "device": torch.cuda.get_device_name(0), "nvidia_smi": chip_smoke.nvidia_smi()}
+    if args.kernel == "K2nc":
+        summary["max_close_err"] = {
+            c: max(chip_smoke.close_err(a, b) for a, b in zip(outputs["baseline"][c],
+                                                              outputs["change"][c]))
+            for c in outputs["baseline"]}
     print(json.dumps(summary), flush=True)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
