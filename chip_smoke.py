@@ -6,10 +6,10 @@
 Runs from the root of a checkout, imports nothing of JAX or of the JAX
 package, and goes through its phases, each printing one JSON line. By
 default it runs every phase; `--phases` names some (main, spec, slab,
-draft, frontend, cascade, live, ssm, moe, vlm, grok, hybrid, whisper,
-dense_family, kernels, reference), and each brings the phases it needs
-(`NEEDS`: the paths on the legal corpus's 100 documents compare with
-main's rows, kernels checks the launches the ten model paths captured):
+draft, frontend, cascade, live, train, ssm, moe, vlm, grok, hybrid,
+whisper, dense_family, kernels, reference), and each brings the phases it
+needs (`NEEDS`: the paths on the legal corpus's 100 documents compare with
+main's rows, kernels checks the launches the model paths captured):
 
   device     the card's name and power limit (nvidia-smi);
   build      nvcc build of the port's CUDA kernels from the checkout's sources,
@@ -73,6 +73,18 @@ main's rows, kernels checks the launches the ten model paths captured):
              the live doc index must rank as the rebuild's, and the
              deleted document's prefix pages must be back in the pool
              (K2, K3, K4); reembedded / edited bytes are reported;
+  train      with the served qwen2.5-3b weights freed, training
+             (`repro_torch.training.Trainer`) at published width:
+             qwen2.5-3b's first MAIN_LAYERS layers as float32 masters,
+             TRAIN_STEPS AdamW steps (OptConfig's defaults) of TRAIN_BATCH x
+             TRAIN_SEQ tokens of the wiki corpus; losses, step ms (median of
+             steps 2-4), tokens/s, peak allocated memory and the model-flops
+             share (6 N D over the step time and 989e12 flop/s); K2 =
+             layers x rows x steps and nothing else; the first step's loss
+             and gradients within TRAIN_CONTROL_TOL of the same step through
+             the kernels' plain versions on the card; a second trainer on
+             one repeated batch must lower its loss (`phase_train`); with
+             --profile one more step's device busy share;
   ssm        with the qwen2.5-3b weights freed, the same query on
              falcon-mamba-7b (Mamba1) at its published width, cut to its
              first SSM_LAYERS = 16 of 64 layers (d_model 4096, d_inner 8192,
@@ -175,7 +187,15 @@ main's rows, kernels checks the launches the ten model paths captured):
              against its plain PyTorch version (an attention row in its
              own dtype in the allclose form of the JAX package's kernel
              tests, `close_err`; K3's indices where the distances are
-             unique, K6's indices and slots, K7's states exactly); K7 also at each
+             unique, K6's indices and slots, K7's states exactly), and each
+             training kernel's gradient (`_kernel_grads`: K2 at the train
+             phase's launch and at D 80, K2nc on both routes, K6 at E 64 k 6
+             and E 8 k 2, K7 at a falcon chunk): the autograd form's
+             forward and gradient (the kernel forward, the plain version's
+             backward recomputed, the upstream gradient a function of the
+             forward's output) against the plain version's autograd, with
+             forward + backward
+             times beside SDPA's where one exists; K7 also at each
              R (states a thread) and group (steps walked together) its kernel has,
              whose outputs must equal the wrapper's bit for bit. Times: CUDA
              events (`ms`) beside its bound and a PyTorch library yardstick
@@ -233,7 +253,13 @@ main's rows, kernels checks the launches the ten model paths captured):
              must equal their off mode's for every prompt the two share);
              falcon-mamba-7b's and zamba2-2.7b's recurrent state and
              whisper-medium's cross K/V must also
-             agree across the devices.
+             agree across the devices. Training modes (`training_runs`):
+             the seven families' SMOKE configs in float32, the first
+             step's loss and gradients and the parameters after two AdamW
+             steps (qwen2.5-3b also Adafactor and 8-bit Adam) card against
+             CPU within TRAIN_REF_TOL, each family's kernels launched on the
+             card, and crash-resume on the card (crash at step 6, resume
+             from the step-4 checkpoint) bit for bit.
 
 Every phase raises on a mismatch. Then it prints each phase's seconds,
 the `kernels` summary line (K1-K7 and K2's non-causal form; empty when
@@ -246,6 +272,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import subprocess
 import sys
 import time
@@ -1706,7 +1733,6 @@ def phase_profile(session, extractor, out_dir, path: str) -> dict:
     import contextlib
 
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     retriever = session.retriever
@@ -1723,6 +1749,41 @@ def phase_profile(session, extractor, out_dir, path: str) -> dict:
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     forwards = st["prefill_chunks"] + st["spec_rounds"] - fwd0
+    events = prof.key_averages()                   # aggregated once: it is slow
+    by_group, count_by_group, launches, by_span = _device_groups(events)
+    busy = sum(by_group.values())
+    out = {"phase": "profile", "path": path, "requests": len(items),
+           "wall_ms": wall_us / 1e3,
+           "device_busy_ms": busy / 1e3, "device_busy_share": busy / wall_us,
+           "device_kernels": launches,
+           "device_ms_by_group": {g: t / 1e3 for g, t in by_group.items()},
+           "device_launches_by_group": count_by_group}
+    if path == "moe":
+        out["device_ms_by_span"] = {n: by_span.get(n, 0.0) / 1e3 for n in _Spans.NAMES}
+    if path in ("ssm", "moe", "hybrid"):           # every forward a chunk or a verify round
+        out["forwards"] = forwards
+        out["device_kernels_per_forward"] = launches / forwards if forwards else None
+    emit(out)
+    _profile_table(events, out_dir, path)
+    if busy <= 0:
+        raise AssertionError("the profiler saw no device time")
+    return out
+
+
+def _profile_table(events, out_dir, path: str) -> None:
+    if out_dir:
+        Path(out_dir).mkdir(parents=True, exist_ok=True)
+        key = "self_device_time_total" if events and \
+            hasattr(events[0], "self_device_time_total") else "self_cuda_time_total"
+        (Path(out_dir) / f"profile_table_{path}.txt").write_text(
+            events.table(sort_by=key, row_limit=40))
+
+
+def _device_groups(events) -> tuple:
+    """Device time (us) and launches of a profile's kernels by group (each
+    path kernel, gemm, other), the device kernels launched, and the
+    `_Spans`' extents."""
+    from torch.autograd import DeviceType
     # each attention kernel's span and merge launches (the merge kernel is
     # shared; its tag names the caller)
     groups = {"K1 paged_decode": ("PagedDecode",),
@@ -1738,7 +1799,6 @@ def phase_profile(session, extractor, out_dir, path: str) -> dict:
     count_by_group = dict.fromkeys(by_group, 0)
     by_span = {}
     launches = 0
-    events = prof.key_averages()                   # aggregated once: it is slow
     for e in events:
         if e.key in _Spans.NAMES:                  # the span's kernels, summed; its
             if e.device_type != DeviceType.CUDA:   # device-side row is its extent
@@ -1757,27 +1817,181 @@ def phase_profile(session, extractor, out_dir, path: str) -> dict:
                 else "other"
         by_group[g] += t
         count_by_group[g] += e.count
-    busy = sum(by_group.values())
-    out = {"phase": "profile", "path": path, "requests": len(items),
-           "wall_ms": wall_us / 1e3,
-           "device_busy_ms": busy / 1e3, "device_busy_share": busy / wall_us,
-           "device_kernels": launches,
-           "device_ms_by_group": {g: t / 1e3 for g, t in by_group.items()},
-           "device_launches_by_group": count_by_group}
-    if path == "moe":
-        out["device_ms_by_span"] = {n: by_span.get(n, 0.0) / 1e3 for n in _Spans.NAMES}
-    if path in ("ssm", "moe", "hybrid"):           # every forward a chunk or a verify round
-        out["forwards"] = forwards
-        out["device_kernels_per_forward"] = launches / forwards if forwards else None
+    return by_group, count_by_group, launches, by_span
+
+
+# The train phase: qwen2.5-3b at published width, its first MAIN_LAYERS
+# layers (the served phases' cut), B x S tokens a step, AdamW with
+# OptConfig's defaults through `Trainer.run`. Float32 masters, grads, the
+# clip's float32 copy and AdamW's m and v are 20 B a parameter: ~25 GB
+# for the 1.24 B parameters, with the bf16 cast, the float32 logits
+# (B S V x 4 B, ~1.2 GB) and their gradient beside them.
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 512, 4
+
+
+# The train phase's control: its first step through the kernels against the
+# same step through their plain versions on the card, both in bf16. Loss:
+# relative error; gradients: each parameter's ||a - b|| / ||b|| (its largest
+# over the parameters), where a wrong kernel moves the attention weights'
+# gradients by their own size.
+TRAIN_CONTROL_TOL = {"loss": 1e-3, "grad": 0.1}
+
+
+def _train_control(cfg, t) -> dict:
+    """The loss and every parameter's gradient of trainer t's first batch
+    (the data cursor left where it was) through the kernels' autograd forms
+    and again with `kernels.autograd`'s four functions swapped for the
+    kernels' plain versions (PyTorch's autograd), on the same parameters on
+    the card. Launches made here are not the main path's: the caller zeroes
+    the counts after it."""
+    import torch
+    from repro_torch.kernels import autograd as kag
+    from repro_torch.kernels import flash_attention as k2
+    from repro_torch.kernels import moe_gating as k6
+    from repro_torch.kernels import ssm_scan as k7
+    from repro_torch.training import make_loss_fn
+    from repro_torch.tree import flat
+
+    snap = t.data.snapshot()
+    batch = {k: torch.as_tensor(v, device="cuda") for k, v in t.data.next().items()}
+    t.data.restore(snap)
+    loss_fn, leaves = make_loss_fn(cfg, remat=False), flat(t.params)
+    for p in leaves:
+        p.requires_grad_(True)
+
+    def value_and_grads():
+        loss, _ = loss_fn(t.params, batch)
+        return loss.item(), torch.autograd.grad(loss, leaves, allow_unused=True)
+    loss_k, grads_k = value_and_grads()
+    plain = {"chunk_prefill_attention": k2.chunk_prefill_attention_plain,
+             "bidirectional_attention": k2.bidirectional_attention_plain,
+             "moe_gating": k6.moe_gating_plain, "ssm_scan": k7.ssm_scan_plain}
+    kernels = {name: getattr(kag, name) for name in plain}
+    try:
+        for name, fn in plain.items():
+            setattr(kag, name, fn)
+        loss_p, grads_p = value_and_grads()
+    finally:
+        for name, fn in kernels.items():
+            setattr(kag, name, fn)
+    errs = [float((a - b).norm() / b.norm()) for a, b in zip(grads_k, grads_p)
+            if a is not None and float(b.norm()) > 0]
+    return {"loss_kernels": loss_k, "loss_plain": loss_p,
+            "loss_err": abs(loss_k - loss_p) / abs(loss_p), "grad_err": max(errs),
+            "grads_compared": len(errs), "tol": TRAIN_CONTROL_TOL}
+
+
+def phase_train(seed: int, profile: bool, out_dir) -> dict:
+    """Training on the card at published width (`repro_torch.training`):
+    qwen2.5-3b cut to MAIN_LAYERS layers, parameters drawn from --seed as
+    float32 masters, `Trainer.run` for TRAIN_STEPS AdamW steps on
+    `LMBatches(corpus_token_stream(make_wiki_corpus()), TRAIN_BATCH,
+    TRAIN_SEQ)` (the byte ids reach only the first rows of the embedding;
+    the logits span the whole vocabulary). Reported: each step's loss and
+    host seconds (synchronised), the step time (the median of steps 2-4)
+    and tokens/s, the peak of allocated device memory, and the model-flops
+    share: `launch/flops.py`'s 6 N D for a training step over the step time
+    and `serving/costs.py`'s peak (989e12 flop/s). Asserted: finite losses,
+    K2 = layers x rows x steps (one launch a row a layer, forward only: the
+    backward recomputes the plain version) and no other kernel, and the
+    first step's loss and gradients within TRAIN_CONTROL_TOL of the same
+    step through the plain versions (`_train_control`, before the counted
+    run). Then a
+    second trainer from the same seed on one batch that repeats (the
+    stream cut to one batch): its loss must fall over the steps. With
+    --profile one more step of the first trainer is profiled for its
+    device busy share. No checkpoint is written at this width (~15 GB of
+    npz)."""
+    import statistics
+    import tempfile
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.data import lm_data
+    from repro_torch.data.corpus import make_wiki_corpus
+    from repro_torch.launch.flops import model_flops
+    from repro_torch.serving.costs import PEAK_FLOPS
+    from repro_torch.training import OptConfig, Trainer, TrainerConfig
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    cfg = get_config("qwen2.5-3b").replace(num_layers=MAIN_LAYERS)
+    stream = lm_data.corpus_token_stream(make_wiki_corpus())
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_train_")    # stays empty
+
+    def trainer(tokens):
+        tcfg = TrainerConfig(total_steps=TRAIN_STEPS, ckpt_every=TRAIN_STEPS + 1,
+                             ckpt_dir=ckpt_dir, seed=seed, log_every=1)
+        t = Trainer(cfg, OptConfig(), lm_data.LMBatches(tokens, TRAIN_BATCH, TRAIN_SEQ), tcfg)
+        step, seconds = t.train_step, []
+
+        def timed(*args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step(*args)
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+            return out
+        t.train_step = timed
+        t.init()
+        return t, seconds
+
+    torch.cuda.reset_peak_memory_stats()
+    t, seconds = trainer(stream)
+    control = _train_control(cfg, t)
+    _zero_launches()
+    losses = t.run()
+    launches = _launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    step_s = statistics.median(seconds[1:])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops = model_flops(cfg, ShapeSpec("train", "train", TRAIN_SEQ, TRAIN_BATCH))
+    out = {"phase": "train", "card": nvidia_smi(), "model": "qwen2.5-3b",
+           "layers": f"{MAIN_LAYERS} of 36",
+           "parameters": cfg.param_count(), "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+           "optimizer": "adamw, OptConfig() defaults", "losses": losses,
+           "step_seconds": seconds, "step_ms": step_s * 1e3, "tokens_per_s": tokens / step_s,
+           "max_memory_allocated": peak, "model_flops_per_step": flops,
+           "model_flops_share": flops / step_s / PEAK_FLOPS, "peak_flops": PEAK_FLOPS,
+           "launches": launches, "control": control}
+    if profile:
+        batch = t.data.next()
+        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            t.params, t.opt_state, _ = t.train_step(t.params, t.opt_state, batch)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        events = prof.key_averages()
+        by_group, _, kernels, _ = _device_groups(events)
+        busy = sum(by_group.values())
+        out["profile"] = {"wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
+                          "device_busy_share": busy / wall_us, "device_kernels": kernels,
+                          "device_ms_by_group": {g: v / 1e3 for g, v in by_group.items()}}
+        _profile_table(events, out_dir, "train")
+        if busy <= 0:
+            raise AssertionError("train: the profiler saw no device time")
+    del t
+    torch.cuda.empty_cache()
+    repeat, _ = trainer(stream[:TRAIN_BATCH * (TRAIN_SEQ + 1)])
+    out["losses_one_batch"] = repeat.run()
+    del repeat
+    torch.cuda.empty_cache()
     emit(out)
-    if out_dir:
-        Path(out_dir).mkdir(parents=True, exist_ok=True)
-        key = "self_device_time_total" if events and \
-            hasattr(events[0], "self_device_time_total") else "self_cuda_time_total"
-        (Path(out_dir) / f"profile_table_{path}.txt").write_text(
-            events.table(sort_by=key, row_limit=40))
-    if busy <= 0:
-        raise AssertionError("the profiler saw no device time")
+    want = MAIN_LAYERS * TRAIN_BATCH * TRAIN_STEPS
+    others = {k: n for k, n in launches.items() if k != "K2" and n}
+    if launches["K2"] != want or others:
+        raise AssertionError(f"train: K2 launched {launches['K2']} times, want {want} "
+                             f"(layers x rows x steps), and nothing else: {others}")
+    if not (control["loss_err"] <= TRAIN_CONTROL_TOL["loss"]
+            and control["grad_err"] <= TRAIN_CONTROL_TOL["grad"]):
+        raise AssertionError(f"train: the first step differs from its plain-version "
+                             f"control: {control}")
+    if not all(math.isfinite(x) for x in losses + out["losses_one_batch"]):
+        raise AssertionError(f"train: a loss is not finite: {out}")
+    first, *_, last = out["losses_one_batch"]
+    if not last < first:
+        raise AssertionError(f"train: the loss on one repeated batch did not fall: "
+                             f"{out['losses_one_batch']}")
     return out
 
 
@@ -1800,6 +2014,7 @@ def phase_kernels(captures: dict, launches: dict) -> list:
     rows += _kernel_k2nc(captures, launches, edges)
     rows += _kernel_k6(captures, launches)
     rows.append(_kernel_k7(captures, launches))
+    rows += _kernel_grads(launches["train"])
 
     for r in rows:
         r["kernel_ms"] = r["ms"]
@@ -1813,6 +2028,9 @@ def phase_kernels(captures: dict, launches: dict) -> list:
             key = key.replace("abs", "close") if key.replace("abs", "close") in r else key
             if key in r and not r[key] <= tol:
                 raise AssertionError(f"{r['name']}: {key}={r[key]} > {tol}")
+        if "tol_grad" in r and not r["rel_err_grad"] <= r["tol_grad"]:
+            raise AssertionError(f"{r['name']}: rel_err_grad={r['rel_err_grad']} > "
+                                 f"{r['tol_grad']}")
     return rows
 
 
@@ -2826,6 +3044,166 @@ def _kernel_k7(captures: dict, launches: dict) -> dict:
         bound_bytes=nbytes, bound_exps=exps)
 
 
+def _grad_row(name, kernel, plain, inputs, diff, *, tol, work, dtype, library=None,
+              library_call=None, **info) -> dict:
+    """A kernel's forward and gradient on the card: its autograd form
+    (`kernels.autograd`: the kernel's forward, the plain version's gradient
+    recomputed in the backward) against the plain version's own autograd,
+    on the same inputs. The forward outputs are held at `tol` (max_abs_err,
+    max_close_err). The gradients are those of sum(y^2 / 2 + y g) over the
+    floating outputs y, g seeded randoms: the upstream gradient y + g is
+    the form's own forward output, so a wrong kernel forward shows in the
+    gradients too. Each gradient is held by its relative L2 error
+    ||a - b|| / ||b|| at TOL["bfloat16"]; the elementwise errors are
+    reported beside it. Elementwise, a bf16 plain backward is not stable
+    under its inputs' last ulp: the softmax backward subtracts terms of
+    ~sqrt(D) in bf16, and a causal key's gradient sums thousands of them,
+    so one-ulp differences of the forward move single elements of K2's
+    gradient by up to ~5% (PERF.md, §6). `diff` flags
+    the inputs that take a gradient; `work` is (bytes, flops,
+    exponentials) of the forward and backward as one function (each input
+    and output gradient read once, each output and input gradient written
+    once; flops of the forward's products and the backward's, twice the
+    forward's). Times: CUDA events over forward + backward."""
+    import torch
+
+    def floats(ys):
+        return [y for y in (ys if isinstance(ys, tuple) else (ys,)) if y.is_floating_point()]
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    with torch.no_grad():
+        g_outs = [torch.randn(o.shape, generator=gen, device="cuda")
+                  for o in floats(plain(*inputs))]
+
+    def run(fn):
+        xs = [x.detach().requires_grad_(d) if torch.is_tensor(x) else x
+              for x, d in zip(inputs, diff)]
+        ys = floats(fn(*xs))
+        loss = sum((y.float() ** 2 / 2 + y.float() * g).sum() for y, g in zip(ys, g_outs))
+        return ys, torch.autograd.grad(loss, [x for x, d in zip(xs, diff) if d])
+    (y_got, got), (y_want, want) = run(kernel), run(plain)
+    b_ms, b_by = bound(*work[:2], dtype, work[2])
+    return dict(
+        name=name, route="cuda", replaces_backward="none: the JAX package differentiates "
+        "plain jnp code (jax.value_and_grad); no backward Pallas kernel",
+        backward="src/repro_torch/kernels/autograd.py: the plain version's gradient, "
+                 "recomputed from the saved inputs (a stand-in)",
+        **info, max_abs_err=max(max_err(a, b) for a, b in zip(y_got, y_want)),
+        max_close_err=max(close_err(a, b) for a, b in zip(y_got, y_want)), tol=tol,
+        max_abs_err_grad=max(max_err(a, b) for a, b in zip(got, want)),
+        max_close_err_grad=max(close_err(a, b) for a, b in zip(got, want)),
+        rel_err_grad=max(float((a.float() - b.float()).norm() / b.float().norm())
+                         for a, b in zip(got, want)),
+        tol_grad=TOL["bfloat16"],
+        ms=cuda_ms(lambda: run(kernel), iters=10, warmup=2),
+        plain_ms=cuda_ms(lambda: run(plain), iters=10, warmup=2),
+        library_ms=None if library is None else cuda_ms(library, iters=10, warmup=2),
+        library_call=library_call or "none: no single PyTorch call computes it",
+        bound_ms=b_ms, bound_by=b_by)
+
+
+def _kernel_grads(launches: dict) -> list:
+    """The gradient rows: K2 over a whole sequence from position 0 (the
+    train phase's launch: 512 positions of one row, 16 heads over 2 at D
+    128, over the batch's slab seen as pages of 64; and zamba2's 32 heads
+    over 32 at D 80), K2's non-causal form on both routes (whisper's
+    encoder on the Hopper kernel; 128 queries a row over 1,500 keys, four
+    rows, on the core), K6 at 2,048 tokens (E 64 k 6 and E 8 k 2, bf16
+    logits, the model's capacity) and K7 at a falcon-mamba-7b chunk (x (1,
+    128, 8,192), N 16). Each compares the autograd form's forward and
+    gradient with the plain version's autograd on the card (`_grad_row`),
+    the forward at the dtype's tolerance. launches: the train phase's (qwen2.5-3b has no
+    MoE, SSM or encoder; the reference phase's training modes launch
+    those)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import autograd as kag
+    from repro_torch.kernels import flash_attention as k2
+    from repro_torch.kernels import moe_gating as k6
+    from repro_torch.kernels import ssm_scan as k7
+    from repro_torch.models import layers as L
+
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    bf = torch.bfloat16
+
+    def r(*shape, scale=1.0, dtype=bf):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale).to(dtype)
+    rows = []
+    for H, Hkv, D, tag in ((16, 2, 128, "train"), (32, 32, 80, "zamba2 heads, D 80")):
+        S, ps = TRAIN_SEQ, L.slab_page_size(TRAIN_SEQ)
+        kp, vp = r(S // ps, ps, Hkv, D), r(S // ps, ps, Hkv, D)
+        q, tbl = r(S, H, D), L.slab_tables(1, S, ps, "cuda")[0]
+        pairs = S * (S + 1) // 2
+        q4 = q.transpose(0, 1)[None]
+        k4 = kp.reshape(S, Hkv, D).transpose(0, 1)[None]
+        v4 = vp.reshape(S, Hkv, D).transpose(0, 1)[None]
+
+        def sdpa(q4=q4, k4=k4, v4=v4):
+            xs = [t.detach().requires_grad_() for t in (q4, k4, v4)]
+            o = F.scaled_dot_product_attention(*xs, is_causal=True, enable_gqa=True)
+            return torch.autograd.grad(o, xs, torch.ones_like(o))
+        rows.append(_grad_row(
+            f"chunk_prefill_attention gradient [{tag}]",
+            lambda q, kp, vp: kag.chunk_prefill_attention(q, kp, vp, tbl, 0),
+            lambda q, kp, vp: k2.chunk_prefill_attention_plain(q, kp, vp, tbl, 0),
+            (q, kp, vp), (True, True, True), tol=TOL["bfloat16"], dtype="bfloat16",
+            work=((4 * S * H * D + 4 * S * Hkv * D) * 2, 12 * pairs * H * D, pairs * H),
+            library=sdpa, library_call="F.scaled_dot_product_attention(is_causal=True, "
+            "enable_gqa=True) forward and backward over the same K/V in (1, H, S, D)",
+            source="src/repro_torch/kernels/csrc/chunk_prefill_attention.cu",
+            replaces="src/repro/kernels/flash_attention.py:86 (causal)",
+            launches=launches["K2"] if tag == "train" else 0,
+            shape=f"q({S}, {H}, {D}) over a {S}-position row, pages of {ps}, bf16"))
+    for B, Sq, Skv in ((1, 1500, 1500), (4, 128, 1500)):
+        q, k, v = r(B, Sq, 16, 64), r(B, Skv, 16, 64), r(B, Skv, 16, 64)
+        route = k2.bidirectional_route(bf, B, Sq, 16, 16, 64)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+        def sdpa(qt=qt, kt=kt, vt=vt):
+            xs = [t.detach().requires_grad_() for t in (qt, kt, vt)]
+            o = F.scaled_dot_product_attention(*xs)
+            return torch.autograd.grad(o, xs, torch.ones_like(o))
+        rows.append(_grad_row(
+            f"bidirectional_attention gradient [{route}]",
+            lambda q, k, v: kag.bidirectional_attention(q, k, v, Skv),
+            lambda q, k, v: k2.bidirectional_attention_plain(q, k, v, Skv),
+            (q, k, v), (True, True, True), tol=TOL["bfloat16"], dtype="bfloat16",
+            work=((4 * B * Sq * 16 * 64 + 4 * B * Skv * 16 * 64) * 2,
+                  12 * B * Sq * Skv * 16 * 64, B * Sq * Skv * 16),
+            library=sdpa, library_call="F.scaled_dot_product_attention forward and "
+            "backward over the same K/V in (B, H, S, D), no mask",
+            source="src/repro_torch/kernels/csrc/" + (
+                "bidirectional_attention_sm90.cu" if route == "sm90"
+                else "bidirectional_attention.cu"),
+            replaces="src/repro/kernels/flash_attention.py:86 (causal=False)",
+            launches=launches["K2nc"], kernel_route=route,
+            shape=f"q{tuple(q.shape)} k/v{tuple(k.shape)} bf16"))
+    T = TRAIN_BATCH * TRAIN_SEQ
+    for E, k in ((64, 6), (8, 2)):
+        C = _k6_cap(T, k, E)
+        rows.append(_grad_row(
+            f"moe_gating gradient [E {E}, k {k}]",
+            lambda logits: kag.moe_gating(logits, k, C),
+            lambda logits: k6.moe_gating_plain(logits, k, C),
+            (r(T, E, scale=0.9),), (True,), tol=K6_TOL, dtype="float32",
+            work=(T * E * 2 * 2 + T * k * (4 + 4 + 8 + 4) * 2, T * E * (3 + k) * 3, T * E),
+            source="src/repro_torch/kernels/csrc/moe_gating.cu",
+            replaces="src/repro/kernels/moe_gating.py:55", launches=launches["K6"],
+            shape=f"logits ({T}, {E}) bf16, k {k}, C {C}"))
+    B, S, di, N = 1, DEEP_CHUNK, 8192, 16
+    args = (r(B, S, di, scale=0.5), F.softplus(r(B, S, di, dtype=torch.float32) - 1).to(bf),
+            -torch.exp(r(di, N, scale=0.3, dtype=torch.float32)), r(B, S, N, scale=0.5),
+            r(B, S, N, scale=0.5), torch.ones(di, device="cuda", dtype=bf))
+    nbytes, flops, exps = _k7_work(args[0], N, None, None)
+    rows.append(_grad_row(
+        "ssm_scan gradient", lambda *a: kag.ssm_scan(*a), lambda *a: k7.ssm_scan_plain(*a),
+        args, (True,) * 6, tol=TOL["bfloat16"], dtype="float32",
+        work=(2 * nbytes, 3 * flops, exps),
+        source="src/repro_torch/kernels/csrc/ssm_scan.cu",
+        replaces="src/repro/kernels/ssm_scan.py:68", launches=launches["K7"],
+        shape=f"x({B}, {S}, {di}) N {N} bf16, from a zero state"))
+    return rows
+
+
 class _Scripted:
     """Drafter proposing each request's known greedy continuation (the
     off mode's tokens) with every token from index `good` on corrupted, so
@@ -3020,8 +3398,186 @@ def reference_runs(seed: int, device: str) -> dict:
                     n = engine.alloc.num_pages
                     pools[tag] = {k: p[:, :n].cpu() for k, p in engine.alloc.pools.items()}
                 seconds[f"{arch}/{tag}/{device}"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    training = training_runs(seed, device)
+    seconds[f"training/{device}"] = time.perf_counter() - t0
     return {"runs": runs, "states": states, "pools": pools, "gating": gating,
-            "seconds": seconds, "tier": _tier_modes(seed, docs[20], device)}
+            "seconds": seconds, "tier": _tier_modes(seed, docs[20], device),
+            "training": training}
+
+
+# The reference phase's training modes: each family's SMOKE config in
+# float32 (the test batch of tests/test_torch_train_forward.py: 2 rows of
+# 16 tokens, seeded image embeddings or frames), two steps of
+# `make_train_step` at this lr; qwen2.5-3b also with Adafactor and 8-bit
+# Adam (q_block 32, so that its stacked norms are quantized).
+TRAIN_REF_ARCHS = ("qwen2.5-3b", "deepseek-v2-lite-16b", "grok-1-314b", "falcon-mamba-7b",
+                   "zamba2-2.7b", "llava-next-mistral-7b", "whisper-medium")
+TRAIN_REF_OPT = {"lr": 1e-3, "warmup_steps": 1}
+TRAIN_REF_EXTRA = {"adafactor": {"name": "adafactor"},
+                   "adam8bit": {"name": "adam8bit", "q_block": 32}}
+# the kernels each family's training forward must launch on the card
+TRAIN_REF_KERNELS = {"qwen2.5-3b": ("K2",), "deepseek-v2-lite-16b": ("K6",),
+                     "grok-1-314b": ("K2", "K6"), "falcon-mamba-7b": ("K7",),
+                     "zamba2-2.7b": ("K2",), "llava-next-mistral-7b": ("K2",),
+                     "whisper-medium": ("K2", "K2nc")}
+# card against CPU, float32: the loss, its parts and each step's loss and
+# gradient norm relative, each gradient tensor relative to its largest
+# value, a parameter in the allclose form |a - b| / (1 + |b|): 10% of one
+# step's lr (a wrong gradient moves an entry by ~lr; the optimizers divide
+# by running scales that magnify the devices' ~1e-6 gradient noise, seen
+# up to 2.4e-5), where the first step's gradient is not within its noise
+# of 0 (there the first Adam step may go +lr on one device and -lr on the
+# other: held to 2 lr a step)
+TRAIN_REF_TOL = {"loss": 1e-5, "grad": 1e-4, "param": 1e-4, "near_zero": 1e-4}
+
+
+def _train_ref_batch(cfg, seed: int) -> dict:
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, cfg.vocab_size, (2, 17)).astype(np.int32)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    if cfg.family == "vlm":
+        batch["image_embeds"] = rng.standard_normal(
+            (2, cfg.n_image_tokens, 1024)).astype(np.float32)
+    if cfg.family == "encdec":
+        batch["frames"] = rng.standard_normal((2, cfg.encoder_seq, cfg.d_model)).astype(
+            np.float32)
+    return batch
+
+
+def training_runs(seed: int, device: str) -> dict:
+    """The training modes on one device: for each (arch, optimizer) the
+    first step's loss and gradients, then two train steps' losses and
+    gradient norms and the parameters after each step, and the kernels the two steps launched;
+    on the card also the crash-resume check (`_crash_resume`)."""
+    import torch
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import init_params
+    from repro_torch.training import OptConfig, make_loss_fn, make_train_step
+    from repro_torch.tree import flat
+
+    out = {}
+    for arch in TRAIN_REF_ARCHS:
+        cfg = get_smoke_config(arch)
+        opts = ("adamw", "adafactor", "adam8bit") if arch == "qwen2.5-3b" else ("adamw",)
+        for opt in opts:
+            params = _to(init_params(cfg, torch.Generator().manual_seed(seed), device="cpu",
+                                     dtype=torch.float32), device)
+            init_fn, step = make_train_step(
+                cfg, OptConfig(**TRAIN_REF_OPT, **TRAIN_REF_EXTRA.get(opt, {})), remat=False)
+            state = init_fn(params)
+            batch = _train_ref_batch(cfg, seed)
+            leaves = flat(params)
+            for t in leaves:
+                t.requires_grad_(True)
+            loss, parts = make_loss_fn(cfg, remat=False)(
+                params, {k: torch.as_tensor(v, device=device) for k, v in batch.items()})
+            grads = torch.autograd.grad(loss, leaves)
+            _zero_launches()
+            steps, after = [], []
+            for _ in range(2):
+                params, state, metrics = step(params, state, batch)
+                steps += [float(metrics["loss"]), float(metrics["grad_norm"])]
+                # a copy: the next step writes the parameters in place
+                after.append([t.detach().to("cpu", copy=True) for t in flat(params)])
+            out[arch, opt] = {"loss": loss.item(), "ce": parts["ce"].item(),
+                              "aux": parts["aux"].item(), "steps": steps,
+                              "grads": [g.cpu() for g in grads], "params": after,
+                              "launches": _launch_counts()}
+    return {"modes": out, "crash_resume": _crash_resume(device) if device == "cuda" else None}
+
+
+def _crash_resume(device: str) -> dict:
+    """tests/test_runtime.py's crash-resume check with the port's Trainer
+    on `device`: SMOKE qwen2.5-3b on the byte vocabulary, 12 steps with a
+    checkpoint every 4 straight through, then a run that crashes at step 6
+    and a third trainer that resumes from its step-4 checkpoint and runs to
+    12: its losses must equal the first run's steps 5-12 bit for bit."""
+    import tempfile
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import lm_data
+    from repro_torch.data.corpus import make_swde_corpus
+    from repro_torch.training import CrashInjected, OptConfig, Trainer, TrainerConfig
+
+    cfg = get_smoke_config("qwen2.5-3b").replace(vocab_size=lm_data.VOCAB)
+    stream = lm_data.corpus_token_stream(make_swde_corpus())
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt_"))
+
+    def trainer(name):
+        return Trainer(cfg, OptConfig(lr=1e-3, warmup_steps=2),
+                       lm_data.LMBatches(stream, batch=2, seq=16),
+                       TrainerConfig(total_steps=12, ckpt_every=4, ckpt_dir=str(root / name),
+                                     seed=0, log_every=100), device=device)
+    a = trainer("a")
+    a.init()
+    straight = a.run()
+    b = trainer("b")
+    b.init()
+    try:
+        b.run(failure_at=6)
+        raise AssertionError("crash-resume: the injected failure did not fire")
+    except CrashInjected:
+        b.ckpt.wait()
+    resumed = trainer("b")
+    resumed.init()
+    if not resumed.resume() or resumed.step != 4:
+        raise AssertionError(f"crash-resume: resumed at step {resumed.step}, want 4")
+    return {"straight": straight[4:], "resumed": resumed.run()}
+
+
+def _check_training(training: dict, crash: dict) -> None:
+    """Raise unless every training mode is within TRAIN_REF_TOL, each
+    family launched its kernels on the card (qwen2.5-3b's K2 once a layer
+    a row a step: 2 x 2 x 2) and crash-resume repeated the losses."""
+    from repro_torch.configs import get_smoke_config
+    bad = {k: e for k, e in training.items()
+           if not (e["loss"] <= TRAIN_REF_TOL["loss"] and e["grad"] <= TRAIN_REF_TOL["grad"]
+                   and e["param"] <= TRAIN_REF_TOL["param"]
+                   and e["param_near_zero_in_steps"] <= 1.01)}
+    if bad:
+        raise AssertionError(f"training on the card differs from the CPU's: {bad}")
+    missing = {a: TRAIN_REF_KERNELS[a] for a in TRAIN_REF_ARCHS
+               if not all(training[f"{a}/adamw"]["launches"].get(k)
+                          for k in TRAIN_REF_KERNELS[a])}
+    qwen_k2 = training["qwen2.5-3b/adamw"]["launches"].get("K2")
+    if missing or qwen_k2 != get_smoke_config("qwen2.5-3b").num_layers * 2 * 2:
+        raise AssertionError(f"training did not launch its kernels on the card: {missing}, "
+                             f"qwen2.5-3b's K2 {qwen_k2}")
+    if crash["straight"] != crash["resumed"]:
+        raise AssertionError(f"crash-resume on the card is not bit for bit: {crash}")
+
+
+def _compare_training(card: dict, cpu: dict) -> dict:
+    """The training modes' errors, card against CPU (`TRAIN_REF_TOL`);
+    8-bit Adam's parameters only after its first step: its second divides
+    by moments rebuilt from int8 codes, which the two devices may round to
+    neighbouring codes, and a second moment quantized to 0 leaves the step
+    ill-conditioned (tests/test_torch_training.py holds it against the JAX
+    package step by step)."""
+    out = {}
+    for key, want in cpu.items():
+        got = card[key]
+        loss = max(abs(got[k] - want[k]) / max(abs(want[k]), 1e-6)
+                   for k in ("loss", "ce"))
+        loss = max([loss] + [abs(a - b) / abs(b) for a, b in zip(got["steps"],
+                                                                  want["steps"])])
+        grad = max(max_err(a, b) / max(float(b.abs().max()), 1e-30)
+                   for a, b in zip(got["grads"], want["grads"]))
+        steps = 1 if key[1] == "adam8bit" else 2
+        param = loose = 0.0
+        for i in range(steps):
+            for a, b, g in zip(got["params"][i], want["params"][i], want["grads"]):
+                err = (a - b).abs() / (1 + b.abs())
+                near = g.abs() <= TRAIN_REF_TOL["near_zero"] * g.abs().max()
+                param = max(param, float(err[~near].max()) if (~near).any() else 0.0)
+                loose = max(loose, float(err.max()) / (2 * TRAIN_REF_OPT["lr"] * (i + 1)))
+        out["/".join(key)] = {"loss": loss, "grad": grad, "param": param,
+                              "param_near_zero_in_steps": loose,
+                              "aux": got["aux"], "launches": {
+                                  k: n for k, n in got["launches"].items() if n}}
+    return out
 
 
 class _Array:
@@ -3117,7 +3673,12 @@ def phase_reference(seed: int, cpu_half) -> dict:
     prompt-lookup mode runs twice on the card with bit-identical pools: the
     sink's write does not depend on the order the card runs it in. The
     card's half runs here; `cpu_half` (`_CpuReference`) ran the CPU's
-    beside the card's earlier phases."""
+    beside the card's earlier phases. The training modes (`training_runs`):
+    each family's SMOKE config, the first step's loss and gradients and the
+    parameters after two AdamW steps (qwen2.5-3b also Adafactor and 8-bit
+    Adam) within TRAIN_REF_TOL of the CPU's, the family's kernels launched
+    on the card (`TRAIN_REF_KERNELS`), and crash-resume on the card bit for
+    bit (`_crash_resume`)."""
     import torch
 
     card, cpu = reference_runs(seed, "cuda"), cpu_half.result()
@@ -3175,7 +3736,11 @@ def phase_reference(seed: int, cpu_half) -> dict:
     sink_written = {m: float(pools[m, "cpu"]["k"][:, 0].abs().max())
                     for m in models["grok-1-314b"] if (m, "cpu") in pools}
     st = {f"{a}/{m}": runs[a, m, "cuda"][4] for a, m in keys}
+    training = _compare_training(card["training"]["modes"], cpu["training"]["modes"])
+    crash = card["training"]["crash_resume"]
     out = {"phase": "reference", "docs": 20, "docs_newest_modes": REF_NEW_DOCS,
+           "training": training, "training_tol": TRAIN_REF_TOL,
+           "crash_resume_on_the_card": crash,
            "cpu_half": f"a spawned process with {CPU_REFERENCE_THREADS} torch threads, "
                        f"beside the card's phases",
            "seconds": seconds,
@@ -3245,6 +3810,7 @@ def phase_reference(seed: int, cpu_half) -> dict:
         if draft["spec_rounds"] <= 0 or draft["draft_tokens"] <= 0:
             raise AssertionError(f"{arch}: the reference draft run had no verify round or "
                                  f"no draft")
+    _check_training(training, crash)
     on_card = [(a, m, "cuda") for a in moe_archs for m in models[a]]
     if not all(gating[g] > 0 for g in on_card) or \
             any(n for g, n in gating.items() if g not in on_card and g[1] != "spec again"):
@@ -3261,16 +3827,16 @@ def _to(tree, device):
 
 
 # every phase, in the order they run; the device and build phases always run
-PHASES = ("main", "spec", "slab", "draft", "frontend", "cascade", "live", "ssm", "moe",
-          "vlm", "grok", "hybrid", "whisper", "dense_family", "kernels", "reference")
+PHASES = ("main", "spec", "slab", "draft", "frontend", "cascade", "live", "train", "ssm",
+          "moe", "vlm", "grok", "hybrid", "whisper", "dense_family", "kernels", "reference")
 # the phases whose results a phase reads: the qwen2.5-3b paths and the
 # ssm and moe phases compare with main's rows, draft with slab's tokens,
 # and kernels checks the launches the model paths captured
 NEEDS = {**{p: ("main",) for p in ("spec", "slab", "frontend", "cascade", "live", "ssm",
                                    "moe")},
          "draft": ("main", "slab"),
-         "kernels": ("main", "spec", "slab", "draft", "ssm", "moe", "vlm", "grok", "hybrid",
-                     "whisper")}
+         "kernels": ("main", "spec", "slab", "draft", "train", "ssm", "moe", "vlm", "grok",
+                     "hybrid", "whisper")}
 
 
 def _phases(arg: str) -> set:
@@ -3382,6 +3948,9 @@ def main() -> int:
         # free the qwen2.5-3b weights and engines before falcon-mamba-7b's
         main_run = None
         torch.cuda.empty_cache()
+        if "train" in phases:
+            report["train"] = phase_train(args.seed, args.profile, args.out)
+            lap("train")
         if "ssm" in phases:
             report["ssm"], served_ssm = phase_ssm(args.seed, captures, main_result)
             lap("ssm")
@@ -3444,7 +4013,8 @@ def main() -> int:
                         "K5_whisper": report["whisper"]["launches"]["K5"],
                         "K7": report["ssm"]["launches"]["K7"],
                         "K2_vlm": report["vlm"]["launches"]["K2"],
-                        "K4_vlm": report["vlm"]["launches"]["K4"]}
+                        "K4_vlm": report["vlm"]["launches"]["K4"],
+                        "train": report["train"]["launches"]}
             report["kernels"] = phase_kernels(captures, launches)
             lap("kernels")
         if "reference" in phases:

@@ -8,4 +8,6 @@ top-k), K7 `ssm_scan.ssm_scan` (the Mamba1 selective scan):
 each wrapper launches its CUDA kernel (`csrc/`, built
 on first use by `_build`) for a CUDA tensor, counts the launch, and runs
 its plain version for a CPU tensor. There is no backend switch.
+`autograd` gives K2, K2's non-causal form, K6 and K7 a gradient for
+training: the kernel forward, the plain version's backward recomputed.
 """

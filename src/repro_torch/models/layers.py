@@ -2,10 +2,10 @@
 
 Plain functions on tensors and nested dicts of parameters, laid out as in
 the JAX package (q/k/v projections (d, heads, head_dim), attention tensors
-(B, S, H, D)). Only the subset the served path needs is ported: dense
-attention (with the hybrid family's per-application LoRA adapters on q,
-k, v and the output) and MLP, and DeepSeek-V2's MLA attention and
-capacity-limited MoE.
+(B, S, H, D)). The served path's subset and training's full-sequence
+forms are ported: dense attention (with the hybrid family's
+per-application LoRA adapters on q, k, v and the output) and MLP, and
+DeepSeek-V2's MLA attention and capacity-limited MoE.
 
 The encoder-decoder family (whisper) adds LayerNorm, the encoder's
 self-attention and the decoder's cross-attention over the encoder's
@@ -21,6 +21,11 @@ cache per layer, the JAX package's `init_decode_cache` layout --
 page pool (`slab_pages`): the same bytes, no copy. `sdpa` and
 `decode_attention` are the dense forms kept for the kernels' plain
 versions and the tests.
+
+Serving and training (the full-sequence `attn_apply`, `moe_apply(
+return_aux=True)`) share these functions: K2, its non-causal form and K6
+run through their autograd forms (`kernels.autograd`), which call the
+kernels' wrappers directly where no input records a gradient.
 
 MLA keeps a compressed cache, "ckv" (r) and "krope" (rope dim) per token,
 and computes attention in plain PyTorch, as the JAX package does with
@@ -39,9 +44,9 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import autograd as _kag
 from repro_torch.kernels import decode_attention as _k1
 from repro_torch.kernels import flash_attention as _k2
-from repro_torch.kernels import moe_gating as _k6
 from repro_torch.kernels import verify_attention as _k4
 
 from .config import ModelConfig
@@ -357,21 +362,33 @@ def attn_apply_slab(cfg: ModelConfig, p, x, *, k_cache, v_cache, tables, lora=No
     [0, S); tables (B, Smax/ps) from `slab_tables`. Each row runs kernel K2
     over its slab seen as pages, the whole prompt as one chunk. Returns
     (B, S, d)."""
-    B, S, _ = x.shape
-    nq, hd = cfg.n_heads, cfg.resolved_head_dim
-    positions = torch.arange(S, device=x.device)
-    q, k, v = _project_qkv(cfg, p, x, lora)
-    if cfg.use_rope:
-        q = apply_rope(q, positions[None], cfg.rope_theta)
-        k = apply_rope(k, positions[None], cfg.rope_theta)
+    q, k, v = _project_from0(cfg, p, x, lora)
     cache_write_chunk(k_cache, k, 0)
     cache_write_chunk(v_cache, v, 0)
-    ps = k_cache.shape[1] // tables.shape[1]
-    kp, vp = slab_pages(k_cache, ps), slab_pages(v_cache, ps)
-    out = torch.stack([_k2.chunk_prefill_attention(q[b], kp, vp, tables[b], 0)
+    return _attend_slab(cfg, p, q, k_cache, v_cache, tables, lora)
+
+
+def _project_from0(cfg: ModelConfig, p, x, lora=None):
+    """q, k, v of x (B, S, d) at positions 0..S-1, rotated where the config
+    uses rope."""
+    q, k, v = _project_qkv(cfg, p, x, lora)
+    if cfg.use_rope:
+        positions = torch.arange(x.shape[1], device=x.device)[None]
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _attend_slab(cfg: ModelConfig, p, q, k_layer, v_layer, tables, lora=None):
+    """Each row's queries q (B, S, H, hd) from position 0 through kernel K2
+    (its autograd form) over the row's K/V of slab layers (B, Smax, Hkv,
+    hd) seen as pages, one launch a row, then the output projection."""
+    B, S = q.shape[:2]
+    ps = k_layer.shape[1] // tables.shape[1]
+    kp, vp = slab_pages(k_layer, ps), slab_pages(v_layer, ps)
+    out = torch.stack([_kag.chunk_prefill_attention(q[b], kp, vp, tables[b], 0)
                        for b in range(B)])
-    out = out.reshape(B, S, nq, hd)
-    return _out_proj(p, out, lora)
+    return _out_proj(p, out.reshape(B, S, cfg.n_heads, cfg.resolved_head_dim), lora)
 
 
 def attn_decode_apply_slab(cfg: ModelConfig, p, x, *, pos, k_cache, v_cache, lora=None):
@@ -429,7 +446,7 @@ def attn_apply_bidirectional(cfg: ModelConfig, p, x):
     every position attends every position (no rope: the family's configs
     use learned and fixed positions). x (B, S, d) -> (B, S, d)."""
     q, k, v = _project_qkv(cfg, p, x)
-    out = _k2.bidirectional_attention(q, k.contiguous(), v.contiguous(), k.shape[1])
+    out = _kag.bidirectional_attention(q, k.contiguous(), v.contiguous(), k.shape[1])
     return _out_proj(p, out)
 
 
@@ -450,7 +467,7 @@ def cross_attn_apply(cfg: ModelConfig, p, x, *, ck, cv):
     JAX `attn_chunk_apply(cross=True)` and `attn_apply(kv_override=)`):
     x (B, C, d); ck, cv (B, S, Hkv, hd), contiguous. Every query sees all S
     keys. Returns (B, C, d)."""
-    out = _k2.bidirectional_attention(_cross_query(cfg, p, x), ck, cv, ck.shape[1])
+    out = _kag.bidirectional_attention(_cross_query(cfg, p, x), ck, cv, ck.shape[1])
     return _out_proj(p, out)
 
 
@@ -461,6 +478,25 @@ def cross_decode_apply(cfg: ModelConfig, p, x, *, ck, cv):
     q = _cross_query(cfg, p, x)
     out = _k1.decode_attention(q[:, 0], ck, cv, ck.shape[1])
     return _out_proj(p, out[:, None])
+
+
+# ------------------------------------------------- full sequence (training) --
+
+
+def attn_apply(cfg: ModelConfig, p, x, *, lora=None):
+    """Causal self-attention over a whole sequence from position 0 (the
+    JAX `attn_apply`, which training's `forward` runs), with a gradient:
+    q, k, v projected (`lora`, the bias, the q/k norms) and rotated at
+    positions 0..S-1, then kernel K2 over each row's K/V seen as pages, as
+    `attn_apply_slab` runs it without the cache. x (B, S, d) -> (B, S, d).
+    The encoder and cross-attention are `attn_apply_bidirectional` and
+    `cross_attn_apply`. The JAX package switches to `blockwise_attention`
+    past 2,048 positions, a memory bound of its XLA path; K2 is that
+    function here, so it is not ported."""
+    B, S, _ = x.shape
+    q, k, v = _project_from0(cfg, p, x, lora)
+    tables = slab_tables(B, S, slab_page_size(S), x.device)
+    return _attend_slab(cfg, p, q, k.contiguous(), v.contiguous(), tables, lora)
 
 
 # ------------------------------------------------------------------ MLA ----
@@ -651,9 +687,15 @@ def moe_capacity(cfg: ModelConfig, T: int) -> int:
     return max(8, -(-C // 8) * 8)
 
 
-def moe_apply(cfg: ModelConfig, p, x):
+def moe_apply(cfg: ModelConfig, p, x, *, return_aux=False):
     """Capacity-limited top-k MoE with gather/scatter dispatch (the JAX
-    `moe_apply`, ungrouped). x (B, S, d) -> (B, S, d).
+    `moe_apply`, ungrouped). x (B, S, d) -> (B, S, d), and with
+    `return_aux` (the training forward) also the Switch load-balance loss
+    E sum_e f_e P_e, f_e the share of tokens whose first expert is e and
+    P_e the mean of the full router softmax, computed in plain PyTorch
+    beside K6 (which returns only the top k). The gating runs through K6's
+    autograd form, so in training the kept weights carry the router's
+    gradient.
 
     Every token of the call counts toward capacity (C from T = B * S, pad
     positions and dead rows included), and assignments are numbered in
@@ -670,7 +712,8 @@ def moe_apply(cfg: ModelConfig, p, x):
     x2 = x.reshape(B * S, d)
     T, E, K = B * S, cfg.n_experts, cfg.moe_top_k
     C = moe_capacity(cfg, T)
-    _, _, slot, kept = _k6.moe_gating(x2 @ p["router"], K, C)
+    logits = x2 @ p["router"]
+    _, idx, slot, kept = _kag.moe_gating(logits, K, C)
     xe = x2.new_zeros((E * C + 1, d))
     # each token's row once a rank; kept slots are distinct, the drop slot is cut
     xe[slot] = x2[:, None, :].expand(T, K, d).reshape(T * K, d)
@@ -687,4 +730,9 @@ def moe_apply(cfg: ModelConfig, p, x):
     if cfg.n_shared_experts:
         sp = p["shared"]
         y = y + (act(x2 @ sp["w_gate"]) * (x2 @ sp["w_up"])) @ sp["w_down"]
-    return y.reshape(B, S, d)
+    y = y.reshape(B, S, d)
+    if not return_aux:
+        return y
+    frac_tokens = F.one_hot(idx[:, 0].long(), E).float().mean(dim=0)
+    frac_probs = torch.softmax(logits.float(), dim=-1).mean(dim=0)
+    return y, E * (frac_tokens * frac_probs).sum()

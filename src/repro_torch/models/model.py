@@ -88,6 +88,8 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 
@@ -272,25 +274,47 @@ def _blocks(params) -> list:
     return params.get("dense_layers", []) + params["layers"]
 
 
-def _trunk(cfg, params, x, attend=None, mamba=None, cross=None):
+def _run(remat: bool, fn, *args):
+    """fn(*args), under `torch.utils.checkpoint` (non-reentrant) with
+    `remat`: the block's activations are recomputed in the backward pass,
+    the counterpart of the JAX `jax.checkpoint(nothing_saveable)`."""
+    return checkpoint(fn, *args, use_reentrant=False) if remat else fn(*args)
+
+
+def _trunk(cfg, params, x, attend=None, mamba=None, cross=None, *, aux=None,
+           remat=False):
     """Run the blocks on x. Attention blocks: x + attend(li, attn params,
     normed x, lora), then (the encdec family's decoder) x + cross(li,
     cross_attn params, normed x), then the MLP or MoE feed-forward on the
     residual. Mamba blocks: x + mamba(li, mamba params, normed x). The ssm
     family runs only Mamba blocks; the hybrid family runs application i of
     its shared blocks (with adapter "lora"[i], pool layer i) before Mamba
-    layers [i * attn_every, (i + 1) * attn_every)."""
+    layers [i * attn_every, (i + 1) * attn_every). With `aux` (a list: the
+    training forward) every MoE layer appends its load-balance loss; with
+    `remat` every block runs under `_run`'s checkpoint."""
     def attention_block(li, lp, x, lora=None):
         x = x + attend(li, lp["attn"], L.norm_apply(cfg, lp["attn_norm"], x), lora)
         if cross is not None:
             x = x + cross(li, lp["cross_attn"], L.norm_apply(cfg, lp["cross_norm"], x))
         h = L.norm_apply(cfg, lp["mlp_norm"], x)
+        if "moe" in lp and aux is not None:
+            m, a = L.moe_apply(cfg, lp["moe"], h, return_aux=True)
+            return x + m, a
         return x + (L.moe_apply(cfg, lp["moe"], h) if "moe" in lp
-                    else L.mlp_apply(cfg, lp["mlp"], h))
+                    else L.mlp_apply(cfg, lp["mlp"], h)), None
 
-    def mamba_block(li, x):
+    def attention(li, lp, x, lora=None):
+        x, a = _run(remat, attention_block, li, lp, x, lora)
+        if a is not None:
+            aux.append(a)
+        return x
+
+    def mamba_layer(li, x):
         lp = params["layers"][li]
         return x + mamba(li, lp["mamba"], L.norm_apply(cfg, lp["norm"], x))
+
+    def mamba_block(li, x):
+        return _run(remat, mamba_layer, li, x)
 
     if cfg.family == "ssm":
         for li in range(cfg.num_layers):
@@ -299,12 +323,12 @@ def _trunk(cfg, params, x, attend=None, mamba=None, cross=None):
     if cfg.family == "hybrid":
         for i in range(n_applications(cfg)):
             shared = params["shared_blocks"][i % cfg.n_shared_attn_blocks]
-            x = attention_block(i, shared, x, params["lora"][i])
+            x = attention(i, shared, x, params["lora"][i])
             for li in range(i * cfg.attn_every, (i + 1) * cfg.attn_every):
                 x = mamba_block(li, x)
         return x
     for li, lp in enumerate(_blocks(params)):
-        x = attention_block(li, lp, x)
+        x = attention(li, lp, x)
     return x
 
 
@@ -411,8 +435,10 @@ def _logits(cfg, params, x):
 def _embed(cfg, params, tokens, image_embeds=None):
     """Token embeddings, behind the projected image rows when `image_embeds`
     (B, n_img, VISION_DIM) is given: gelu(img @ w1) @ w2 in the model dtype,
-    with jax.nn.gelu's default tanh form. Returns (x, n_img)."""
-    x = params["embed"][tokens.long()]
+    with jax.nn.gelu's default tanh form. Returns (x, n_img). The lookup is
+    `F.embedding`, whose backward sums a repeated token's rows in an order
+    that does not change from run to run."""
+    x = F.embedding(tokens.long(), params["embed"])
     if image_embeds is None:
         return x, 0
     mp = params["mm_proj"]
@@ -424,16 +450,21 @@ def _embed(cfg, params, tokens, image_embeds=None):
 # ------------------------------------------------ encoder-decoder (encdec) --
 
 
-def _encoder(cfg, params, frames):
+def _encoder(cfg, params, frames, *, remat=False):
     """The encoder over the stub frontend's frames (B, S, d): fixed
     sinusoidal positions added in the model dtype, then LayerNorm pre-norm
     blocks of non-causal self-attention (kernel K2's non-causal form) and
-    the MLP, then the final LayerNorm (the JAX `_encoder`)."""
+    the MLP, each block under `_run(remat)`, then the final LayerNorm (the
+    JAX `_encoder`)."""
     x = frames.to(params["embed"].dtype)
     x = x + L.sinusoidal_positions(x.shape[1], cfg.d_model, x.device).to(x.dtype)
+
+    def block(lp, x):
+        h = L.norm_apply(cfg, lp["attn_norm"], x)
+        x = x + L.attn_apply_bidirectional(cfg, lp["attn"], h)
+        return x + L.mlp_apply(cfg, lp["mlp"], L.norm_apply(cfg, lp["mlp_norm"], x))
     for lp in params["enc_layers"]:
-        x = x + L.attn_apply_bidirectional(cfg, lp["attn"], L.norm_apply(cfg, lp["attn_norm"], x))
-        x = x + L.mlp_apply(cfg, lp["mlp"], L.norm_apply(cfg, lp["mlp_norm"], x))
+        x = _run(remat, block, lp, x)
     return L.norm_apply(cfg, params["enc_final_norm"], x)
 
 
@@ -487,6 +518,75 @@ def _cross_decode(cfg, state):
     def run(li, p, h):
         return L.cross_decode_apply(cfg, p, h, ck=state["ck"][li], cv=state["cv"][li])
     return run
+
+
+# ------------------------------------------------------------ training -----
+
+
+def _cast(tree, dtype):
+    """Every floating tensor of a parameter tree in `dtype` (the JAX
+    `_cast`): float32 masters stay themselves in a float32 model, and
+    autograd flows through the cast in a bf16 one."""
+    if isinstance(tree, dict):
+        return {k: _cast(v, dtype) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_cast(v, dtype) for v in tree]
+    return tree.to(dtype) if tree.is_floating_point() else tree
+
+
+def forward(cfg: ModelConfig, params, batch, *, remat=False):
+    """Full-sequence forward of every family from position 0, with a
+    gradient (the JAX `forward`, which training runs). Returns (logits
+    (B, S, V) in the model dtype over the text positions, aux: the moe
+    family's load-balance loss summed over its MoE layers, else 0), both on
+    the parameters' device.
+
+    batch: "tokens" (B, S) int (numpy or a tensor); the vlm family also
+    "image_embeds" (B, n_img, VISION_DIM), projected and prepended to the
+    text, and the encdec family "frames" (B, encoder_seq, d) for the
+    encoder. Every floating parameter is cast to cfg.dtype on entry
+    (`_cast`), so the parameters may be float32 masters. Attention runs
+    K2 (causal) and K2's non-causal form (the encoder, cross-attention),
+    MLA plain PyTorch, MoE gates through K6 and Mamba1 scans through K7,
+    each kernel with its gradient (`kernels.autograd`); Mamba2 runs the SSD
+    form. `remat` recomputes every block's activations in the backward
+    pass (`torch.utils.checkpoint`); its losses and gradients equal the
+    plain run's."""
+    _check_family(cfg)
+    p = _cast(params, torch_dtype(cfg.dtype))
+    dev = p["embed"].device
+
+    def tensor(key):
+        return torch.as_tensor(batch[key], device=dev)
+    image = tensor("image_embeds") if cfg.family == "vlm" else None
+    x, n_img = _embed(cfg, p, tensor("tokens"), image)
+    n = x.shape[1]
+    attend = cross = None
+    if cfg.family == "encdec":
+        if n > cfg.max_position:
+            raise ValueError(f"forward: {n} positions exceed the decoder's position "
+                             f"table ({cfg.max_position})")
+        x = x + p["dec_pos"][:n]
+        enc = _encoder(cfg, p, tensor("frames"), remat=remat)
+
+        def cross(li, lp, h):
+            ck, cv = L.cross_kv(lp, enc)
+            return L.cross_attn_apply(cfg, lp, h, ck=ck, cv=cv)
+    if cfg.use_mla:
+        positions = torch.arange(n, device=dev)[None]
+
+        def attend(li, lp, h, lora=None):
+            return L.mla_apply(cfg, lp, h, positions=positions)[0]
+    elif cfg.family != "ssm":
+        def attend(li, lp, h, lora=None):
+            return L.attn_apply(cfg, lp, h, lora=lora)
+    apply = _mamba(cfg, S.mamba1_apply, S.mamba2_apply)
+
+    def mamba(li, lp, h):
+        return apply(cfg, lp, h)
+    aux = []
+    x = _trunk(cfg, p, x, attend, mamba, cross, aux=aux, remat=remat)
+    return _logits(cfg, p, x[:, n_img:]), sum(aux, torch.zeros((), device=dev))
 
 
 # ------------------------------------------------------------- decode ------

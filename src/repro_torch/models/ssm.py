@@ -40,6 +40,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import autograd as _kag
 from repro_torch.kernels import ssm_scan as _k7
 
 from .config import ModelConfig
@@ -118,8 +119,9 @@ def _mamba1_scan_params(cfg: ModelConfig, p, x_conv):
 def mamba1_scan(x, dt, A, B_mat, C_mat, D, h0=None):
     """The selective scan (JAX `mamba1_scan_ref`) through kernel K7, from
     h0 (B, di, N) float32 or zeros. Returns (y (B, S, di) in x's dtype,
-    h_final (B, di, N) float32)."""
-    return _k7.ssm_scan(x, dt, A, B_mat, C_mat, D, h0)
+    h_final (B, di, N) float32), with a gradient for every input (K7's
+    autograd form)."""
+    return _kag.ssm_scan(x, dt, A, B_mat, C_mat, D, h0)
 
 
 def mamba1_scan_states(x, dt, A, B_mat, C_mat, D, h0=None, states=None):
@@ -138,6 +140,18 @@ def mamba1_scan_states(x, dt, A, B_mat, C_mat, D, h0=None, states=None):
 
 def _out(p, y, z):
     return (y * F.silu(z)) @ p["out_proj"]
+
+
+def mamba1_apply(cfg: ModelConfig, p, x):
+    """A whole sequence through the Mamba1 block from a zero history, with
+    a gradient (the JAX `mamba1_apply`, which training's `forward` runs):
+    the causal conv, SiLU, the selective scan (`mamba1_scan`), the gate and
+    the output projection. x (B, S, d) -> (B, S, d)."""
+    x_in, z = _mamba1_ssm_inputs(cfg, p, x)
+    xc = F.silu(causal_depthwise_conv(x_in, p["conv_w"], p["conv_b"]))
+    dt, A, B_mat, C_mat = _mamba1_scan_params(cfg, p, xc)
+    y, _ = mamba1_scan(xc, dt, A, B_mat, C_mat, p["D"])
+    return _out(p, y, z)
 
 
 def mamba1_decode(cfg: ModelConfig, p, x_t, *, conv_state, ssm_state):
@@ -289,6 +303,22 @@ def mamba2_ssd(x, dt, A, B_mat, C_mat, D, *, chunk: int, h0=None):
 def _mamba2_out(cfg: ModelConfig, p, y, z):
     """The gated norm and output projection: rms_norm(y silu(z)) out_proj."""
     return rms_norm(y * F.silu(z), p["norm_w"], cfg.norm_eps) @ p["out_proj"]
+
+
+def mamba2_apply(cfg: ModelConfig, p, x):
+    """A whole sequence through the Mamba2 block from a zero history (the
+    JAX `mamba2_apply`, which training's `forward` runs): the causal conv,
+    SiLU, the SSD matrix form (`mamba2_ssd`, plain tensor ops), the gated
+    norm and the output projection. x (B, S, d) -> (B, S, d)."""
+    B, S, _ = x.shape
+    z, xbc, dt_raw = _mamba2_proj(cfg, p, x)
+    xbc = F.silu(causal_depthwise_conv(xbc, p["conv_w"], p["conv_b"]))
+    x_in, B_mat, C_mat = _mamba2_split(cfg, xbc)
+    dt = F.softplus(dt_raw + p["dt_bias"])
+    A = -torch.exp(p["A_log"].float())
+    y, _ = mamba2_ssd(x_in.reshape(B, S, cfg.n_ssm_heads, cfg.mamba_headdim), dt, A,
+                      B_mat, C_mat, p["D"], chunk=cfg.ssm_chunk)
+    return _mamba2_out(cfg, p, y.reshape(B, S, cfg.d_inner), z)
 
 
 def _mamba2_chunk_inputs(cfg: ModelConfig, p, x, conv_state):

@@ -1,5 +1,6 @@
 """Package rules of the port: importing `repro_torch` and every one of its
-modules loads no `jax` and no module of the JAX package `repro`; the
+modules (the training and launch packages among them) loads no `jax` and
+no module of the JAX package `repro`; the
 jax-free modules it keeps as copies stay verbatim copies, and those copied
 with named edits differ from their originals in those lines only; the config
 registry serves qwen2.5-3b, qwen3-32b, nemotron-4-15b, deepseek-67b,
@@ -33,7 +34,8 @@ COPIES = ["core/__init__.py", "core/difficulty.py", "core/executor.py",
           "serving/prefix_cache.py", "serving/frontend.py",
           "extract/cascade.py", "extract/__init__.py",
           "live/__init__.py", "live/log.py", "live/corpus.py",
-          "live/invalidate.py", "live/session.py"]
+          "live/invalidate.py", "live/session.py",
+          "configs/shapes.py", "launch/flops.py"]
 
 # modules copied with a few named lines changed: (JAX lines dropped, port
 # lines added), import rewrites aside
@@ -85,9 +87,12 @@ def _modules():
 
 
 def test_port_imports_no_jax_and_no_repro():
+    modules = list(_modules())
+    for package in ("repro_torch.training", "repro_torch.launch"):
+        assert package in modules and any(m.startswith(package + ".") for m in modules)
     code = (
         "import importlib, sys\n"
-        f"for m in {list(_modules())!r}:\n"
+        f"for m in {modules!r}:\n"
         "    importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
