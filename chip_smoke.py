@@ -6,7 +6,7 @@
 Runs from the root of a checkout, imports nothing of JAX or of the JAX
 package, and goes through its phases, each printing one JSON line. By
 default it runs every phase; `--phases` names some (main, spec, slab,
-draft, frontend, cascade, live, train, ssm, moe, vlm, grok, hybrid,
+draft, frontend, cascade, live, mesh, train, ssm, moe, vlm, grok, hybrid,
 whisper, dense_family, kernels, reference), and each brings the phases it
 needs (`NEEDS`: the paths on the legal corpus's 100 documents compare with
 main's rows, kernels checks the launches the model paths captured):
@@ -73,6 +73,19 @@ main's rows, kernels checks the launches the model paths captured):
              the live doc index must rank as the rebuild's, and the
              deleted document's prefix pages must be back in the pool
              (K2, K3, K4); reembedded / edited bytes are reported;
+  mesh       on the cut weights, the query on the first FAMILY_DOCS legal
+             documents on a serving mesh: a one-rank NCCL process group (a
+             FileStore under --out, no network), make_serving_mesh((1, 1))
+             and ServingEngine(mesh=) with MESH_CHUNK chunks in two modes,
+             off (K1, K2, K3) and prompt lookup with the prefix cache (K2,
+             K3, K4), each also on the card without a mesh: rows, ledger,
+             engine counters (kv_bytes_peak included), every request's
+             tokens and the launch counts must be identical. Then the
+             sequence-sharded decode combine (`distributed.decode`) against
+             K5 at the slab path's decode shape in bf16 within TOL, and the
+             int8 pod gradient mean on a one-rank pod group against
+             _dq8(_q8(g)) exactly; the process group is destroyed. A failed
+             NCCL init or collective fails the phase;
   train      with the served qwen2.5-3b weights freed, training
              (`repro_torch.training.Trainer`) at published width:
              qwen2.5-3b's first MAIN_LAYERS layers as float32 masters,
@@ -233,8 +246,10 @@ main's rows, kernels checks the launches the model paths captured):
              twice on the card with bit-identical pools), zamba2-2.7b in
              falcon-mamba-7b's four and whisper-medium in llava's three with a
              position table of REF_WHISPER_POSITIONS rows, its slots' cross
-             K/V card against CPU (these nine models' modes and every
-             slab mode on the first REF_NEW_DOCS = 10 documents); and the serving
+             K/V card against CPU (these nine models' modes on the first
+             REF_NEW_DOCS = 10 documents, every slab mode on the first
+             REF_SLAB_DOCS = 5, beside qwen2.5-3b's plain mode there,
+             "off_few", which gives their rows); and the serving
              tier in three qwen2.5-3b modes (the frontend phase's two
              tenants over two replicas; cascade="on" with the cheap tier;
              one update and one delete between two queries on a live
@@ -248,9 +263,9 @@ main's rows, kernels checks the launches the model paths captured):
              MoE rows only: capacity is set per call, so a verify round
              drops assignments a decode step does not, and tokens may
              differ by mode; the dense family's one mode: rows equal
-             llava's first mode's on the same documents, as are the slab
-             modes' of the models whose other modes run on 20, whose tokens
-             must equal their off mode's for every prompt the two share);
+             llava's first mode's on the same documents; the slab modes'
+             rows equal "off_few"'s, and their tokens their off mode's for
+             every prompt the two share);
              falcon-mamba-7b's and zamba2-2.7b's recurrent state and
              whisper-medium's cross K/V must also
              agree across the devices. Training modes (`training_runs`):
@@ -548,6 +563,14 @@ DEEP_CHUNK = 128
 # of 64 and MOE_LAYERS of 27 layers at full width (drawn whole, then cut).
 REF_NEW_DOCS = 10
 VLM_DOCS = 40
+# The mesh phase (~20 s on one H100 80GB HBM3) took its time from the
+# reference phase's slab modes, that phase's largest block (~204 of its
+# ~260 s of card time on 10 documents): with the prefix cache each request
+# decodes its unshared suffix token by token, so a slab mode's time follows
+# its documents. Every slab mode runs on the first REF_SLAB_DOCS documents
+# (3 rows, at least one prefix hit), its rows held to qwen2.5-3b's plain
+# mode on the same documents ("off_few").
+REF_SLAB_DOCS = 5
 # With the whisper phase, its kernel rows and its three reference modes
 # the command would pass its limit with --profile, so the earlier depths
 # were cut again (whisper itself runs on FAMILY_DOCS, its reference modes
@@ -587,13 +610,16 @@ def _cut(cfg, params, n: int = MAIN_LAYERS):
 
 
 def _served_query(cfg, params, corpus, device, max_new, chunk_size=32, max_len=1024,
-                  **engine_kw):
+                  retriever=None, **engine_kw):
+    """A session over a new TwoLevelRetriever of `corpus`, or over a fork of
+    `retriever` (its indexes shared, its per-query state fresh)."""
     from repro_torch import core
     from repro_torch.extract import ServedExtractor
     from repro_torch.index.retriever import TwoLevelRetriever
     from repro_torch.serving import ServingEngine
     t0 = time.perf_counter()
-    retriever = TwoLevelRetriever(corpus, device=device)
+    retriever = TwoLevelRetriever(corpus, device=device) if retriever is None \
+        else retriever.fork()
     build_s = time.perf_counter() - t0
     engine = ServingEngine(cfg, params, slots=4, max_len=max_len, page_size=16,
                            chunk_size=chunk_size, device=device, **engine_kw)
@@ -1219,6 +1245,135 @@ def phase_live(main_run) -> dict:
     missing = [k for k in ("K2", "K3", "K4") if launches[k] <= 0]
     if missing or launches["K1"] or launches["K5"]:
         raise AssertionError(f"live: kernels of the path {launches}")
+    return out
+
+
+# ------------------------------------------------------------------ mesh ---
+# The mesh phase: the card's machine has one GPU, so a 1x1 NCCL mesh, the
+# same code as any (data, model) mesh (every collective is called whatever
+# its group's size). K5's shape for the sequence-sharded leaf: the slab
+# path's decode launch in PERF.md (4 rows, 16 heads over 2, D 128, 1,024
+# positions, bf16).
+MESH_SHAPE = (1, 1)
+MESH_MODES = {"off": {}, "spec": SPEC}
+# Every collective costs host time (~30 of them a forward on the mesh), so
+# the phase's time follows its forwards: prompts go in 256-token chunks,
+# half as many as DEEP_CHUNK's (with those the phase took 19.8-27.5 s on
+# one H100 80GB HBM3, against a budget of 25 s).
+MESH_CHUNK = 256
+MESH_K5 = (4, 1024, 2, 8, 128)
+MESH_GRAD = (2048, 11008)
+
+
+def _mesh_run(cfg, params, corpus, retriever, mesh, engine_kw) -> tuple:
+    """The query on `corpus` through Session -> ServedExtractor ->
+    ServingEngine over a fork of `retriever`, on `mesh` (the rank's device)
+    or on the card alone: (what must be identical, wall s, launches)."""
+    session, engine, extractor, _ = _served_query(
+        cfg, params, corpus, None if mesh is not None else "cuda", max_new=12,
+        chunk_size=MESH_CHUNK, retriever=retriever, mesh=mesh, **engine_kw)
+    result, wall, launches = _timed_query(session)
+    same = {"rows": result.rows, "ledger": _ledger(result), "engine": dict(engine.stats),
+            "tokens": {r: q.out for r, q in engine.finished.items()}}
+    return same, wall, launches
+
+
+def phase_mesh(seed: int, main_run, out_dir) -> dict:
+    """The served query on a 1x1 NCCL mesh: a one-rank process group
+    (a FileStore under --out, no network), `make_serving_mesh((1, 1))`,
+    and the query on the first FAMILY_DOCS legal documents on main's cut
+    qwen2.5-3b weights in two modes -- off (K1, K2, K3) and prompt lookup
+    with the prefix cache (K2, K3, K4) -- each on the mesh and on the card
+    alone, whose rows, ledger, engine counters and tokens must be
+    identical; then `make_seq_sharded_decode_attn` against K5
+    (`decode_attention`) at MESH_K5 in bf16 within TOL, and
+    `compressed_pod_mean` on a one-rank pod group against _dq8(_q8(g)).
+    The process group is destroyed at the end, whatever happened."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.corpus import make_legal_corpus
+    from repro_torch.distributed.compression import compressed_pod_mean, make_pod_grad_sync
+    from repro_torch.distributed.decode import make_seq_sharded_decode_attn
+    from repro_torch.index.retriever import TwoLevelRetriever
+    from repro_torch.kernels import decode_attention as k15
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.training.optim import _dq8, _q8
+
+    cfg, params = _cut(get_config("qwen2.5-3b"), main_run[0])
+    full = make_legal_corpus(seed=1)
+    corpus = full.subset(sorted(full.docs)[:FAMILY_DOCS])
+    store = Path(out_dir or ROOT / "build") / "mesh_filestore"
+    store.parent.mkdir(parents=True, exist_ok=True)
+    store.unlink(missing_ok=True)
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")     # one host: loopback bootstrap
+    t0 = time.perf_counter()
+    dist.init_process_group("nccl", store=dist.FileStore(str(store), 1), rank=0,
+                            world_size=1, device_id=torch.device("cuda", 0))
+    try:
+        mesh = make_serving_mesh(MESH_SHAPE)
+        init_s = time.perf_counter() - t0
+        retriever = TwoLevelRetriever(corpus, device="cuda")
+        modes, walls, launches, identical = {}, {}, {}, {}
+        for mode, kw in MESH_MODES.items():
+            alone, walls[f"{mode}/card"], launches[f"{mode}/card"] = _mesh_run(
+                cfg, params, corpus, retriever, None, kw)
+            on_mesh, walls[f"{mode}/mesh"], launches[f"{mode}/mesh"] = _mesh_run(
+                cfg, params, corpus, retriever, mesh, kw)
+            identical[mode] = {k: on_mesh[k] == alone[k] for k in alone}
+            modes[mode] = {"rows": len(on_mesh["rows"]), "engine": on_mesh["engine"]}
+
+        g = torch.Generator(device="cuda").manual_seed(seed + 7)
+        B, S, hkv, G, hd = MESH_K5
+        q = torch.randn((B, 1, hkv, G, hd), generator=g, device="cuda").bfloat16()
+        kc = torch.randn((B, S, hkv, hd), generator=g, device="cuda").bfloat16()
+        vc = torch.randn((B, S, hkv, hd), generator=g, device="cuda").bfloat16()
+        lens = torch.tensor([S, S // 2 + 5, 33, 1], dtype=torch.int32, device="cuda")
+        seq = make_seq_sharded_decode_attn(mesh)(q, kc, vc, lens).reshape(B, hkv * G, hd)
+        decode_err = max_err(seq, k15.decode_attention(q.reshape(B, hkv * G, hd), kc, vc,
+                                                       lens))
+        pmesh = init_device_mesh("cuda", (1,), mesh_dim_names=("pod",))
+        grad = torch.randn(MESH_GRAD, generator=g, device="cuda")
+        mean, _ = compressed_pod_mean({"w": grad}, pmesh.get_group("pod"))
+        synced = make_pod_grad_sync(pmesh)({"w": grad})
+        want = _dq8(*_q8(grad, 256), 256)
+        compress_err = max(max_err(mean["w"], want), max_err(synced["w"], want))
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+        store.unlink(missing_ok=True)
+    out = {"phase": "mesh", "mesh": list(MESH_SHAPE), "backend": "nccl", "ranks": 1,
+           "model": cfg.name, "layers": cfg.num_layers, "docs": len(corpus.docs),
+           "engine_options": {m: {**kw, "chunk_size": MESH_CHUNK}
+                              for m, kw in MESH_MODES.items()},
+           "process_group_and_mesh_s": init_s, "query_wall_s": walls,
+           "launches": {m: {k: n[k] for k in ("K1", "K2", "K3", "K4")}
+                        for m, n in launches.items()},
+           "identical_to_the_card_alone": identical, "modes": modes,
+           "seq_sharded_decode_vs_k5": {"shape": list(MESH_K5), "dtype": "bfloat16",
+                                        "max_abs_err": decode_err, "tol": TOL["bfloat16"]},
+           "compressed_pod_mean_vs_q8": {"shape": list(MESH_GRAD), "max_abs_err": compress_err}}
+    emit(out)
+    if not all(all(v.values()) for v in identical.values()):
+        raise AssertionError(f"mesh: the mesh engine differs from the card alone: {identical}")
+    if not all(modes[m]["rows"] for m in modes):
+        raise AssertionError("mesh: the query returned no rows")
+    if launches["off/mesh"] != launches["off/card"] or \
+            launches["spec/mesh"] != launches["spec/card"]:
+        raise AssertionError(f"mesh: kernel launches differ from the card alone: {launches}")
+    missing = [k for k in ("K1", "K2", "K3") if launches["off/mesh"][k] <= 0] + \
+        [f"spec {k}" for k in ("K2", "K3", "K4") if launches["spec/mesh"][k] <= 0]
+    if missing or launches["spec/mesh"]["K1"]:
+        raise AssertionError(f"mesh: kernels of the path {launches}")
+    if modes["spec"]["engine"]["prefix_hits"] <= 0 or modes["spec"]["engine"]["spec_rounds"] <= 0:
+        raise AssertionError("mesh: the prompt-lookup mode had no prefix hit or verify round")
+    if decode_err > TOL["bfloat16"] or compress_err != 0.0:
+        raise AssertionError(f"mesh: sequence-sharded decode {decode_err} against K5, "
+                             f"compressed pod mean {compress_err} against _dq8(_q8(g))")
     return out
 
 
@@ -3319,7 +3474,8 @@ def _reference_models() -> dict:
     slab = {**SLAB, "prefix_cache": True}
     rollback = {"prefix_cache": True, "spec_k": 4}
     draft = {"spec_decode": "draft", "spec_k": 4}
-    return {"qwen2.5-3b": {"off": {}, "spec": SPEC, "slab": slab, "draft": draft},
+    return {"qwen2.5-3b": {"off": {}, "spec": SPEC, "slab": slab, "draft": draft,
+                           "off_few": {}},
             "falcon-mamba-7b": {"off": {}, "spec": SPEC, "slab": slab, "rollback": rollback},
             "deepseek-v2-lite-16b": {"off": {}, "spec": SPEC, "slab": slab, "draft": draft},
             "llava-next-mistral-7b": {"off": {}, "spec": SPEC, "slab": slab},
@@ -3330,11 +3486,14 @@ def _reference_models() -> dict:
 
 
 def _reference_docs(arch: str, mode: str) -> int:
-    """How many of the legal corpus's first documents a mode serves: 20 for
-    the first three models' modes, REF_NEW_DOCS for every slab mode and
-    every mode of the others."""
+    """How many of the legal corpus's first documents a mode serves:
+    REF_SLAB_DOCS for every slab mode and qwen2.5-3b's "off_few" (the slab
+    modes' plain rows), 20 for the first three models' other modes,
+    REF_NEW_DOCS for every mode of the others."""
     first = ("qwen2.5-3b", "falcon-mamba-7b", "deepseek-v2-lite-16b")
-    return 20 if arch in first and mode != "slab" else REF_NEW_DOCS
+    if mode in ("slab", "off_few"):
+        return REF_SLAB_DOCS
+    return 20 if arch in first else REF_NEW_DOCS
 
 
 def reference_runs(seed: int, device: str) -> dict:
@@ -3351,7 +3510,7 @@ def reference_runs(seed: int, device: str) -> dict:
     from repro_torch.models import init_params
 
     full = make_legal_corpus(seed=1)
-    docs = {n: full.subset(sorted(full.docs)[:n]) for n in (20, REF_NEW_DOCS)}
+    docs = {n: full.subset(sorted(full.docs)[:n]) for n in (20, REF_NEW_DOCS, REF_SLAB_DOCS)}
     runs, states, pools, gating, seconds = {}, {}, {}, {}, {}
     for arch, modes in _reference_models().items():
         cfg = get_smoke_config(arch).replace(vocab_size=lm_data.VOCAB)
@@ -3663,8 +3822,9 @@ def phase_reference(seed: int, cpu_half) -> dict:
     lookup with the prefix cache, slab with the prefix cache),
     zamba2-2.7b in falcon-mamba-7b's four and whisper-medium in grok's
     three (with REF_WHISPER_POSITIONS learned positions). Every slab mode
-    and every mode of the last seven models runs on the first REF_NEW_DOCS
-    documents, the rest on 20. Falcon-mamba-7b's and zamba2-2.7b's per-slot
+    runs on the first REF_SLAB_DOCS documents, beside qwen2.5-3b's plain
+    mode there ("off_few"), every other mode of the last seven models on
+    the first REF_NEW_DOCS, the rest on 20. Falcon-mamba-7b's and zamba2-2.7b's per-slot
     recurrent state, and whisper-medium's per-slot cross K/V, after the
     query must also agree across the devices to STATE_TOL:
     with random SMOKE weights the skip path D * x dominates each block, so
@@ -3702,12 +3862,17 @@ def phase_reference(seed: int, cpu_half) -> dict:
     # rows and tokens equal the off mode's; for MoE rows only: capacity is
     # set per call, so a verify round of 20 tokens drops assignments that a
     # decode step of 4 never does, and tokens may differ by mode (as in the
-    # JAX package); the card must still equal the CPU in every mode. A slab
-    # mode on fewer documents than its off mode holds its rows to the plain
-    # rows on its documents (llava's off mode's: answers that do not parse
-    # take the corpus oracle's), and its tokens to the off mode's for every
-    # prompt the two runs share
-    plain_small = {dev: runs["llava-next-mistral-7b", "off", dev][0] for dev in ("cuda", "cpu")}
+    # JAX package); the card must still equal the CPU in every mode. A mode
+    # on fewer documents than its off mode holds its rows to the plain rows
+    # on its documents (llava's off mode's on REF_NEW_DOCS, qwen2.5-3b's
+    # "off_few" on REF_SLAB_DOCS: answers that do not parse take the corpus
+    # oracle's), and its tokens to the off mode's for every prompt the two
+    # runs share
+    plain = {REF_NEW_DOCS: {dev: runs["llava-next-mistral-7b", "off", dev][0]
+                            for dev in ("cuda", "cpu")},
+             REF_SLAB_DOCS: {dev: runs["qwen2.5-3b", "off_few", dev][0]
+                             for dev in ("cuda", "cpu")}}
+    plain_small = plain[REF_NEW_DOCS]
 
     def like_off(a, m, dev):
         off, run = runs[a, "off", dev], runs[a, m, dev]
@@ -3715,7 +3880,7 @@ def phase_reference(seed: int, cpu_half) -> dict:
             return (off[0], off[5]) == (run[0], run[5]) if a not in moe_archs else \
                 off[0] == run[0]
         shared = set(off[7]) & set(run[7])
-        return run[0] == plain_small[dev] and (a in moe_archs or (
+        return run[0] == plain[docs(a, m)][dev] and (a in moe_archs or (
             bool(shared) and all(off[7][p] == run[7][p] for p in shared)))
     invariant = {f"{a}/{m}/{dev}": like_off(a, m, dev)
                  for a, m in keys if m != "off" and "off" in models[a]
@@ -3746,6 +3911,7 @@ def phase_reference(seed: int, cpu_half) -> dict:
            "seconds": seconds,
            "rows": len(runs["qwen2.5-3b", "off", "cpu"][0]),
            "rows_newest_modes": len(plain_small["cpu"]),
+           "docs_slab_modes": REF_SLAB_DOCS, "rows_slab_modes": len(plain[REF_SLAB_DOCS]["cpu"]),
            "identical": same, "same_rows_and_tokens_as_off": invariant,
            "moe_token_agreement_with_off": moe_tokens,
            "state_max_abs_err": state_err, "state_tol": STATE_TOL,
@@ -3768,7 +3934,8 @@ def phase_reference(seed: int, cpu_half) -> dict:
                "live_pages_freed_by_delete": tier["cuda"]["live"][8]}}
     emit(out)
     if not all(same.values()) or \
-            not all(runs[a, "off", "cpu"][0] for a in models if "off" in models[a]):
+            not all(runs[a, "off", "cpu"][0] for a in models if "off" in models[a]) or \
+            not plain[REF_SLAB_DOCS]["cpu"]:
         raise AssertionError(f"the card's served query differs from the CPU reference: {same}")
     if not all(invariant.values()):
         raise AssertionError(f"rows or tokens differ from the plain mode: {invariant}")
@@ -3827,13 +3994,14 @@ def _to(tree, device):
 
 
 # every phase, in the order they run; the device and build phases always run
-PHASES = ("main", "spec", "slab", "draft", "frontend", "cascade", "live", "train", "ssm",
-          "moe", "vlm", "grok", "hybrid", "whisper", "dense_family", "kernels", "reference")
+PHASES = ("main", "spec", "slab", "draft", "frontend", "cascade", "live", "mesh", "train",
+          "ssm", "moe", "vlm", "grok", "hybrid", "whisper", "dense_family", "kernels",
+          "reference")
 # the phases whose results a phase reads: the qwen2.5-3b paths and the
 # ssm and moe phases compare with main's rows, draft with slab's tokens,
 # and kernels checks the launches the model paths captured
-NEEDS = {**{p: ("main",) for p in ("spec", "slab", "frontend", "cascade", "live", "ssm",
-                                   "moe")},
+NEEDS = {**{p: ("main",) for p in ("spec", "slab", "frontend", "cascade", "live", "mesh",
+                                   "ssm", "moe")},
          "draft": ("main", "slab"),
          "kernels": ("main", "spec", "slab", "draft", "train", "ssm", "moe", "vlm", "grok",
                      "hybrid", "whisper")}
@@ -3944,6 +4112,9 @@ def main() -> int:
         if "live" in phases:
             report["live"] = phase_live(main_run)
             lap("live")
+        if "mesh" in phases:                # on the cut weights (not profiled)
+            report["mesh"] = phase_mesh(args.seed, main_run, args.out)
+            lap("mesh")
         main_result = main_run[1] if "main" in phases else None
         # free the qwen2.5-3b weights and engines before falcon-mamba-7b's
         main_run = None

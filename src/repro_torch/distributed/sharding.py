@@ -1,0 +1,462 @@
+"""Sharding rules: FSDP+TP 2D parameter layout, activation/cache specs
+(counterpart of `repro.distributed.sharding`).
+
+Policy (DESIGN.md §4), as in the JAX package:
+  - every large matrix: "feature" dim over `model` (TP), other big dim over
+    `data` (FSDP / ZeRO-3); a layer all-gathers its FSDP shards before it
+    runs and all-reduces its TP partials.
+  - axes only apply when the dim is divisible by the axis size (GQA kv=8 on
+    a 16-way model axis stays replicated; qk-norm scales etc. replicate).
+  - batch over (pod, data); KV caches: batch over data, *sequence over
+    model* (sequence-sharded decode, `distributed/decode.py`); SSM state:
+    d_inner over model; the paged pool: pages replicated, heads over model.
+  - optimizer state mirrors its parameter's spec (extra leading quant-block
+    dims for adam8bit replicate).
+
+A spec is a plain tuple with the entries of the JAX `PartitionSpec`: per
+tensor dim an axis name, a tuple of names, or None. The port keeps each
+layer stack as a list of per-layer dicts (`bridge.STACKS`), so a layer
+leaf's spec is the JAX spec of the stacked leaf without its leading None;
+the optimizer state keys stacked JAX leaves (`training.optim`), so its
+specs keep it. `placements` turns a spec into DTensor placements, and
+`local_shard` cuts a full tensor into one rank's shard; `shard_params` does
+that for a whole parameter tree.
+
+Where GSPMD inserts collectives from these specs, the port writes them
+out: `MeshRank` is a rank's view of a serving mesh that the model's
+forwards take (`models.model`, `models.layers`). JAX's `shard_map` and
+`to_shardings` are JAX idiom (a per-device program and `NamedSharding`
+objects) and have no counterpart: in the port every rank already runs its
+own program on its own shards.
+
+The spec functions read a mesh only through `launch.mesh.axis_names` and
+`axis_size`, so they take a `DeviceMesh` or a stand-in with the JAX
+`Mesh`'s `axis_names` and `shape`.
+"""
+from __future__ import annotations
+
+import torch
+import torch.distributed as dist
+from torch.distributed.tensor import Replicate, Shard
+
+from repro_torch.launch.mesh import (axes_group, axis_names, axis_rank, axis_size,
+                                     batch_axes)
+from repro_torch.models.config import ModelConfig
+from repro_torch.tree import keystr, leaves, map_leaves, path_keys
+
+FSDP = "data"
+TP = "model"
+
+# trailing-dim roles per leaf name: 'f' = FSDP(data), 't' = TP(model),
+# '.' = replicated. Leading dims (layer stacks etc.) always replicate.
+_ROLES = {
+    "embed": "tf",
+    "lm_head": "ft",
+    "dec_pos": "..",
+    "wq": "ft.", "wk": "ft.", "wv": "ft.",
+    "wo": "t.f",
+    "bq": "t.", "bk": "t.", "bv": "t.",
+    "q_norm": ".", "k_norm": ".",
+    "w": ".", "b": ".",                      # norms
+    "w_gate": "ft", "w_up": "ft", "w_in": "ft", "w_down": "tf",
+    "router": "f.",
+    "wq_mla": "ft.",
+    "w_dkv": "f.",
+    "w_uk": "ft.", "w_uv": "ft.",
+    "kv_norm": ".",
+    "in_proj": "ft",                          # mamba1 (aligned halves)
+    "in_proj_m2": "f.",                       # mamba2 (mixed boundary)
+    "conv_w": ".t", "conv_b": "t",
+    "x_proj": "t.", "dt_proj": ".t", "dt_bias": "t",
+    "A_log": "t.", "A_log_1d": "t", "D": "t",
+    "norm_w": "t",
+    "out_proj": "tf",
+    "w1": "f.", "w2": "f.",                   # mm projector
+    "a_q": "f.", "a_k": "f.", "a_v": "f.", "a_o": "f.",
+    "b_q": ".t", "b_k": ".t", "b_v": ".t", "b_o": "..",
+}
+
+
+def _spec_for_leaf(name, shape, mesh, cfg: ModelConfig, overrides=None) -> tuple:
+    roles = (overrides or {}).get(name, _ROLES.get(name))
+    # disambiguate shared names
+    if name == "in_proj" and cfg.mamba_version == 2:
+        roles = _ROLES["in_proj_m2"]
+    if name == "A_log" and len(shape) >= 1 and cfg.mamba_version == 2:
+        roles = "t"                          # (h,): one dim, over model
+    if roles is None:
+        return ()
+    ndim = len(shape)
+    roles = roles[-ndim:] if len(roles) > ndim else roles
+    lead = ndim - len(roles)
+    spec = [None] * lead
+    fsz, tsz = axis_size(mesh, FSDP), axis_size(mesh, TP)
+    names = axis_names(mesh)
+    for dim, role in zip(shape[lead:], roles):
+        if role == "f" and FSDP in names and dim % fsz == 0 and dim >= fsz:
+            spec.append(FSDP)
+        elif role == "t" and TP in names and dim % tsz == 0 and dim >= tsz:
+            spec.append(TP)
+        else:
+            spec.append(None)
+    return tuple(spec)
+
+
+def param_specs(cfg: ModelConfig, params, mesh, overrides=None):
+    """Spec tree mirroring a parameter tree (tensors on any device, the
+    meta device included: only shapes are read). A layer leaf's spec is the
+    JAX spec of its stacked leaf without the leading None.
+
+    `overrides`: {leaf_name: role_string} -- variant sharding layouts (e.g.
+    expert parallelism: w_gate -> "tf." shards experts over `model`)."""
+    return map_leaves(lambda keys, index, t: _spec_for_leaf(
+        keys[-1], tuple(t.shape), mesh, cfg, overrides), params)
+
+
+def _jax_leaf_specs(pspecs) -> dict:
+    """{JAX keystr: spec of the JAX leaf}: a stacked leaf's spec gains the
+    leading None of its layer axis (an empty spec stays empty)."""
+    return {path: ((None,) + group[0]) if stacked and group[0] else group[0]
+            for path, group, stacked in leaves(pspecs)}
+
+
+def opt_state_specs(cfg: ModelConfig, opt_state, pspecs, mesh):
+    """Optimizer-state specs (`training.optim`'s states, keyed by JAX leaf
+    paths): mirror the parameter's spec where shapes match (adam m/v);
+    8-bit Adam quant blocks shard their block dim as the parameter's last
+    dim while it still divides; factored stats and scalars replicate.
+    Parent leaves are found by the JAX package's suffix match on paths."""
+    pflat = _jax_leaf_specs(pspecs)
+
+    def parent_param_spec(s):
+        for pkey, pspec in pflat.items():
+            if s.endswith(pkey):
+                return pspec
+        return None
+
+    def spec_of(keys, t):
+        name = keys[-1]
+        if name.startswith("["):             # a JAX leaf path: its last key
+            name = path_keys(name)[-1]
+        if name in ("mq", "vq", "ms", "vs", "m", "v"):
+            pspec = parent_param_spec(keystr(keys[:-1]))
+            if pspec is not None and len(pspec) == t.ndim:
+                if name in ("ms", "vs"):
+                    # scales: last axis shrank by q_block; keep axis only if
+                    # still divisible
+                    last = pspec[-1]
+                    msz = axis_size(mesh, last) if last else 1
+                    ok = last is not None and t.shape[-1] % msz == 0
+                    return pspec[:-1] + (last if ok else None,)
+                return pspec
+        s = keystr(keys)
+        for pkey, pspec in pflat.items():
+            if s.endswith(pkey):
+                if len(pspec) == t.ndim:
+                    return pspec
+        return ()
+
+    return map_leaves(lambda keys, index, t: spec_of(keys, t), opt_state)
+
+
+# ------------------------------------------------------- activations -------
+
+
+def batch_spec(mesh, batch_size: int) -> tuple:
+    """Largest prefix of (pod, data) that divides the batch."""
+    axes = []
+    n = 1
+    for a in batch_axes(mesh):
+        sz = axis_size(mesh, a)
+        if batch_size % (n * sz) == 0:
+            axes.append(a)
+            n *= sz
+    return tuple(axes) if axes else ()
+
+
+def _batch_entry(mesh, batch_size: int):
+    """The batch dim's spec entry: its axes, one axis as its bare name (as a
+    JAX `PartitionSpec` normalizes it), None where the batch replicates."""
+    baxes = batch_spec(mesh, batch_size)
+    if not baxes:
+        return None
+    return baxes[0] if len(baxes) == 1 else baxes
+
+
+def make_constrain(mesh, batch_size: int, *, ep_moe: bool = False):
+    """The activation specs that JAX pins through the model forward:
+    returns spec(shape, kind) -> the spec of an activation of `shape`, or
+    None where JAX leaves it unconstrained. The port's forwards read the
+    batch entry of "hidden" to pick a rank's rows (`MeshRank.rows`).
+
+    ep_moe: MoE dispatch/combine buffers (E, C, d) over data, so tokens move
+    to the experts' shards."""
+    b = _batch_entry(mesh, batch_size)
+
+    def spec(shape, kind):
+        ndim = len(shape)
+        if kind == "hidden":
+            return (b,) + (None,) * (ndim - 1)
+        if kind == "logits":
+            return (b,) + (None,) * (ndim - 2) + (TP,)
+        if kind == "moe_dispatch" and ep_moe:
+            e_ax = FSDP if shape[0] % axis_size(mesh, FSDP) == 0 else None
+            return (e_ax,) + (None,) * (ndim - 1)
+        if kind == "moe_grouped":
+            g_ax = FSDP if shape[0] % axis_size(mesh, FSDP) == 0 else None
+            return (g_ax,) + (None,) * (ndim - 1)
+        return None
+
+    return spec
+
+
+def input_sharding(mesh, batch_size: int, ndim: int) -> tuple:
+    b = _batch_entry(mesh, batch_size)
+    return (b,) + (None,) * (ndim - 1)
+
+
+def cache_specs(cfg: ModelConfig, cache: dict, mesh, batch_size: int) -> dict:
+    """Slab decode-cache specs (`model.init_decode_cache`'s dict): batch
+    over data, sequence over model (for KV), d_inner over model (for SSM
+    state)."""
+    b = _batch_entry(mesh, batch_size)
+    msz = axis_size(mesh, TP)
+
+    def spec(name, shp):
+        if name in ("k", "v"):          # (L, B, S, Hkv, hd)
+            s = TP if shp[2] % msz == 0 else None
+            return (None, b, s, None, None)
+        if name in ("ck", "cv"):        # (L, B, enc_S, Hkv, hd)
+            s = TP if shp[3] % msz == 0 else None
+            return (None, b, None, s, None)
+        if name in ("ckv", "krope"):    # (L, B, S, r)
+            s = TP if shp[2] % msz == 0 else None
+            return (None, b, s, None)
+        if name == "ssm":               # (L, B, di, N) or (L, B, h, p, N)
+            if len(shp) == 4:
+                s = TP if shp[2] % msz == 0 else None
+                return (None, b, s, None)
+            s = TP if shp[2] % msz == 0 else None
+            return (None, b, s, None, None)
+        if name == "conv":              # (L, B, K-1, C)
+            s = TP if shp[3] % msz == 0 else None
+            return (None, b, None, s)
+        return ()
+
+    return {k: spec(k, tuple(a.shape)) for k, a in cache.items()}
+
+
+def pool_specs(pools: dict, mesh) -> dict:
+    """Paged-KV pool specs (DESIGN.md §15): page tables are host-local
+    integers, so the page axis (axis 1) always replicates -- a page id must
+    dereference the same physical page on every rank. The per-position
+    feature axes shard over `model` where divisible: attention heads for
+    k/v, the latent/rope rank for MLA's ckv/krope. Shapes are
+    (layer_axis, num_pages, page_size, *tail)."""
+    msz = axis_size(mesh, TP)
+    specs = {}
+    for name, a in pools.items():
+        tail = a.shape[3:]
+        spec = [None, None, None]
+        for i, dim in enumerate(tail):
+            # shard the first tail dim that divides (heads for k/v, rank
+            # for ckv/krope); everything after it replicates
+            if i == 0 and dim % msz == 0 and dim >= msz:
+                spec.append(TP)
+            else:
+                spec.append(None)
+        specs[name] = tuple(spec)
+    return specs
+
+
+# ------------------------------------------------- placements and shards ---
+
+
+def _entry_axes(entry) -> tuple:
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def placements(spec, mesh) -> tuple:
+    """DTensor placements of a spec on `mesh`: per mesh dim Shard(d) where
+    the spec puts that axis on tensor dim d, else Replicate()."""
+    where = {a: d for d, entry in enumerate(spec) for a in _entry_axes(entry)}
+    return tuple(Shard(where[a]) if a in where else Replicate()
+                 for a in axis_names(mesh))
+
+
+def shard_range(spec, dim: int, size: int, mesh, coords=None) -> tuple:
+    """(start, stop) of this rank's part of tensor dim `dim` of length
+    `size` under `spec`: the dim splits over its axes, major to minor as
+    listed. `coords` ({axis: coordinate}) defaults to the rank's own."""
+    axes = _entry_axes(spec[dim]) if dim < len(spec) else ()
+    idx, n = 0, 1
+    for a in axes:
+        sz = axis_size(mesh, a)
+        c = coords[a] if coords is not None else axis_rank(mesh, a)
+        idx, n = idx * sz + c, n * sz
+    step = size // n
+    return idx * step, (idx + 1) * step
+
+
+def local_shard(t, spec, mesh, coords=None):
+    """This rank's shard of the full tensor `t` under `spec`, as its own
+    contiguous tensor (the whole tensor, unchanged, where nothing splits)."""
+    out = t
+    for d in range(len(spec)):
+        lo, hi = shard_range(spec, d, t.shape[d], mesh, coords)
+        if hi - lo != t.shape[d]:
+            out = out.narrow(d, lo, hi - lo)
+    return out if out is t else out.contiguous()
+
+
+class MeshParams(dict):
+    """One rank's local shards of a parameter tree (`shard_params`), with the
+    spec tree and the mesh they were cut by."""
+
+    def __init__(self, tree: dict, specs: dict, mesh):
+        super().__init__(tree)
+        self.specs = specs
+        self.mesh = mesh
+
+
+def shard_params(cfg: ModelConfig, params, mesh, device=None) -> MeshParams:
+    """Cut a full parameter tree into this rank's shards under
+    `param_specs`, on `device` (default: where the tensors are). Shards
+    that are already cut are returned as they are."""
+    if isinstance(params, MeshParams):
+        return params
+    specs = param_specs(cfg, params, mesh)
+    local = map_leaves(lambda keys, index, t: local_shard(t, _at(specs, keys, index), mesh)
+                       .to(device if device is not None else t.device), params)
+    return MeshParams(local, specs, mesh)
+
+
+def _at(tree, keys, index):
+    """The entry of a tree at dict `keys`, in list entry `index` where the
+    path crosses a list (the port's layer stacks)."""
+    node = tree
+    for k in keys:
+        node = node[k]
+        if isinstance(node, list):
+            node = node[index]
+    return node
+
+
+# ------------------------------------------------------------- MeshRank ----
+
+
+class MeshRank:
+    """A rank's view of a (data, model) serving mesh for the port's forwards:
+    the collectives that GSPMD inserts from the specs, written out.
+
+    - `gather` all-gathers a parameter subtree's `data`-sharded dims (FSDP:
+      a layer gathers its weights before it runs);
+    - `model_sum` all-reduces a row-parallel product's partials over
+      `model`; `model_cat` concatenates a `model`-sharded last dim;
+    - `rows(B)` is this rank's slice of a batch of B rows under
+      `make_constrain(mesh, B)`'s "hidden" spec (all rows where the batch
+      replicates, as B = 1 prefill does), and `rows_cat` all-gathers a
+      batch-sharded result's rows over `data`;
+    - `on_model(name, dim)` says whether the layers' leaf `name` has dim
+      `dim` over `model` (every layer of a stack has the same spec).
+
+    Collectives run whatever the size of their group: a 1x1 mesh runs the
+    same code as a 2x2 one."""
+
+    def __init__(self, params: MeshParams):
+        mesh = params.mesh
+        if axis_names(mesh) != (FSDP, TP):
+            raise ValueError(f"a serving mesh has axes ('data', 'model'), got "
+                             f"{axis_names(mesh)}")
+        self.mesh = mesh
+        self.specs = params.specs
+        self.data = axes_group(mesh, FSDP)
+        self.model = axes_group(mesh, TP)
+        self.n_data, self.n_model = axis_size(mesh, FSDP), axis_size(mesh, TP)
+        self.data_rank, self.model_rank = axis_rank(mesh, FSDP), axis_rank(mesh, TP)
+        # leaf name -> spec: the top-level leaves (embed, lm_head, ...), then
+        # the first layer's (every layer of a stack has the same)
+        self._specs = {}
+        top = {k: v for k, v in self.specs.items() if not isinstance(v, list)}
+        blocks = self.specs.get("layers") or [{}]
+        for tree in (top, blocks[0]):
+            map_leaves(lambda keys, index, s: self._specs.__setitem__(keys[-1], s), tree)
+
+    # parameters ------------------------------------------------------------
+
+    def on_model(self, name: str, dim: int) -> bool:
+        spec = self._specs.get(name, ())
+        return dim < len(spec) and TP in _entry_axes(spec[dim])
+
+    def _cat(self, t, dim, group, n):
+        """The n ranks' t concatenated along `dim`, in group rank order: one
+        all-gather into an (n, *t.shape) buffer, whose rank axis then moves
+        next to `dim` (a copy only where n > 1)."""
+        t = t.contiguous()
+        out = t.new_empty((n,) + tuple(t.shape))
+        dist.all_gather_into_tensor(out.view((n * t.shape[0],) + tuple(t.shape[1:])), t,
+                                    group=group)
+        shape = list(t.shape)
+        shape[dim] *= n
+        return out.movedim(0, dim).reshape(shape)
+
+    def gather(self, tree, specs):
+        """`tree` (local shards, or one tensor) with its `data`-sharded dims
+        all-gathered, in one all-gather a dtype: the leaves' shards are
+        packed flat, and each gathered leaf is the ranks' pieces
+        concatenated along its `data` dim, contiguous in its own layout (a
+        view where n = 1: the same strides as the shard, so the products
+        that read it are the single-card path's). `model` dims stay local."""
+        if torch.is_tensor(tree):
+            return self.gather({"t": tree}, {"t": specs})["t"]
+        packs: dict = {}
+
+        def pack(keys, index, t):
+            spec = _at(specs, keys, index)
+            dims = [d for d, entry in enumerate(spec) if FSDP in _entry_axes(entry)]
+            if dims:
+                packs.setdefault(t.dtype, []).append(((keys, index), dims[0], t))
+        map_leaves(pack, tree)
+        full = {}
+        n = self.n_data
+        for dtype, leaves_ in packs.items():
+            flat = torch.cat([t.reshape(-1) for _, _, t in leaves_])
+            out = flat.new_empty((n, flat.numel()))
+            dist.all_gather_into_tensor(out.view(-1), flat, group=self.data)
+            off = 0
+            for at, d, t in leaves_:
+                shape = list(t.shape)
+                shape[d] *= n
+                piece = out[:, off:off + t.numel()].reshape((n,) + tuple(t.shape))
+                full[at] = piece.movedim(0, d).reshape(shape)
+                off += t.numel()
+        return map_leaves(lambda keys, index, t: full.get((keys, index), t), tree)
+
+    # activations -----------------------------------------------------------
+
+    def model_sum(self, x):
+        x = x.contiguous()
+        dist.all_reduce(x, op=dist.ReduceOp.SUM, group=self.model)
+        return x
+
+    def model_cat(self, x):
+        return self._cat(x, x.ndim - 1, self.model, self.n_model)
+
+    def batch_split(self, B: int) -> bool:
+        spec = make_constrain(self.mesh, B)((B,), "hidden")
+        return spec[0] is not None
+
+    def rows(self, B: int) -> slice:
+        if not self.batch_split(B):
+            return slice(0, B)
+        n = B // self.n_data
+        return slice(self.data_rank * n, (self.data_rank + 1) * n)
+
+    def rows_cat(self, x, B: int):
+        """The batch-sharded rows of x (this rank's `rows(B)`) all-gathered
+        into all B rows; x as it is where the batch replicates."""
+        if not self.batch_split(B):
+            return x
+        return self._cat(x, 0, self.data, self.n_data)

@@ -1,4 +1,5 @@
 """Launch-side helpers of the port: the analytic FLOP and byte models
-(`flops`, a copy of the JAX package's). The JAX package's mesh and sharding
-specs (`launch/mesh.py`, `launch/specs.py`) and its XLA-only tools belong to
-the distributed slice and are not ported yet."""
+(`flops`, a copy of the JAX package's) and the mesh functions over
+`torch.distributed` (`mesh`). The JAX package's abstract specs
+(`launch/specs.py`) and its XLA-only tools are not ported yet (ROADMAP.md
+Queue 1)."""

@@ -152,6 +152,21 @@ class PageAllocator:
                                               dtype=a.dtype, device=dev)
         self.refcount = [0] * self.num_pages
         self._free = list(range(self.num_pages - 1, 0, -1))  # sink excluded
+        self._page_nbytes = None        # a sharded pool's global page bytes
+
+    def shard_pools(self, mesh) -> None:
+        """Lay the device pools out over a serving mesh (DESIGN.md §15):
+        pages replicated (host-local page ids must dereference identically
+        on every rank), heads/features over the `model` axis
+        (`distributed.sharding.pool_specs`). Each pool becomes this rank's
+        shard, as its own contiguous tensor (the kernels check contiguity
+        and alignment), with its contents; `page_nbytes` keeps counting the
+        global pool, as the JAX package counts a sharded array. Call once,
+        right after construction."""
+        from repro_torch.distributed.sharding import local_shard, pool_specs
+        self._page_nbytes = self.page_nbytes
+        specs = pool_specs(self.pools, mesh)
+        self.pools = {k: local_shard(a, specs[k], mesh) for k, a in self.pools.items()}
 
     @property
     def scratch(self) -> list:
@@ -175,7 +190,10 @@ class PageAllocator:
 
     @property
     def page_nbytes(self) -> int:
-        """Device bytes of one page across every pooled buffer."""
+        """Device bytes of one page across every pooled buffer (of the
+        global pool, where the pools are a rank's shards)."""
+        if self._page_nbytes is not None:
+            return self._page_nbytes
         return sum(a[:, 0].numel() * a.element_size() for a in self.pools.values())
 
     @property

@@ -120,13 +120,19 @@ def activation_fn(name: str):
 # ------------------------------------------------------------------ mlp ----
 
 
-def mlp_apply(cfg: ModelConfig, p, x):
+def mlp_apply(cfg: ModelConfig, p, x, tp=None):
+    """The MLP; on a mesh (`tp`, a `distributed.sharding.MeshRank`) with
+    this rank's columns of w_gate/w_up/w_in and rows of w_down, whose
+    partial products are summed over `model`."""
     act = activation_fn(cfg.activation)
     if cfg.gated_mlp:
         h = act(x @ p["w_gate"]) * (x @ p["w_up"])
     else:
         h = act(x @ p["w_in"])
-    return h @ p["w_down"]
+    y = h @ p["w_down"]
+    if tp is not None and tp.on_model("w_down", 0):
+        y = tp.model_sum(y)
+    return y
 
 
 # ------------------------------------------------------------ attention ----
@@ -190,17 +196,49 @@ def _project_qkv(cfg: ModelConfig, p, x, lora=None):
     return q, k, v
 
 
-def _out_proj(p, out, lora=None):
+def _out_proj(p, out, lora=None, tp=None):
     """The output projection of the attention's heads (B, S, H, hd), plus
-    the adapter's delta on it, out + (out a_o) b_o, when `lora` is given."""
+    the adapter's delta on it, out + (out a_o) b_o, when `lora` is given.
+    On a mesh (`tp`) the heads are this rank's, and where wo's heads are
+    over `model` the partial products are summed over it."""
     out = torch.einsum("bshe,hed->bsd", out, p["wo"])
+    if tp is not None and tp.on_model("wo", 0):
+        out = tp.model_sum(out)
     if lora is not None:
         out = out + (out @ lora["a_o"]) @ lora["b_o"]
     return out
 
 
+def _rank_heads(cfg: ModelConfig, q, n_kv: int, tp, dim: int = 1):
+    """A kernel's query for this rank's query heads, on `dim` of q, over a
+    pool of n_kv KV heads, and the map of the kernel's output back to those
+    heads. Off a mesh, and where the pool's heads are the rank's KV heads
+    (both split over `model`, or neither), that is q itself. Where the
+    query heads are split and the pool keeps every KV head (n_kv_heads
+    does not divide the `model` size, `pool_specs`), each local head i sits
+    in its own KV head's group of a wider query, kv(i) * h + i, and reads
+    that head; the other entries are zeros whose outputs are dropped."""
+    h = q.shape[dim]
+    if tp is None or h * cfg.n_kv_heads == n_kv * cfg.n_heads:
+        return q, lambda out: out
+    G = cfg.n_heads // cfg.n_kv_heads
+    local = torch.arange(h, device=q.device)
+    idx = ((tp.model_rank * h + local) // G) * h + local
+    shape = list(q.shape)
+    shape[dim] = n_kv * h
+    wide = q.new_zeros(shape).index_copy_(dim, idx, q)
+    return wide, lambda out: out.index_select(dim, idx)
+
+
+def _rows_kv(tp, k, v, B: int):
+    """Every row's K and V from this rank's rows (`MeshRank.rows_cat`), in
+    one all-gather."""
+    kv = tp.rows_cat(torch.cat([k, v], dim=-1), B)
+    return kv.split(k.shape[-1], dim=-1)
+
+
 def attn_chunk_apply(cfg: ModelConfig, p, x, *, start: int, k_pool, v_pool,
-                     ctx_ids, write_pages, write_offsets, lora=None):
+                     ctx_ids, write_pages, write_offsets, lora=None, tp=None):
     """Chunked-prefill attention of one sequence on the page pool: the C
     query tokens at positions [start, start+C) attend every key up to their
     own position (causal within the chunk, full over the filled prefix).
@@ -212,11 +250,12 @@ def attn_chunk_apply(cfg: ModelConfig, p, x, *, start: int, k_pool, v_pool,
     write land in the sink: a sink block the padded chunk writes is a
     scratch page in ctx_ids (`cache_ops.sink_plan`), so the chunk reads the
     sink as it was before the call plus its own tokens, as the JAX view.
-    `lora`: the hybrid family's adapter of this application. Returns (1,
-    C, d).
+    `lora`: the hybrid family's adapter of this application. On a mesh
+    (`tp`, a `distributed.sharding.MeshRank`) the weights hold this rank's
+    heads, the pools its head shard, and every rank runs the chunk.
+    Returns (1, C, d).
     """
     B, C, _ = x.shape
-    nq, hd = cfg.n_heads, cfg.resolved_head_dim
     q_pos = start + torch.arange(C, device=x.device)
     q, k, v = _project_qkv(cfg, p, x, lora)
     if cfg.use_rope:
@@ -224,37 +263,43 @@ def attn_chunk_apply(cfg: ModelConfig, p, x, *, start: int, k_pool, v_pool,
         k = apply_rope(k, q_pos[None], cfg.rope_theta)
     k_pool[write_pages, write_offsets] = k[0].to(k_pool.dtype)
     v_pool[write_pages, write_offsets] = v[0].to(v_pool.dtype)
-    out = _k2.chunk_prefill_attention(q[0], k_pool, v_pool, ctx_ids, start)
-    out = out.reshape(1, C, nq, hd)
-    return _out_proj(p, out, lora)
+    qk, back = _rank_heads(cfg, q[0], k_pool.shape[2], tp)
+    out = back(_k2.chunk_prefill_attention(qk, k_pool, v_pool, ctx_ids, start))
+    out = out.reshape(1, C, q.shape[2], q.shape[3])
+    return _out_proj(p, out, lora, tp)
 
 
 def attn_decode_apply(cfg: ModelConfig, p, x, *, pos, k_pool, v_pool, table,
-                      write_pages, write_offsets, lora=None):
+                      write_pages, write_offsets, lora=None, tp=None):
     """Single-token decode of every slot on the page pool. x: (B, 1, d);
     pos (B,) int32 per-row positions; table (B, nb) int32 page tables;
     the new K/V lands at pool[write_pages[b], write_offsets[b]] before
     kernel K1 attends positions < pos+1. A dead row's table is the sink
     except the block it writes, which is its own scratch page, and a write
     at or past nb * ps (which JAX drops) goes to the trash page
-    (`cache_ops.sink_plan`). `lora`: the hybrid family's adapter. Returns
-    (B, 1, d)."""
+    (`cache_ops.sink_plan`). `lora`: the hybrid family's adapter. On a
+    mesh (`tp`) x, pos and table are this rank's rows (`MeshRank.rows`)
+    and its heads; write_pages and write_offsets are every row's, and the
+    rows' K/V is all-gathered over `data` and written on every rank (the
+    pool replicates over `data`). Returns (B, 1, d)."""
     B, S, _ = x.shape
-    nq, hd = cfg.n_heads, cfg.resolved_head_dim
     q, k, v = _project_qkv(cfg, p, x, lora)
     if cfg.use_rope:
         pp = pos.reshape(B, 1)
         q = apply_rope(q, pp, cfg.rope_theta)
         k = apply_rope(k, pp, cfg.rope_theta)
+    if tp is not None:
+        k, v = _rows_kv(tp, k, v, write_pages.shape[0])
     k_pool[write_pages, write_offsets] = k[:, 0].to(k_pool.dtype)
     v_pool[write_pages, write_offsets] = v[:, 0].to(v_pool.dtype)
-    out = _k1.paged_decode_attention(q[:, 0], k_pool, v_pool, table, pos + 1)
-    out = out.reshape(B, S, nq, hd)
-    return _out_proj(p, out, lora)
+    qk, back = _rank_heads(cfg, q[:, 0], k_pool.shape[2], tp)
+    out = back(_k1.paged_decode_attention(qk, k_pool, v_pool, table, pos + 1))
+    out = out.reshape(B, S, q.shape[2], q.shape[3])
+    return _out_proj(p, out, lora, tp)
 
 
 def attn_verify_apply(cfg: ModelConfig, p, x, *, pos, k_pool, v_pool, table,
-                      write_pages, write_offsets, lora=None):
+                      write_pages, write_offsets, lora=None, tp=None):
     """Speculative-verify attention of every slot on the page pool: row b's
     C candidate tokens sit at positions pos[b] + c and attend every key up
     to their own position (causal within the candidates, full over the
@@ -268,21 +313,24 @@ def attn_verify_apply(cfg: ModelConfig, p, x, *, pos, k_pool, v_pool, table,
     is written to the row's scratch page for that block, which the table
     maps in its place, and one past the view, where the JAX package drops
     the write, to the trash page (`cache_ops.sink_plan`). `lora`: the
-    hybrid family's adapter. Returns (B, C, d)."""
+    hybrid family's adapter. On a mesh (`tp`) as `attn_decode_apply`: this
+    rank's rows and heads, every row's K/V written. Returns (B, C, d)."""
     B, C, _ = x.shape
-    nq, hd = cfg.n_heads, cfg.resolved_head_dim
     q, k, v = _project_qkv(cfg, p, x, lora)
     if cfg.use_rope:
         q_pos = pos.reshape(B, 1) + torch.arange(C, device=x.device, dtype=pos.dtype)
         q = apply_rope(q, q_pos, cfg.rope_theta)
         k = apply_rope(k, q_pos, cfg.rope_theta)
+    if tp is not None:
+        k, v = _rows_kv(tp, k, v, write_pages.shape[0])
     k_pool[write_pages, write_offsets] = k.to(k_pool.dtype)
     v_pool[write_pages, write_offsets] = v.to(v_pool.dtype)
     # K4 reads q and writes its output in (B, C, H, D): on the card both
     # transposes are views, and no copy kernel runs around the launch
-    out = _k4.paged_verify_attention(q.transpose(1, 2), k_pool, v_pool, table, pos)
-    out = out.transpose(1, 2).reshape(B, C, nq, hd)
-    return _out_proj(p, out, lora)
+    qk, back = _rank_heads(cfg, q.transpose(1, 2), k_pool.shape[2], tp)
+    out = back(_k4.paged_verify_attention(qk, k_pool, v_pool, table, pos))
+    out = out.transpose(1, 2).reshape(B, C, q.shape[2], q.shape[3])
+    return _out_proj(p, out, lora, tp)
 
 
 # ------------------------------------------------------------ slab KV ------
@@ -391,11 +439,14 @@ def _attend_slab(cfg: ModelConfig, p, q, k_layer, v_layer, tables, lora=None):
     return _out_proj(p, out.reshape(B, S, cfg.n_heads, cfg.resolved_head_dim), lora)
 
 
-def attn_decode_apply_slab(cfg: ModelConfig, p, x, *, pos, k_cache, v_cache, lora=None):
+def attn_decode_apply_slab(cfg: ModelConfig, p, x, *, pos, k_cache, v_cache, lora=None,
+                           attn_impl=None):
     """Single-token decode on slab layers (the JAX `attn_decode_apply`).
     x (B, 1, d); pos a 0-d tensor or per-row (B,) int32; the new K/V is
     written at pos (`cache_write`) before kernel K5 attends positions
-    < pos + 1. Returns (B, 1, d)."""
+    < pos + 1. `attn_impl(q (B, 1, Hkv, G, hd), k_cache, v_cache, length)`
+    replaces K5 where given (the sequence-sharded combine of
+    `distributed.decode`). Returns (B, 1, d)."""
     B, S, _ = x.shape
     nq, hd = cfg.n_heads, cfg.resolved_head_dim
     q, k, v = _project_qkv(cfg, p, x, lora)
@@ -405,7 +456,11 @@ def attn_decode_apply_slab(cfg: ModelConfig, p, x, *, pos, k_cache, v_cache, lor
         k = apply_rope(k, pp, cfg.rope_theta)
     cache_write(k_cache, k, pos)
     cache_write(v_cache, v, pos)
-    out = _k1.decode_attention(q[:, 0], k_cache, v_cache, pos + 1)
+    if attn_impl is not None:
+        nkv = k_cache.shape[2]
+        out = attn_impl(q.reshape(B, S, nkv, nq // nkv, hd), k_cache, v_cache, pos + 1)
+    else:
+        out = _k1.decode_attention(q[:, 0], k_cache, v_cache, pos + 1)
     out = out.reshape(B, S, nq, hd)
     return _out_proj(p, out, lora)
 

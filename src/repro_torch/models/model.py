@@ -98,6 +98,8 @@ from . import ssm as S
 from .config import ModelConfig
 
 VISION_DIM = 1024  # stub vision-tower output width (llava)
+# the families whose paged forwards take a serving mesh (`mesh=`)
+MESH_FAMILIES = ("dense", "vlm")
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float16": torch.float16}
@@ -282,7 +284,7 @@ def _run(remat: bool, fn, *args):
 
 
 def _trunk(cfg, params, x, attend=None, mamba=None, cross=None, *, aux=None,
-           remat=False):
+           remat=False, tp=None):
     """Run the blocks on x. Attention blocks: x + attend(li, attn params,
     normed x, lora), then (the encdec family's decoder) x + cross(li,
     cross_attn params, normed x), then the MLP or MoE feed-forward on the
@@ -291,7 +293,9 @@ def _trunk(cfg, params, x, attend=None, mamba=None, cross=None, *, aux=None,
     its shared blocks (with adapter "lora"[i], pool layer i) before Mamba
     layers [i * attn_every, (i + 1) * attn_every). With `aux` (a list: the
     training forward) every MoE layer appends its load-balance loss; with
-    `remat` every block runs under `_run`'s checkpoint."""
+    `remat` every block runs under `_run`'s checkpoint. On a mesh (`tp`, a
+    `distributed.sharding.MeshRank`) each block first all-gathers its
+    `data`-sharded weights, and its MLP runs on this rank's columns."""
     def attention_block(li, lp, x, lora=None):
         x = x + attend(li, lp["attn"], L.norm_apply(cfg, lp["attn_norm"], x), lora)
         if cross is not None:
@@ -301,7 +305,7 @@ def _trunk(cfg, params, x, attend=None, mamba=None, cross=None, *, aux=None,
             m, a = L.moe_apply(cfg, lp["moe"], h, return_aux=True)
             return x + m, a
         return x + (L.moe_apply(cfg, lp["moe"], h) if "moe" in lp
-                    else L.mlp_apply(cfg, lp["mlp"], h)), None
+                    else L.mlp_apply(cfg, lp["mlp"], h, tp)), None
 
     def attention(li, lp, x, lora=None):
         x, a = _run(remat, attention_block, li, lp, x, lora)
@@ -328,6 +332,8 @@ def _trunk(cfg, params, x, attend=None, mamba=None, cross=None, *, aux=None,
                 x = mamba_block(li, x)
         return x
     for li, lp in enumerate(_blocks(params)):
+        if tp is not None:
+            lp = tp.gather(lp, _blocks(tp.specs)[li])
         x = attention(li, lp, x)
     return x
 
@@ -428,20 +434,49 @@ def _mamba_verify(cfg, state, ckpts, C):
     return run
 
 
-def _logits(cfg, params, x):
-    return L.norm_apply(cfg, params["final_norm"], x) @ _head(cfg, params)
+def _logits(cfg, params, x, tp=None):
+    """Logits over the whole vocabulary. On a mesh (`tp`) the head's
+    `data`-sharded dim is all-gathered, and a `model`-sharded vocabulary is
+    gathered over `model` after the product."""
+    h = L.norm_apply(cfg, params["final_norm"], x)
+    if tp is None:
+        return h @ _head(cfg, params)
+    name = "embed" if cfg.tie_embeddings else "lm_head"
+    head = tp.gather(params[name], tp.specs[name])
+    logits = h @ (head.T if cfg.tie_embeddings else head)
+    return tp.model_cat(logits) if tp.on_model(name, 0 if cfg.tie_embeddings else 1) \
+        else logits
 
 
-def _embed(cfg, params, tokens, image_embeds=None):
+def _lookup(params, tokens, tp=None):
+    """Token embeddings. On a mesh (`tp`) the table's `data`-sharded dim is
+    all-gathered; over a `model`-sharded vocabulary each rank looks up the
+    tokens of its rows, zeros elsewhere, and the sum over `model` is
+    exact."""
+    if tp is None:
+        return F.embedding(tokens.long(), params["embed"])
+    table = tp.gather(params["embed"], tp.specs["embed"])
+    if not tp.on_model("embed", 0):
+        return F.embedding(tokens.long(), table)
+    n = table.shape[0]
+    local = tokens.long() - tp.model_rank * n
+    ok = (local >= 0) & (local < n)
+    rows = F.embedding(local.clamp(0, n - 1), table)
+    return tp.model_sum(torch.where(ok[..., None], rows, torch.zeros_like(rows)))
+
+
+def _embed(cfg, params, tokens, image_embeds=None, tp=None):
     """Token embeddings, behind the projected image rows when `image_embeds`
     (B, n_img, VISION_DIM) is given: gelu(img @ w1) @ w2 in the model dtype,
     with jax.nn.gelu's default tanh form. Returns (x, n_img). The lookup is
     `F.embedding`, whose backward sums a repeated token's rows in an order
-    that does not change from run to run."""
-    x = F.embedding(tokens.long(), params["embed"])
+    that does not change from run to run. On a mesh (`tp`) as `_lookup`,
+    with the projector's `data`-sharded rows all-gathered."""
+    x = _lookup(params, tokens, tp)
     if image_embeds is None:
         return x, 0
-    mp = params["mm_proj"]
+    mp = params["mm_proj"] if tp is None else tp.gather(params["mm_proj"],
+                                                         tp.specs["mm_proj"])
     img = image_embeds.to(device=x.device, dtype=x.dtype)
     img = L.activation_fn("gelu")(img @ mp["w1"]) @ mp["w2"]
     return torch.cat([img, x], dim=1), img.shape[1]
@@ -592,8 +627,24 @@ def forward(cfg: ModelConfig, params, batch, *, remat=False):
 # ------------------------------------------------------------- decode ------
 
 
+def _check_mesh(cfg: ModelConfig, mesh) -> None:
+    if mesh is not None and cfg.family not in MESH_FAMILIES:
+        raise NotImplementedError(
+            f"the {cfg.family} family on a mesh is not ported yet, see ROADMAP.md "
+            f"Queue 1 item 5")
+
+
+def _mesh_rows(mesh, *tensors):
+    """This rank's rows of each tensor (`MeshRank.rows`), or the tensors
+    off a mesh."""
+    if mesh is None:
+        return tensors
+    r = mesh.rows(tensors[0].shape[0])
+    return tuple(t[r] for t in tensors)
+
+
 def decode_step(cfg: ModelConfig, params, tokens, pos, pools, table, write_pages,
-                state=None):
+                state=None, mesh=None):
     """One batched decode step on the page pool.
 
     tokens (B, 1) int; pos (B,) int32 -- row b's token sits at position
@@ -611,10 +662,15 @@ def decode_step(cfg: ModelConfig, params, tokens, pos, pools, table, write_pages
     encdec family adds the learned position of pos[b] (NaN past the table,
     as the JAX package's per-row read) and cross-attends the cross K/V in
     `state` (the engine's per-slot "ck"/"cv") through K5.
+
+    On a serving mesh (`mesh`, a `distributed.sharding.MeshRank`; the dense
+    and vlm families) `params` are this rank's shards (`shard_params`) and
+    the pools its head shard; the rank runs its rows of the batch
+    (`MeshRank.rows`, all of them where the batch replicates over `data`)
+    and returns their logits, and every row's K/V is written on every rank.
     """
     _check_family(cfg)
-    x = _add_dec_pos(cfg, params, params["embed"][tokens.long()], pos.reshape(-1, 1),
-                     fill_nan=True)
+    _check_mesh(cfg, mesh)
     attend = None
     if cfg.use_mla:
         def attend(li, p, h, lora=None):
@@ -622,24 +678,27 @@ def decode_step(cfg: ModelConfig, params, tokens, pos, pools, table, write_pages
                                       krope_pool=pools["krope"][li], table=table,
                                       write_pages=write_pages)
     elif cfg.family != "ssm":
-        ps = pools["k"].shape[2]
         wp = write_pages.long()
-        offs = (pos % ps).long()
+        offs = (pos % pools["k"].shape[2]).long()
+        tokens, pos, table = _mesh_rows(mesh, tokens, pos, table)
 
         def attend(li, p, h, lora=None):
             return L.attn_decode_apply(cfg, p, h, pos=pos, k_pool=pools["k"][li],
                                        v_pool=pools["v"][li], table=table,
-                                       write_pages=wp, write_offsets=offs, lora=lora)
+                                       write_pages=wp, write_offsets=offs, lora=lora,
+                                       tp=mesh)
+    x = _add_dec_pos(cfg, params, _lookup(params, tokens, mesh), pos.reshape(-1, 1),
+                     fill_nan=True)
     mamba = _mamba_decode(cfg, state)
     return _logits(cfg, params, _trunk(cfg, params, x, attend, mamba,
-                                       _cross_decode(cfg, state)))
+                                       _cross_decode(cfg, state), tp=mesh), mesh)
 
 
 # ------------------------------------------------------- chunked prefill ---
 
 
 def prefill_chunk(cfg: ModelConfig, params, tokens, start: int, length: int,
-                  pools, ctx_ids, state=None, image_embeds=None):
+                  pools, ctx_ids, state=None, image_embeds=None, mesh=None):
     """Advance one sequence through a C-token prompt chunk on the page pool.
 
     tokens (1, C) int, right-padded past `length` real tokens; the chunk
@@ -661,10 +720,13 @@ def prefill_chunk(cfg: ModelConfig, params, tokens, start: int, length: int,
     and the position advances by n_img + `length`. The encdec family adds
     the learned positions of [start, start+C), clipped into the table, and
     cross-attends the cross K/V in the sequence's B=1 `state` ("ck"/"cv",
-    `encode_cross_kv`) through K2's non-causal form.
+    `encode_cross_kv`) through K2's non-causal form. On a serving mesh
+    (`mesh`, as `decode_step`) every rank runs the chunk (B = 1 replicates
+    over `data`) on its shards.
     """
     _check_family(cfg)
-    x, n_img = _embed(cfg, params, tokens, image_embeds)
+    _check_mesh(cfg, mesh)
+    x, n_img = _embed(cfg, params, tokens, image_embeds, mesh)
     x = _add_dec_pos(cfg, params, x, start + torch.arange(x.shape[1], device=x.device))
     attend = None
     if cfg.use_mla:
@@ -680,18 +742,20 @@ def prefill_chunk(cfg: ModelConfig, params, tokens, start: int, length: int,
         def attend(li, p, h, lora=None):
             return L.attn_chunk_apply(cfg, p, h, start=start, k_pool=pools["k"][li],
                                       v_pool=pools["v"][li], ctx_ids=ctx_ids,
-                                      write_pages=wp, write_offsets=offs, lora=lora)
+                                      write_pages=wp, write_offsets=offs, lora=lora,
+                                      tp=mesh)
     mamba = _mamba_chunk(cfg, state, length)
-    x = _trunk(cfg, params, x, attend, mamba, _cross_chunk(cfg, state))
+    x = _trunk(cfg, params, x, attend, mamba, _cross_chunk(cfg, state), tp=mesh)
     last = n_img + length
-    return _logits(cfg, params, x[:, last - 1:last])
+    return _logits(cfg, params, x[:, last - 1:last], mesh)
 
 
 # -------------------------------------------------- speculative verify -----
 
 
 def verify_chunk(cfg: ModelConfig, params, tokens, pos, pools, table,
-                 write_pages, write_offsets, state=None, ckpts=None, block0s=None):
+                 write_pages, write_offsets, state=None, ckpts=None, block0s=None,
+                 mesh=None):
     """Speculative-decoding verification forward on the page pool.
 
     tokens (B, C) int: each row's pending token plus its drafts, right-
@@ -714,11 +778,12 @@ def verify_chunk(cfg: ModelConfig, params, tokens, pos, pools, table,
     + nb) back through the table (`layers.mla_verify_apply`); block0s (B,)
     is the JAX engine's. The encdec family adds the learned positions of
     pos[b] + c, clipped into the table, and cross-attends the cross K/V in
-    `state` through K2's non-causal form.
+    `state` through K2's non-causal form. On a serving mesh (`mesh`, as
+    `decode_step`) the rank runs its rows and returns their logits, and
+    every row's candidates are written on every rank.
     """
     _check_family(cfg)
-    x = _add_dec_pos(cfg, params, params["embed"][tokens.long()],
-                     L.chunk_positions(pos, tokens.shape[0], tokens.shape[1], tokens.device))
+    _check_mesh(cfg, mesh)
     attend = None
     if cfg.use_mla:
         def attend(li, p, h, lora=None):
@@ -727,14 +792,18 @@ def verify_chunk(cfg: ModelConfig, params, tokens, pos, pools, table,
                                       block0s=block0s)
     elif cfg.family != "ssm":
         wp, offs = write_pages.long(), write_offsets.long()
+        tokens, pos, table = _mesh_rows(mesh, tokens, pos, table)
 
         def attend(li, p, h, lora=None):
             return L.attn_verify_apply(cfg, p, h, pos=pos, k_pool=pools["k"][li],
                                        v_pool=pools["v"][li], table=table,
-                                       write_pages=wp, write_offsets=offs, lora=lora)
+                                       write_pages=wp, write_offsets=offs, lora=lora,
+                                       tp=mesh)
+    x = _add_dec_pos(cfg, params, _lookup(params, tokens, mesh),
+                     L.chunk_positions(pos, tokens.shape[0], tokens.shape[1], tokens.device))
     mamba = _mamba_verify(cfg, state, ckpts, tokens.shape[1])
     return _logits(cfg, params, _trunk(cfg, params, x, attend, mamba,
-                                       _cross_chunk(cfg, state)))
+                                       _cross_chunk(cfg, state), tp=mesh), mesh)
 
 
 # ------------------------------------------------------------ slab KV ------
@@ -836,7 +905,7 @@ def prefill(cfg: ModelConfig, params, tokens, max_len: int, length=None,
     return _logits(cfg, params, x[:, n - 1:n]), cache
 
 
-def decode_step_slab(cfg: ModelConfig, params, tokens, cache):
+def decode_step_slab(cfg: ModelConfig, params, tokens, cache, attn_impl=None):
     """One decode step on a slab cache (the JAX slab `decode_step`).
 
     tokens (B, 1) int; cache["pos"] a 0-d int32 (every row at one
@@ -848,7 +917,9 @@ def decode_step_slab(cfg: ModelConfig, params, tokens, cache):
     cache's conv/ssm in place. The encdec family adds the learned position
     of pos (a 0-d pos clamped into the table, per-row positions NaN past
     it, as the JAX package reads them) and cross-attends the cache's
-    "ck"/"cv" through K5.
+    "ck"/"cv" through K5. `attn_impl` replaces K5 in the self-attention where
+    given (`distributed.decode.make_seq_sharded_decode_attn`, as the JAX
+    `decode_step(attn_impl=)`).
     """
     _check_family(cfg)
     pos = cache["pos"]
@@ -862,7 +933,8 @@ def decode_step_slab(cfg: ModelConfig, params, tokens, cache):
     elif cfg.family != "ssm":
         def attend(li, p, h, lora=None):
             return L.attn_decode_apply_slab(cfg, p, h, pos=pos, k_cache=cache["k"][li],
-                                            v_cache=cache["v"][li], lora=lora)
+                                            v_cache=cache["v"][li], lora=lora,
+                                            attn_impl=attn_impl)
     mamba = _mamba_decode(cfg, cache)
     x = _trunk(cfg, params, x, attend, mamba, _cross_decode(cfg, cache))
     cache["pos"] = pos + 1

@@ -93,8 +93,24 @@ non-blocking surface the admission frontend (`serving/frontend.py`)
 schedules against. Engines of a replica group (`serving/replicas.py`)
 share one `PageAllocator` (`page_allocator=`): every page reference
 (`retain`/`release`) goes to that one pool, while each engine keeps its own
-page tables and positions. Mesh serving is not ported yet and raises
-NotImplementedError.
+page tables and positions.
+
+`mesh=` (a (data, model) `DeviceMesh` from `launch.mesh`, over a default
+process group the caller has started) serves the paged layout of the dense
+and vlm families on a mesh, one process a rank. Every rank builds the
+engine with the full parameters and the same arguments and runs the same
+requests: the host-side decisions (scheduling, page ids, prefix hits,
+drafts) are the same on every rank, so none is exchanged. Each rank keeps
+its shards of the parameters (`distributed.sharding.shard_params`: FSDP on
+`data`, tensor parallelism on `model`) and of the pool (heads over
+`model`, pages replicated, `PageAllocator.shard_pools`); the forwards
+write out the collectives that GSPMD inserts in the JAX engine
+(`distributed.sharding.MeshRank`). A batched decode step or verify round
+runs each `data` rank's slots, writes every slot's K/V on every rank and
+all-gathers the step's tokens; a prefill chunk runs on every rank. Rows,
+tokens and `stats` are those of the single-device engine. The slab layout,
+the draft-model drafter and the other families raise NotImplementedError
+on a mesh (ROADMAP.md Queue 1 item 5).
 """
 from __future__ import annotations
 
@@ -108,6 +124,8 @@ import torch
 
 from repro_torch.data import lm_data
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import MeshRank, shard_params
+from repro_torch.launch.mesh import mesh_device
 from repro_torch.models import (decode_step, decode_step_slab,
                                 encode_cross_kv, init_decode_cache, init_state_cache,
                                 init_verify_ckpts, prefill, prefill_chunk,
@@ -119,14 +137,27 @@ from repro_torch.models.cache_ops import (PAGE_SINK, PageAllocator,
                                           sink_plan, sink_take, truncate_pages,
                                           write_slot)
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.model import VISION_DIM
+from repro_torch.models.model import MESH_FAMILIES, VISION_DIM
 from repro_torch.obs import MetricsRegistry, StatsDict, as_tracer
 from repro_torch.obs.metrics import ENGINE_STATS
 
 from .prefix_cache import PrefixCache
 from .spec_decode import DraftModelDrafter, PromptLookupDrafter
 
-_NOT_PORTED = "not yet ported, see ROADMAP.md Queue 1"
+_MESH_NEXT = "is not ported yet, see ROADMAP.md Queue 1 item 5"
+
+
+def check_mesh_serving(cfg: ModelConfig, kv_layout: str, spec_decode) -> None:
+    """Raise NotImplementedError for what a mesh does not serve yet: the
+    slab layout (its sequence-sharded KV needs `distributed.decode`'s
+    combine inside the engine), the draft-model drafter (a slab cache) and
+    every family but dense and vlm."""
+    if cfg.family not in MESH_FAMILIES:
+        raise NotImplementedError(f"the {cfg.family} family on a mesh {_MESH_NEXT}")
+    if kv_layout != "paged":
+        raise NotImplementedError(f"kv_layout={kv_layout!r} on a mesh {_MESH_NEXT}")
+    if isinstance(spec_decode, str) and spec_decode == "draft":
+        raise NotImplementedError(f"spec_decode='draft' on a mesh {_MESH_NEXT}")
 
 
 @dataclass
@@ -205,13 +236,25 @@ class ServingEngine:
         size must be `page_size` and its pools must live on `device`.
         device: where the KV and the model run (None = the CUDA device);
         `params` must already live there.
-        mesh is the JAX engine's option that is not ported yet."""
+        mesh: a (data, model) `DeviceMesh` (`launch.mesh.make_serving_mesh`)
+        over a started default process group: the paged layout of the
+        dense and vlm families on the mesh. `params` are the full
+        parameters (or `shard_params`' shards); the engine's device is the
+        rank's (`launch.mesh.mesh_device`), and `device` must be None."""
         if kv_layout not in ("paged", "slab"):
             raise ValueError(f"kv_layout must be 'paged' or 'slab', got {kv_layout!r}")
-        if mesh is not None:
-            raise NotImplementedError(f"mesh serving is {_NOT_PORTED}")
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self._mesh = None
+        if mesh is not None:
+            check_mesh_serving(cfg, kv_layout, spec_decode)
+            if device is not None:
+                raise ValueError("on a mesh the engine runs on the rank's device; "
+                                 "pass device=None")
+            self.device = mesh_device(mesh)
+            params = shard_params(cfg, params, mesh, device=self.device)
+            self._mesh = MeshRank(params)
+        else:
+            self.device = resolve_device(device)
         self.params = params
         self.slots = slots
         self.max_len = max_len
@@ -312,6 +355,8 @@ class ServingEngine:
                     num_pages = (slots + 4) * self.pages_per_slot + 1
                 self.alloc = PageAllocator(cfg, num_pages, self.page_size,
                                            device=self.device)
+                if mesh is not None:
+                    self.alloc.shard_pools(mesh)
             # the dense paged path reads and writes the sink through scratch
             # pages; MLA gathers views and writes their blocks back itself
             self._sink_pages = "k" in self.alloc.pools
@@ -485,7 +530,8 @@ class ServingEngine:
                 self.cfg, self.params,
                 torch.as_tensor([chunk], dtype=torch.int64, device=self.device),
                 lpos, true_clen, self.alloc.pools, ctx, state=state,
-                image_embeds=self._image_embeds() if with_images else None)
+                image_embeds=self._image_embeds() if with_images else None,
+                mesh=self._mesh)
             sink_take(self.alloc.pools, winner)
             self.stats["prefill_invocations"] += 1
             self.stats["prefill_chunks"] += 1
@@ -743,7 +789,8 @@ class ServingEngine:
                 table, write_ids = self._ids(table), self._ids(write_ids)
             pos = self.cache["pos"]
             logits = decode_step(self.cfg, self.params, self._tokens, pos,
-                                 self.alloc.pools, table, write_ids, state=self.cache)
+                                 self.alloc.pools, table, write_ids, state=self.cache,
+                                 mesh=self._mesh)
             sink_take(self.alloc.pools, winner)
             self.cache["pos"] = pos + 1
         else:
@@ -756,7 +803,7 @@ class ServingEngine:
         self.stats["decode_steps"] += 1
         self.stats["decode_slot_steps"] += len(self.active)
         self.stats["max_live"] = max(self.stats["max_live"], len(self.active))
-        nxt = torch.argmax(logits[:, 0, :], dim=-1).cpu().numpy()
+        nxt = self._greedy(logits[:, 0, :]).cpu().numpy()
         for slot, req in list(self.active.items()):
             tok = int(nxt[slot])
             req.out.append(tok)
@@ -878,7 +925,7 @@ class ServingEngine:
                 self.cfg, self.params,
                 torch.as_tensor(toks, device=self.device), self.cache["pos"],
                 self.alloc.pools, ctx, wpages, woffs, state=self.cache, ckpts=ckpts,
-                block0s=b0s)
+                block0s=b0s, mesh=self._mesh)
             sink_take(self.alloc.pools, winner)
         else:
             logits, self.cache = verify_chunk_slab(
@@ -890,7 +937,7 @@ class ServingEngine:
         self.stats["decode_slot_steps"] += len(live)
         self.stats["max_live"] = max(self.stats["max_live"], len(live))
 
-        Y = torch.argmax(logits, dim=-1).cpu().numpy()        # (slots, C)
+        Y = self._greedy(logits).cpu().numpy()        # (slots, C)
         new_pos = pos_h.copy()
         restore = {}                    # slot -> tokens kept (Mamba1 rollback)
         for s in live:
@@ -934,6 +981,12 @@ class ServingEngine:
                                             device=self.device)
         self._pos_h = new_pos
         self._note_kv_bytes()
+
+    def _greedy(self, logits):
+        """The greedy token of each row of a batched step's logits; on a
+        mesh the rank's rows, all-gathered over `data` into every slot's."""
+        tok = torch.argmax(logits, dim=-1)
+        return tok if self._mesh is None else self._mesh.rows_cat(tok, self.slots)
 
     def _restore_ckpt_rows(self, ckpts: dict, keeps: dict):
         """Batched Mamba1 rollback (the JAX engine's `_restore_ckpt_rows`):

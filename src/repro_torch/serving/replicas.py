@@ -39,10 +39,12 @@ import time
 from collections import deque
 from typing import Optional, Union
 
+from repro_torch.distributed.sharding import shard_params
+from repro_torch.launch.mesh import mesh_device
 from repro_torch.models.cache_ops import PageAllocator, PagePoolExhausted
 from repro_torch.models.config import ModelConfig
 
-from .engine import RunTruncated, ServingEngine
+from .engine import RunTruncated, ServingEngine, check_mesh_serving
 from .prefix_cache import PrefixCache
 
 # stats aggregated as max over replicas; every other counter sums
@@ -84,7 +86,7 @@ class ReplicaGroup:
         num_pages: shared-pool capacity (default: every replica's default
         allotment); per-replica capacity when share_kv_pool=False.
         device: where the shared pool and every replica run (None = the
-        CUDA device). mesh= is not ported yet and raises.
+        CUDA device; on a mesh the rank's device, and device must be None).
         Remaining kwargs (spec_decode, chunk_size, ...) pass through to
         every `ServingEngine`."""
         if replicas < 1:
@@ -101,14 +103,19 @@ class ReplicaGroup:
             self.prefix_cache = PrefixCache() if prefix_cache else None
         shared_alloc = None
         if mesh is not None:
-            raise NotImplementedError(
-                "mesh serving is not yet ported, see ROADMAP.md Queue 1")
+            check_mesh_serving(cfg, kv_layout, engine_kwargs.get("spec_decode", "off"))
+        alloc_device = device if mesh is None else mesh_device(mesh)
         if kv_layout == "paged" and share_kv_pool and replicas > 1:
             pages_per_slot = max_len // max(1, int(page_size))
             if num_pages is None:
                 num_pages = replicas * (slots + 4) * pages_per_slot + 1
             shared_alloc = PageAllocator(cfg, num_pages, page_size,
-                                         device=device)
+                                         device=alloc_device)
+            if mesh is not None:
+                shared_alloc.shard_pools(mesh)
+        if mesh is not None:
+            # shard once: every engine takes the same shards as they are
+            params = shard_params(cfg, params, mesh, device=alloc_device)
         self.engines = [
             ServingEngine(
                 cfg, params, slots=slots, max_len=max_len, queue_depth=None,

@@ -109,7 +109,8 @@ class DraftModelDrafter:
                 f"is a position reset); got {cfg.family!r}")
         if mesh is not None:
             raise NotImplementedError(
-                "mesh serving is not yet ported, see ROADMAP.md Queue 1")
+                "the draft model on a mesh is not ported yet (its slab cache needs "
+                "the sequence-sharded combine), see ROADMAP.md Queue 1 item 5")
         self.cfg = cfg
         self.params = params
         self.slots = slots

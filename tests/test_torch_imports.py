@@ -1,7 +1,7 @@
 """Package rules of the port: importing `repro_torch` and every one of its
-modules (the training and launch packages among them) loads no `jax` and
-no module of the JAX package `repro`; the
-jax-free modules it keeps as copies stay verbatim copies, and those copied
+modules (the training, launch and distributed packages and
+`launch.mesh` among them) loads no `jax` and no module of the JAX package
+`repro`; the jax-free modules it keeps as copies stay verbatim copies, and those copied
 with named edits differ from their originals in those lines only; the config
 registry serves qwen2.5-3b, qwen3-32b, nemotron-4-15b, deepseek-67b,
 llava-next-mistral-7b, falcon-mamba-7b, deepseek-v2-lite-16b, grok-1-314b,
@@ -35,7 +35,7 @@ COPIES = ["core/__init__.py", "core/difficulty.py", "core/executor.py",
           "extract/cascade.py", "extract/__init__.py",
           "live/__init__.py", "live/log.py", "live/corpus.py",
           "live/invalidate.py", "live/session.py",
-          "configs/shapes.py", "launch/flops.py"]
+          "configs/shapes.py", "launch/flops.py", "distributed/straggler.py"]
 
 # modules copied with a few named lines changed: (JAX lines dropped, port
 # lines added), import rewrites aside
@@ -47,26 +47,30 @@ EDITED = {
          "PEAK_FLOPS = 989e12      # bf16 / card",
          "HBM_BW = 3.35e12         # bytes/s / card"]),
     "serving/replicas.py": (
-        ["import jax", "",
+        ["import jax",
+         "",
+         "from .engine import RunTruncated, ServingEngine",
          "                 share_kv_pool: bool = True, **engine_kwargs):",
          "            shared_alloc = PageAllocator(cfg, num_pages, page_size)",
-         "            if mesh is not None:",
-         "                shared_alloc.shard_pools(mesh)",
-         "        if mesh is not None:",
          "            # shard once; each engine's device_put of already-sharded",
          "            # params is then a no-op instead of R host->device transfers",
          "            from repro.distributed.sharding import param_shardings",
          "            params = jax.device_put(params,",
          "                                    param_shardings(cfg, params, mesh))",
          "                **engine_kwargs)"],
-        ["                 share_kv_pool: bool = True, device=None, **engine_kwargs):",
+        ["from repro_torch.distributed.sharding import shard_params",
+         "from repro_torch.launch.mesh import mesh_device",
+         "from .engine import RunTruncated, ServingEngine, check_mesh_serving",
+         "                 share_kv_pool: bool = True, device=None, **engine_kwargs):",
          "        device: where the shared pool and every replica run (None = the",
-         "        CUDA device). mesh= is not ported yet and raises.",
+         "        CUDA device; on a mesh the rank's device, and device must be None).",
          "        if mesh is not None:",
-         "            raise NotImplementedError(",
-         "                \"mesh serving is not yet ported, see ROADMAP.md Queue 1\")",
+         "            check_mesh_serving(cfg, kv_layout, engine_kwargs.get(\"spec_decode\", \"off\"))",
+         "        alloc_device = device if mesh is None else mesh_device(mesh)",
          "            shared_alloc = PageAllocator(cfg, num_pages, page_size,",
-         "                                         device=device)",
+         "                                         device=alloc_device)",
+         "            # shard once: every engine takes the same shards as they are",
+         "            params = shard_params(cfg, params, mesh, device=alloc_device)",
          "                device=device, **engine_kwargs)"]),
     "live/index.py": (
         ["    clone = HashedEmbedder(dim=base.dim)",
@@ -88,8 +92,9 @@ def _modules():
 
 def test_port_imports_no_jax_and_no_repro():
     modules = list(_modules())
-    for package in ("repro_torch.training", "repro_torch.launch"):
+    for package in ("repro_torch.training", "repro_torch.launch", "repro_torch.distributed"):
         assert package in modules and any(m.startswith(package + ".") for m in modules)
+    assert "repro_torch.launch.mesh" in modules
     code = (
         "import importlib, sys\n"
         f"for m in {modules!r}:\n"

@@ -157,7 +157,8 @@ def test_replica_group_shared_prefix_cache_and_pool(weights):
 
 def test_shared_allocator_checks_and_refusals(weights):
     """The engine takes a shared allocator only at its page size and on its
-    device; the group refuses mesh= as the engine does."""
+    device; the group refuses what a mesh does not serve yet (the slab
+    layout) as the engine does, before it touches the mesh."""
     _, _, tcfg, tparams, _ = weights
     alloc = PageAllocator(tcfg, 9, 16, device="cpu")
     eng = ServingEngine(tcfg, tparams, device="cpu", page_allocator=alloc)
@@ -169,4 +170,4 @@ def test_shared_allocator_checks_and_refusals(weights):
     with pytest.raises(AssertionError, match="pools live on"):
         ServingEngine(tcfg, tparams, device="cpu", page_allocator=meta)
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
-        trep.ReplicaGroup(tcfg, tparams, device="cpu", mesh=object())
+        trep.ReplicaGroup(tcfg, tparams, device="cpu", kv_layout="slab", mesh=object())

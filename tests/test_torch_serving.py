@@ -133,9 +133,13 @@ def test_served_mini_swde_query_identical(weights):
 
 
 def test_unported_options_raise(weights):
+    """A mesh serves the paged layout; the slab layout and the draft model
+    on a mesh are the next slice's."""
     _, _, tcfg, tparams, _ = weights
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
-        ServingEngine(tcfg, tparams, device="cpu", mesh=object())
+        ServingEngine(tcfg, tparams, device="cpu", kv_layout="slab", mesh=object())
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
+        ServingEngine(tcfg, tparams, device="cpu", spec_decode="draft", mesh=object())
 
 
 def test_engine_lifecycle(weights):
