@@ -80,12 +80,22 @@ main's rows, kernels checks the launches the model paths captured):
              off (K1, K2, K3) and prompt lookup with the prefix cache (K2,
              K3, K4), each also on the card without a mesh: rows, ledger,
              engine counters (kv_bytes_peak included), every request's
-             tokens and the launch counts must be identical. Then the
-             sequence-sharded decode combine (`distributed.decode`) against
-             K5 at the slab path's decode shape in bf16 within TOL, and the
-             int8 pod gradient mean on a one-rank pod group against
-             _dq8(_q8(g)) exactly; the process group is destroyed. A failed
-             NCCL init or collective fails the phase;
+             tokens and the launch counts must be identical; on the first
+             REF_SLAB_DOCS documents the same for the slab layout (the
+             slab's sequence over `model`: its decode steps run the
+             sequence-sharded combine, whose leaf is K5s, where the card
+             alone runs K5) and the draft-model drafter (its slab on the
+             mesh too). Then the sequence-sharded decode combine
+             (`distributed.decode`, leaf K5s) against K5 at the slab
+             path's decode shape in bf16 within TOL, and the int8 pod
+             gradient mean on a one-rank pod group against _dq8(_q8(g))
+             exactly; the process group is destroyed. A failed NCCL init
+             or collective fails the phase. The ssm, moe, grok, hybrid
+             and whisper phases each end with their query on the first
+             REF_SLAB_DOCS documents on a 1x1 mesh of their own and on the
+             card alone, on the phase's cut weights, which must be
+             identical in the same way (`_family_mesh`, a line
+             "<phase>_mesh");
   train      with the served qwen2.5-3b weights freed, training
              (`repro_torch.training.Trainer`) at published width:
              qwen2.5-3b's first MAIN_LAYERS layers as float32 masters,
@@ -176,8 +186,13 @@ main's rows, kernels checks the launches the model paths captured):
              documents; K2, K3 and K4 must launch and K1 must stay at 0;
   kernels    every kernel of those paths (K1 paged decode attention, K2
              paged chunk-prefill attention, K3 L2 top-k, K4 paged verify
-             attention, K5 dense-cache decode attention, K6 MoE gating, K7
-             selective scan) on the inputs of one of its real launches (K6
+             attention, K5 dense-cache decode attention, K5s its
+             statistics on one shard of a sequence-sharded slab, K6 MoE
+             gating, K7 selective scan) on the inputs of one of its real
+             launches (K5s at the mesh phase's sequence-sharded decode
+             shape, the second of two shards, with rows whose length ends
+             before it, and K5 over the same shard's keys as its
+             yardstick; K6
              and K7: a prefill chunk and a verify round; K2 also the slab
              phase's largest whole-prompt launch and the vlm phase's first
              chunk with the image prefix, K2 and K4 also at grok's and
@@ -227,7 +242,7 @@ main's rows, kernels checks the launches the model paths captured):
              a forward; on the moe path the device time of MLA attention
              and of the expert products;
   reference  the same served query code at a small size (SMOKE configs,
-             float32, 20 legal documents) on the card and on the CPU's plain
+             float32, 10 legal documents) on the card and on the CPU's plain
              path: qwen2.5-3b in four modes (speculation and the prefix
              cache off; prompt lookup with the prefix cache; the slab layout
              with the prefix cache, whose snapshot, expand and token-by-
@@ -246,8 +261,8 @@ main's rows, kernels checks the launches the model paths captured):
              twice on the card with bit-identical pools), zamba2-2.7b in
              falcon-mamba-7b's four and whisper-medium in llava's three with a
              position table of REF_WHISPER_POSITIONS rows, its slots' cross
-             K/V card against CPU (these nine models' modes on the first
-             REF_NEW_DOCS = 10 documents, every slab mode on the first
+             K/V card against CPU (every mode on the first REF_NEW_DOCS =
+             10 documents, every slab mode on the first
              REF_SLAB_DOCS = 5, beside qwen2.5-3b's plain mode there,
              "off_few", which gives their rows); and the serving
              tier in three qwen2.5-3b modes (the frontend phase's two
@@ -286,6 +301,7 @@ the repository's `src/repro_torch` is not beside it.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import subprocess
@@ -659,7 +675,8 @@ def _launch_counts():
     from repro_torch.kernels import verify_attention as k4
     return {"K1": k15.launches, "K2": k2.launches, "K2nc": k2.bidirectional_launches,
             "K2nc_sm90": k2.bidirectional_sm90_launches, "K3": k3.launches,
-            "K4": k4.launches, "K5": k15.dense_launches, "K6": k6.launches, "K7": k7.launches}
+            "K4": k4.launches, "K5": k15.dense_launches, "K5s": k15.stats_launches,
+            "K6": k6.launches, "K7": k7.launches}
 
 
 def _zero_launches():
@@ -669,7 +686,8 @@ def _zero_launches():
     from repro_torch.kernels import ssm_scan as k7
     from repro_torch.kernels import topk_l2 as k3
     from repro_torch.kernels import verify_attention as k4
-    k15.launches = k15.dense_launches = k2.launches = k3.launches = k4.launches = 0
+    k15.launches = k15.dense_launches = k15.stats_launches = 0
+    k2.launches = k3.launches = k4.launches = 0
     k2.bidirectional_launches = k2.bidirectional_sm90_launches = k6.launches = k7.launches = 0
 
 
@@ -1251,11 +1269,23 @@ def phase_live(main_run) -> dict:
 # ------------------------------------------------------------------ mesh ---
 # The mesh phase: the card's machine has one GPU, so a 1x1 NCCL mesh, the
 # same code as any (data, model) mesh (every collective is called whatever
-# its group's size). K5's shape for the sequence-sharded leaf: the slab
-# path's decode launch in PERF.md (4 rows, 16 heads over 2, D 128, 1,024
-# positions, bf16).
+# its group's size; on it the slab's sequence is "over model", so its
+# decode steps run the sequence-sharded combine over K5s). The shape of
+# the sequence-sharded leaf: the slab path's decode launch in PERF.md (4
+# rows, 16 heads over 2, D 128, 1,024 positions, bf16), seen as the second
+# of two shards of 512 positions by K5s's own row (`_kernel_k5s`).
 MESH_SHAPE = (1, 1)
 MESH_MODES = {"off": {}, "spec": SPEC}
+# The slab layout (K5s where the card alone runs K5; without the prefix
+# cache, whose hits decode each unshared suffix token by token: ~8,000
+# one-token steps on these documents, each with the mesh's collectives)
+# and the draft-model drafter (the target as its own draft, its slab on
+# the mesh too), on the first REF_SLAB_DOCS documents; each family's query on the mesh runs in its
+# own phase, on that phase's cut weights (`_family_mesh`). On 5 documents
+# retrieval ranks below K3's 256-row gate (numpy, as on any device), so
+# those runs launch no K3; the two modes on FAMILY_DOCS do.
+MESH_NEW_MODES = {"slab": SLAB,
+                  "draft": {"prefix_cache": True, "spec_decode": "draft", "spec_k": 4}}
 # Every collective costs host time (~30 of them a forward on the mesh), so
 # the phase's time follows its forwards: prompts go in 256-token chunks,
 # half as many as DEEP_CHUNK's (with those the phase took 19.8-27.5 s on
@@ -1265,48 +1295,40 @@ MESH_K5 = (4, 1024, 2, 8, 128)
 MESH_GRAD = (2048, 11008)
 
 
-def _mesh_run(cfg, params, corpus, retriever, mesh, engine_kw) -> tuple:
+def _mesh_run(cfg, params, corpus, retriever, mesh, engine_kw, chunk=MESH_CHUNK) -> tuple:
     """The query on `corpus` through Session -> ServedExtractor ->
     ServingEngine over a fork of `retriever`, on `mesh` (the rank's device)
-    or on the card alone: (what must be identical, wall s, launches)."""
+    or on the card alone: (what must be identical, wall s, launches). A
+    draft-model mode drafts with the target itself."""
+    if engine_kw.get("spec_decode") == "draft":
+        engine_kw = {**engine_kw, "draft_model": (cfg, params)}
     session, engine, extractor, _ = _served_query(
         cfg, params, corpus, None if mesh is not None else "cuda", max_new=12,
-        chunk_size=MESH_CHUNK, retriever=retriever, mesh=mesh, **engine_kw)
+        chunk_size=chunk, retriever=retriever, mesh=mesh, **engine_kw)
     result, wall, launches = _timed_query(session)
     same = {"rows": result.rows, "ledger": _ledger(result), "engine": dict(engine.stats),
             "tokens": {r: q.out for r, q in engine.finished.items()}}
     return same, wall, launches
 
 
-def phase_mesh(seed: int, main_run, out_dir) -> dict:
-    """The served query on a 1x1 NCCL mesh: a one-rank process group
-    (a FileStore under --out, no network), `make_serving_mesh((1, 1))`,
-    and the query on the first FAMILY_DOCS legal documents on main's cut
-    qwen2.5-3b weights in two modes -- off (K1, K2, K3) and prompt lookup
-    with the prefix cache (K2, K3, K4) -- each on the mesh and on the card
-    alone, whose rows, ledger, engine counters and tokens must be
-    identical; then `make_seq_sharded_decode_attn` against K5
-    (`decode_attention`) at MESH_K5 in bf16 within TOL, and
-    `compressed_pod_mean` on a one-rank pod group against _dq8(_q8(g)).
-    The process group is destroyed at the end, whatever happened."""
+def _as_card(launches: dict) -> dict:
+    """A mesh run's launches as the card alone's: the slab's decode steps
+    run K5s on the mesh where the card runs K5."""
+    return {**launches, "K5": launches["K5"] + launches["K5s"], "K5s": 0}
+
+
+@contextlib.contextmanager
+def _nccl_mesh(out_dir):
+    """A one-rank NCCL process group on a FileStore under `out_dir` (or
+    build/), no network, and `make_serving_mesh(MESH_SHAPE)` over it;
+    yields (mesh, seconds to set up). The group is destroyed on exit,
+    whatever happened."""
     import os
 
     import torch
     import torch.distributed as dist
-    from torch.distributed.device_mesh import init_device_mesh
 
-    from repro_torch.configs import get_config
-    from repro_torch.data.corpus import make_legal_corpus
-    from repro_torch.distributed.compression import compressed_pod_mean, make_pod_grad_sync
-    from repro_torch.distributed.decode import make_seq_sharded_decode_attn
-    from repro_torch.index.retriever import TwoLevelRetriever
-    from repro_torch.kernels import decode_attention as k15
     from repro_torch.launch.mesh import make_serving_mesh
-    from repro_torch.training.optim import _dq8, _q8
-
-    cfg, params = _cut(get_config("qwen2.5-3b"), main_run[0])
-    full = make_legal_corpus(seed=1)
-    corpus = full.subset(sorted(full.docs)[:FAMILY_DOCS])
     store = Path(out_dir or ROOT / "build") / "mesh_filestore"
     store.parent.mkdir(parents=True, exist_ok=True)
     store.unlink(missing_ok=True)
@@ -1316,16 +1338,102 @@ def phase_mesh(seed: int, main_run, out_dir) -> dict:
                             world_size=1, device_id=torch.device("cuda", 0))
     try:
         mesh = make_serving_mesh(MESH_SHAPE)
-        init_s = time.perf_counter() - t0
-        retriever = TwoLevelRetriever(corpus, device="cuda")
-        modes, walls, launches, identical = {}, {}, {}, {}
-        for mode, kw in MESH_MODES.items():
-            alone, walls[f"{mode}/card"], launches[f"{mode}/card"] = _mesh_run(
-                cfg, params, corpus, retriever, None, kw)
-            on_mesh, walls[f"{mode}/mesh"], launches[f"{mode}/mesh"] = _mesh_run(
-                cfg, params, corpus, retriever, mesh, kw)
-            identical[mode] = {k: on_mesh[k] == alone[k] for k in alone}
-            modes[mode] = {"rows": len(on_mesh["rows"]), "engine": on_mesh["engine"]}
+        yield mesh, time.perf_counter() - t0
+    finally:
+        dist.destroy_process_group()
+        store.unlink(missing_ok=True)
+
+
+def _mesh_pairs(cfg, params, corpus, modes: dict, mesh, chunk=MESH_CHUNK) -> dict:
+    """Each mode's query on the card alone and on `mesh`: walls, launches,
+    the mesh run's rows and engine counters, and whether rows, ledger,
+    engine counters and tokens are identical."""
+    from repro_torch.index.retriever import TwoLevelRetriever
+    retriever = TwoLevelRetriever(corpus, device="cuda")
+    out = {"walls": {}, "launches": {}, "identical": {}, "modes": {}}
+    for mode, kw in modes.items():
+        alone, out["walls"][f"{mode}/card"], out["launches"][f"{mode}/card"] = _mesh_run(
+            cfg, params, corpus, retriever, None, kw, chunk)
+        on_mesh, out["walls"][f"{mode}/mesh"], out["launches"][f"{mode}/mesh"] = _mesh_run(
+            cfg, params, corpus, retriever, mesh, kw, chunk)
+        out["identical"][mode] = {k: on_mesh[k] == alone[k] for k in alone}
+        out["modes"][mode] = {"rows": len(on_mesh["rows"]), "engine": on_mesh["engine"]}
+    return out
+
+
+def _check_mesh_pairs(phase: str, pairs: dict) -> None:
+    """Identical results, rows, and the card alone's launches on the mesh
+    (K5s standing for K5, which the mesh runs no time)."""
+    bad = {m: v for m, v in pairs["identical"].items() if not all(v.values())}
+    if bad:
+        raise AssertionError(f"{phase}: the mesh engine differs from the card alone: {bad}")
+    if not all(m["rows"] for m in pairs["modes"].values()):
+        raise AssertionError(f"{phase}: a mesh query returned no rows")
+    for mode in pairs["modes"]:
+        card, mesh = pairs["launches"][f"{mode}/card"], pairs["launches"][f"{mode}/mesh"]
+        if _as_card(mesh) != card or card["K5s"]:
+            raise AssertionError(f"{phase}: {mode} launches on the mesh {mesh}, on the "
+                                 f"card alone {card}")
+
+
+def _family_mesh(phase: str, cfg, params) -> dict:
+    """A family's query on its phase's cut weights, on a 1x1 NCCL mesh and
+    on the card alone (the served settings, DEEP_CHUNK chunks, the first
+    REF_SLAB_DOCS documents): identical rows, ledger, engine counters,
+    tokens and launches. Emitted as its own line."""
+    from repro_torch.data.corpus import make_legal_corpus
+    full = make_legal_corpus(seed=1)
+    corpus = full.subset(sorted(full.docs)[:REF_SLAB_DOCS])
+    t0 = time.perf_counter()
+    with _nccl_mesh(None) as (mesh, init_s):
+        pairs = _mesh_pairs(cfg, params, corpus, {"spec": SPEC}, mesh, DEEP_CHUNK)
+    out = {"phase": f"{phase}_mesh", "mesh": list(MESH_SHAPE), "backend": "nccl",
+           "model": cfg.name, "layers": cfg.num_layers, "docs": len(corpus.docs),
+           "engine_options": {**SPEC, "chunk_size": DEEP_CHUNK},
+           "process_group_and_mesh_s": init_s, "seconds": time.perf_counter() - t0,
+           "query_wall_s": pairs["walls"], "launches": pairs["launches"],
+           "identical_to_the_card_alone": pairs["identical"], "modes": pairs["modes"]}
+    emit(out)
+    _check_mesh_pairs(f"{phase}_mesh", pairs)
+    return out
+
+
+def phase_mesh(seed: int, main_run, out_dir) -> dict:
+    """The served query on a 1x1 NCCL mesh: a one-rank process group
+    (a FileStore under --out, no network), `make_serving_mesh((1, 1))`,
+    and the query on main's cut qwen2.5-3b weights in four modes, each on
+    the mesh and on the card alone, whose rows, ledger, engine counters,
+    tokens and launches must be identical: on the first FAMILY_DOCS legal
+    documents off (K1, K2, K3) and prompt lookup with the prefix cache
+    (K2, K3, K4); on the first REF_SLAB_DOCS the slab layout (K2, and
+    K5s on the mesh where the card alone runs K5) and the draft-model
+    drafter with the prefix cache (K2, K4, and K5s for K5). Then
+    `make_seq_sharded_decode_attn` (its leaf K5s) against K5
+    (`decode_attention`) at MESH_K5 in bf16 within TOL, and
+    `compressed_pod_mean` on a one-rank pod group against _dq8(_q8(g)).
+    The process group is destroyed at the end, whatever happened."""
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.corpus import make_legal_corpus
+    from repro_torch.distributed.compression import compressed_pod_mean, make_pod_grad_sync
+    from repro_torch.distributed.decode import make_seq_sharded_decode_attn
+    from repro_torch.kernels import decode_attention as k15
+    from repro_torch.training.optim import _dq8, _q8
+
+    cfg, params = _cut(get_config("qwen2.5-3b"), main_run[0])
+    full = make_legal_corpus(seed=1)
+    docs = sorted(full.docs)
+    corpus = full.subset(docs[:FAMILY_DOCS])
+    few = full.subset(docs[:REF_SLAB_DOCS])
+    with _nccl_mesh(out_dir) as (mesh, init_s):
+        pairs = _mesh_pairs(cfg, params, corpus, MESH_MODES, mesh)
+        new = _mesh_pairs(cfg, params, few, MESH_NEW_MODES, mesh)
+        for key in pairs:
+            pairs[key].update(new[key])
+        walls, launches, identical, modes = (pairs[k] for k in ("walls", "launches",
+                                                                 "identical", "modes"))
 
         g = torch.Generator(device="cuda").manual_seed(seed + 7)
         B, S, hkv, G, hd = MESH_K5
@@ -1343,34 +1451,31 @@ def phase_mesh(seed: int, main_run, out_dir) -> dict:
         want = _dq8(*_q8(grad, 256), 256)
         compress_err = max(max_err(mean["w"], want), max_err(synced["w"], want))
         torch.cuda.synchronize()
-    finally:
-        dist.destroy_process_group()
-        store.unlink(missing_ok=True)
     out = {"phase": "mesh", "mesh": list(MESH_SHAPE), "backend": "nccl", "ranks": 1,
-           "model": cfg.name, "layers": cfg.num_layers, "docs": len(corpus.docs),
+           "model": cfg.name, "layers": cfg.num_layers,
+           "docs": {**{m: len(corpus.docs) for m in MESH_MODES},
+                    **{m: len(few.docs) for m in MESH_NEW_MODES}},
            "engine_options": {m: {**kw, "chunk_size": MESH_CHUNK}
-                              for m, kw in MESH_MODES.items()},
+                              for m, kw in {**MESH_MODES, **MESH_NEW_MODES}.items()},
            "process_group_and_mesh_s": init_s, "query_wall_s": walls,
-           "launches": {m: {k: n[k] for k in ("K1", "K2", "K3", "K4")}
+           "launches": {m: {k: n[k] for k in ("K1", "K2", "K3", "K4", "K5", "K5s")}
                         for m, n in launches.items()},
            "identical_to_the_card_alone": identical, "modes": modes,
            "seq_sharded_decode_vs_k5": {"shape": list(MESH_K5), "dtype": "bfloat16",
                                         "max_abs_err": decode_err, "tol": TOL["bfloat16"]},
            "compressed_pod_mean_vs_q8": {"shape": list(MESH_GRAD), "max_abs_err": compress_err}}
     emit(out)
-    if not all(all(v.values()) for v in identical.values()):
-        raise AssertionError(f"mesh: the mesh engine differs from the card alone: {identical}")
-    if not all(modes[m]["rows"] for m in modes):
-        raise AssertionError("mesh: the query returned no rows")
-    if launches["off/mesh"] != launches["off/card"] or \
-            launches["spec/mesh"] != launches["spec/card"]:
-        raise AssertionError(f"mesh: kernel launches differ from the card alone: {launches}")
+    _check_mesh_pairs("mesh", pairs)
     missing = [k for k in ("K1", "K2", "K3") if launches["off/mesh"][k] <= 0] + \
-        [f"spec {k}" for k in ("K2", "K3", "K4") if launches["spec/mesh"][k] <= 0]
-    if missing or launches["spec/mesh"]["K1"]:
+        [f"spec {k}" for k in ("K2", "K3", "K4") if launches["spec/mesh"][k] <= 0] + \
+        [f"slab {k}" for k in ("K2", "K5s") if launches["slab/mesh"][k] <= 0] + \
+        [f"draft {k}" for k in ("K2", "K4", "K5s") if launches["draft/mesh"][k] <= 0]
+    if missing or launches["spec/mesh"]["K1"] or launches["slab/mesh"]["K5"] or \
+            launches["draft/mesh"]["K5"]:
         raise AssertionError(f"mesh: kernels of the path {launches}")
-    if modes["spec"]["engine"]["prefix_hits"] <= 0 or modes["spec"]["engine"]["spec_rounds"] <= 0:
-        raise AssertionError("mesh: the prompt-lookup mode had no prefix hit or verify round")
+    if modes["spec"]["engine"]["prefix_hits"] <= 0 or modes["spec"]["engine"]["spec_rounds"] <= 0 \
+            or modes["draft"]["engine"]["spec_rounds"] <= 0:
+        raise AssertionError("mesh: a mode had no prefix hit or no verify round")
     if decode_err > TOL["bfloat16"] or compress_err != 0.0:
         raise AssertionError(f"mesh: sequence-sharded decode {decode_err} against K5, "
                              f"compressed pod mean {compress_err} against _dq8(_q8(g))")
@@ -1445,6 +1550,7 @@ def phase_ssm(seed: int, captures: dict, main_result) -> tuple:
                              f"chunk and verify forwards of {cfg.num_layers} layers")
     if st["prefix_hits"] <= 0:
         raise AssertionError("ssm: no prefix hit")
+    out["mesh"] = _family_mesh("ssm", cfg, params)
     return out, (session, extractor)
 
 
@@ -1521,6 +1627,7 @@ def phase_moe(seed: int, captures: dict, main_result) -> tuple:
                              f"chunk and verify forwards of {n_moe} MoE layers")
     if st["prefix_hits"] <= 0:
         raise AssertionError("moe: no prefix hit")
+    out["mesh"] = _family_mesh("moe", cfg, params)
     return out, (session, extractor)
 
 
@@ -1740,6 +1847,7 @@ def _family_phase(phase: str, arch: str, n_layers: int, seed: int, captures: dic
     stray = {k: launches[k] for k in ("K1", "K7") if launches[k]}
     if stray:
         raise AssertionError(f"{phase}: K1 or K7 launched: {launches}")
+    out["mesh"] = _family_mesh(phase, cfg, params)
     return out, (session, extractor)
 
 
@@ -1795,7 +1903,7 @@ def _smoke_result(seed: int, corpus, device):
 def phase_dense_family(seed: int) -> dict:
     """The query on qwen3-32b, nemotron-4-15b and deepseek-67b at their
     published widths, each cut to its first DENSE_LAYERS layers, with the
-    served settings, on the reference phase's 20 legal documents."""
+    served settings, on the first 20 legal documents."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.data.corpus import make_legal_corpus
@@ -2164,6 +2272,7 @@ def phase_kernels(captures: dict, launches: dict) -> list:
     rows += [_k4_row(captures[f"K4_{p}"].args, launches[f"K4_{p}"], f" [{name}]")
              for p, name in (("grok", "grok"), ("hybrid", "zamba2"))]
     rows.append(_kernel_k5(captures, launches, edges))
+    rows.append(_kernel_k5s(launches))
     rows.append(_k5_row(*captures["K5_whisper_cross"].args, launches["K5_whisper"],
                         " [whisper cross decode]"))
     rows += _kernel_k2nc(captures, launches, edges)
@@ -2764,6 +2873,95 @@ def _k5_row(q, kc, vc, lens, launches: int, variant: str) -> dict:
         device_ms_method=DEVICE_MS_METHOD,
         library_call="F.scaled_dot_product_attention over the slab in (B, H, S, D) "
                      "with a per-row length mask",
+        bound_ms=b_ms, bound_by=b_by)
+
+
+def _kernel_k5s(launches: dict) -> dict:
+    """K5s, the sequence-sharded decode's leaf, at MESH_K5 in bf16: q (4,
+    16, 128), the cache's second half as one rank's shard (start 512, 512
+    positions), lengths [1,024, 517, 33, 1], so rows 3 and 4 end before the
+    shard (m = -inf, l = 0 and acc = 0 asserted). Its error: the largest of
+    m's, acc / l's (the output the combine forms on one shard) and l's
+    relative error against `decode_attention_stats_plain`, in bf16 and in
+    float32. Library yardstick: `aten._scaled_dot_product_efficient_attention`
+    over the same shard, its KV heads repeated outside the timing and the
+    lengths as an additive -inf mask, with `compute_log_sumexp`: it returns
+    (acc / l, m + log l) a row, the pair the cross-shard combine could
+    take in place of (m, l, acc) (the rows that end before the shard aside,
+    whose statistics the combine must read as no keys). K5 over the same
+    shard's keys (lengths - start), the same bytes read, which writes
+    acc / l in place of the statistics, is timed beside it. Where the
+    library call does not run on this card, its error stands in the row
+    in place of its times."""
+    import torch
+    from repro_torch.kernels import decode_attention as k15
+    B, S, hkv, G, hd = MESH_K5
+    start, S_loc = S // 2, S - S // 2
+    g = torch.Generator(device="cuda").manual_seed(11)
+    q = torch.randn((B, hkv * G, hd), generator=g, device="cuda").bfloat16()
+    kc = torch.randn((B, S_loc, hkv, hd), generator=g, device="cuda").bfloat16()
+    vc = torch.randn((B, S_loc, hkv, hd), generator=g, device="cuda").bfloat16()
+    lens = torch.tensor([S, start + 5, 33, 1], dtype=torch.int32, device="cuda")
+    live = lens > start
+
+    def err(q_, kc_, vc_) -> float:
+        m, l, acc = k15.decode_attention_stats(q_, kc_, vc_, lens, start)
+        pm, pl, pacc = k15.decode_attention_stats_plain(q_, kc_, vc_, lens, start)
+        if not (torch.isneginf(m[~live]).all() and (l[~live] == 0).all()
+                and (acc[~live] == 0).all()):
+            raise AssertionError("K5s: a length that ends before the shard must give "
+                                 "-inf, 0 and zeros")
+        out, pout = acc[live] / l[live][..., None], pacc[live] / pl[live][..., None]
+        return max(max_err(m[live], pm[live]), max_err(out, pout),
+                   float((l[live] / pl[live] - 1).abs().max()))
+
+    vis = torch.clamp(lens.long() - start, 0, S_loc)
+    H = hkv * G
+    nbytes = (2 * int(vis.sum()) * hkv * hd + B * H * hd) * q.element_size() \
+        + B * H * (hd + 2) * 4 + B * 4
+    b_ms, b_by = bound(nbytes, 4 * int(vis.sum()) * H * hd, "bfloat16")
+    local = torch.clamp(lens - start, min=0).to(torch.int32)
+
+    def kernel():
+        return k15.decode_attention_stats(q, kc, vc, lens, start)
+
+    def k5():
+        return k15.decode_attention(q, kc, vc, local)
+
+    qr = q[:, :, None]                                       # (B, H, 1, hd)
+    kr = kc.repeat_interleave(G, dim=2).transpose(1, 2).contiguous()
+    vr = vc.repeat_interleave(G, dim=2).transpose(1, 2).contiguous()
+    dead = start + torch.arange(S_loc, device="cuda")[None, :] >= lens[:, None]
+    mask = torch.zeros((B, H, 1, S_loc), dtype=q.dtype, device="cuda") \
+        .masked_fill_(dead[:, None, None, :], float("-inf"))
+
+    def library():
+        return torch.ops.aten._scaled_dot_product_efficient_attention(qr, kr, vr, mask, True)
+    try:
+        library()
+        torch.cuda.synchronize()
+        lib = dict(library_ms=cuda_ms(library), library_device_ms=device_ms(library),
+                   library_call="aten._scaled_dot_product_efficient_attention over the "
+                                "shard with a length mask, compute_log_sumexp=True")
+    except RuntimeError as exc:
+        lib = dict(library_ms=None, library_device_ms=None,
+                   library_call=f"aten._scaled_dot_product_efficient_attention: {exc}"[:200])
+    return dict(
+        name="dense_decode_attention_stats", route="cuda",
+        source="src/repro_torch/kernels/csrc/dense_decode_attention_stats.cu",
+        core="src/repro_torch/kernels/csrc/paged_attention.cuh",
+        replaces="src/repro/distributed/decode.py:33 (the jnp body of _partial_attn: "
+                 "no Pallas kernel)",
+        launches=launches["K5s"],
+        shape=f"q{tuple(q.shape)} shard{tuple(kc.shape)} start {start} lengths "
+              f"{lens.tolist()} bfloat16",
+        max_abs_err=err(q, kc, vc), tol=TOL["bfloat16"],
+        max_abs_err_float32=err(q.float(), kc.float(), vc.float()),
+        tol_float32=TOL["float32"],
+        ms=cuda_ms(kernel),
+        plain_ms=cuda_ms(lambda: k15.decode_attention_stats_plain(q, kc, vc, lens, start)),
+        device_ms=device_ms(kernel), device_ms_method=DEVICE_MS_METHOD, **lib,
+        k5_same_shard_ms=cuda_ms(k5), k5_same_shard_device_ms=device_ms(k5),
         bound_ms=b_ms, bound_by=b_by)
 
 
@@ -3488,12 +3686,11 @@ def _reference_models() -> dict:
 def _reference_docs(arch: str, mode: str) -> int:
     """How many of the legal corpus's first documents a mode serves:
     REF_SLAB_DOCS for every slab mode and qwen2.5-3b's "off_few" (the slab
-    modes' plain rows), 20 for the first three models' other modes,
-    REF_NEW_DOCS for every mode of the others."""
-    first = ("qwen2.5-3b", "falcon-mamba-7b", "deepseek-v2-lite-16b")
+    modes' plain rows), REF_NEW_DOCS for every other mode (the first three
+    models' served 20 until the mesh phases' family runs needed the time)."""
     if mode in ("slab", "off_few"):
         return REF_SLAB_DOCS
-    return 20 if arch in first else REF_NEW_DOCS
+    return REF_NEW_DOCS
 
 
 def reference_runs(seed: int, device: str) -> dict:
@@ -3510,7 +3707,7 @@ def reference_runs(seed: int, device: str) -> dict:
     from repro_torch.models import init_params
 
     full = make_legal_corpus(seed=1)
-    docs = {n: full.subset(sorted(full.docs)[:n]) for n in (20, REF_NEW_DOCS, REF_SLAB_DOCS)}
+    docs = {n: full.subset(sorted(full.docs)[:n]) for n in (REF_NEW_DOCS, REF_SLAB_DOCS)}
     runs, states, pools, gating, seconds = {}, {}, {}, {}, {}
     for arch, modes in _reference_models().items():
         cfg = get_smoke_config(arch).replace(vocab_size=lm_data.VOCAB)
@@ -3561,7 +3758,7 @@ def reference_runs(seed: int, device: str) -> dict:
     training = training_runs(seed, device)
     seconds[f"training/{device}"] = time.perf_counter() - t0
     return {"runs": runs, "states": states, "pools": pools, "gating": gating,
-            "seconds": seconds, "tier": _tier_modes(seed, docs[20], device),
+            "seconds": seconds, "tier": _tier_modes(seed, docs[REF_NEW_DOCS], device),
             "training": training}
 
 
@@ -3823,8 +4020,8 @@ def phase_reference(seed: int, cpu_half) -> dict:
     zamba2-2.7b in falcon-mamba-7b's four and whisper-medium in grok's
     three (with REF_WHISPER_POSITIONS learned positions). Every slab mode
     runs on the first REF_SLAB_DOCS documents, beside qwen2.5-3b's plain
-    mode there ("off_few"), every other mode of the last seven models on
-    the first REF_NEW_DOCS, the rest on 20. Falcon-mamba-7b's and zamba2-2.7b's per-slot
+    mode there ("off_few"), every other mode, the serving tier's three too,
+    on the first REF_NEW_DOCS. Falcon-mamba-7b's and zamba2-2.7b's per-slot
     recurrent state, and whisper-medium's per-slot cross K/V, after the
     query must also agree across the devices to STATE_TOL:
     with random SMOKE weights the skip path D * x dominates each block, so
@@ -3903,7 +4100,7 @@ def phase_reference(seed: int, cpu_half) -> dict:
     st = {f"{a}/{m}": runs[a, m, "cuda"][4] for a, m in keys}
     training = _compare_training(card["training"]["modes"], cpu["training"]["modes"])
     crash = card["training"]["crash_resume"]
-    out = {"phase": "reference", "docs": 20, "docs_newest_modes": REF_NEW_DOCS,
+    out = {"phase": "reference", "docs": REF_NEW_DOCS,
            "training": training, "training_tol": TRAIN_REF_TOL,
            "crash_resume_on_the_card": crash,
            "cpu_half": f"a spawned process with {CPU_REFERENCE_THREADS} torch threads, "
@@ -4003,8 +4200,8 @@ PHASES = ("main", "spec", "slab", "draft", "frontend", "cascade", "live", "mesh"
 NEEDS = {**{p: ("main",) for p in ("spec", "slab", "frontend", "cascade", "live", "mesh",
                                    "ssm", "moe")},
          "draft": ("main", "slab"),
-         "kernels": ("main", "spec", "slab", "draft", "train", "ssm", "moe", "vlm", "grok",
-                     "hybrid", "whisper")}
+         "kernels": ("main", "spec", "slab", "draft", "mesh", "train", "ssm", "moe", "vlm",
+                     "grok", "hybrid", "whisper")}
 
 
 def _phases(arg: str) -> set:
@@ -4066,7 +4263,7 @@ def main() -> int:
                            "cached": _build.build_info["cached"], "ptxas": ptxas[:12],
                            "ptxas_core": core_ptxas(_build.build_info.get("ptxas", ""),
                                                     ("PagedVerify", "DenseDecode",
-                                                     "Bidirectional")),
+                                                     "DenseDecodeStats", "Bidirectional")),
                            "ptxas_k2nc_sm90": sm90_ptxas(_build.build_info.get("ptxas", "")),
                            "ptxas_scan": scan_ptxas(_build.build_info.get("ptxas", "")),
                            "ptxas_k3_k6": gating_topk_ptxas(_build.build_info.get("ptxas", ""))}
@@ -4174,6 +4371,7 @@ def main() -> int:
             launches = {**report["main"]["launches"], "K4": report["spec"]["launches"]["K4"],
                         "K5": report["draft"]["launches"]["K5"],
                         "K5_slab": report["slab"]["launches"]["K5"],
+                        "K5s": sum(n["K5s"] for n in report["mesh"]["launches"].values()),
                         "K2_slab": report["slab"]["launches"]["K2"],
                         "K6_moe": report["moe"]["launches"]["K6"],
                         **{f"{k}_{p}": report[p]["launches"][k]

@@ -14,16 +14,18 @@ The wire carries O(B*H*head_dim) -- independent of S. A fully masked row
 (length 0) gives zeros, as in the JAX package.
 
 Composition: `make_seq_sharded_decode_attn(mesh)` returns an attn_impl for
-`models.decode_step_slab` / `layers.attn_decode_apply_slab`. The JAX body
-is jnp, not a Pallas kernel, so the per-shard leaf here is plain PyTorch;
-a K5 variant that returns its softmax statistics would take its place
-(ROADMAP, later kernel work).
+`models.decode_step_slab` / `layers.attn_decode_apply_slab`; the serving
+engine plugs it in on a mesh whose slab shards the sequence. The per-shard
+leaf is kernel K5s (`kernels.decode_attention.decode_attention_stats`):
+on a CUDA tensor K5's core over the shard, merged into the shard's float32
+(m, l, acc); on a CPU tensor its plain version.
 """
 from __future__ import annotations
 
 import torch
 import torch.distributed as dist
 
+from repro_torch.kernels import decode_attention as _k5
 from repro_torch.launch.mesh import axes_group, axis_names, axis_rank, axis_size
 
 
@@ -31,26 +33,24 @@ def _partial_attn(group, idx, q, k_shard, v_shard, length):
     """Local partial attention + combine. q: (B,1,Hkv,G,hd), this rank's
     batch rows; k/v_shard: (B, S_loc, Hkv, hd) = this rank's sequence
     shard, number `idx` of the sharded sequence dim; length: an int, a 0-d
-    tensor or (B,)."""
-    hd = q.shape[-1]
-    scale = hd ** -0.5
-    s_loc = k_shard.shape[1]
-    start = idx * s_loc
-    s = torch.einsum("bqhgd,bshd->bhgqs", q.float(), k_shard.float()) * scale
-    pos = start + torch.arange(s_loc, device=q.device)
-    lengthv = torch.as_tensor(length, device=q.device)
-    ok = (pos[None, :] < lengthv[:, None]) if lengthv.ndim else (pos < lengthv)[None, :]
-    s = s.masked_fill(~ok[:, None, None, None, :], float("-inf"))
-    m = s.amax(dim=-1)
-    dist.all_reduce(m, op=dist.ReduceOp.MAX, group=group)
-    m_safe = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
-    p = torch.where(torch.isfinite(s), torch.exp(s - m_safe[..., None]), torch.zeros_like(s))
-    l = p.sum(dim=-1)
-    acc = torch.einsum("bhgqs,bshd->bhgqd", p.to(v_shard.dtype), v_shard).contiguous()
+    tensor or (B,). The shard's statistics come from K5s, relative to its
+    own max; the combine rescales them to the global max. Returns
+    (B,1,Hkv,G,hd) in the cache's dtype."""
+    B, _, Hkv, G, hd = q.shape
+    m, l, acc = _k5.decode_attention_stats(q.reshape(B, Hkv * G, hd), k_shard, v_shard,
+                                           length, idx * k_shard.shape[1])
+    m_star = m.clone()
+    dist.all_reduce(m_star, op=dist.ReduceOp.MAX, group=group)
+    m_safe = torch.where(torch.isfinite(m_star), m_star, torch.zeros_like(m_star))
+    w = torch.where(torch.isfinite(m), torch.exp(m - m_safe), torch.zeros_like(m))
+    l = l * w
+    acc = acc * w[..., None]
     dist.all_reduce(l, op=dist.ReduceOp.SUM, group=group)
     dist.all_reduce(acc, op=dist.ReduceOp.SUM, group=group)
-    out = acc / torch.clamp(l, min=1e-30)[..., None].to(acc.dtype)
-    return torch.movedim(out, 3, 1)          # (B,1,Hkv,G,hd)
+    # times the reciprocal, as K5's merge kernel divides: on one shard the
+    # weights are exp(0) = 1 and the output is K5's, bit for bit
+    out = (acc * (1.0 / torch.clamp(l, min=1e-30))[..., None]).to(v_shard.dtype)
+    return out.reshape(B, 1, Hkv, G, hd)
 
 
 def make_seq_sharded_decode_attn(mesh, axis="model", batch_axis: str | None = "data"):

@@ -44,6 +44,8 @@ from repro_torch.launch.mesh import (axes_group, axis_names, axis_rank, axis_siz
 from repro_torch.models.config import ModelConfig
 from repro_torch.tree import keystr, leaves, map_leaves, path_keys
 
+from .decode import make_seq_sharded_decode_attn
+
 FSDP = "data"
 TP = "model"
 
@@ -321,6 +323,21 @@ class MeshParams(dict):
         self.mesh = mesh
 
 
+def _local_leaf(cfg: ModelConfig, keys, t, spec, mesh):
+    """This rank's shard of one parameter. Mamba1's in_proj (d, 2 di) is
+    "ft" over the x | z halves: a contiguous slice of its columns would
+    give model rank r a whole half (or parts of both that are not its
+    channels), so it takes rank r's columns of the x half and the same
+    columns of the z half, side by side -- the conv, the scan and the gate
+    then all run on the rank's d_inner channels."""
+    if keys[-1] == "in_proj" and cfg.mamba_version == 1 and len(spec) == 2 \
+            and spec[1] == TP:
+        x, z = t.chunk(2, dim=1)
+        spec1 = (spec[0], TP)
+        return torch.cat([local_shard(x, spec1, mesh), local_shard(z, spec1, mesh)], dim=1)
+    return local_shard(t, spec, mesh)
+
+
 def shard_params(cfg: ModelConfig, params, mesh, device=None) -> MeshParams:
     """Cut a full parameter tree into this rank's shards under
     `param_specs`, on `device` (default: where the tensors are). Shards
@@ -328,9 +345,55 @@ def shard_params(cfg: ModelConfig, params, mesh, device=None) -> MeshParams:
     if isinstance(params, MeshParams):
         return params
     specs = param_specs(cfg, params, mesh)
-    local = map_leaves(lambda keys, index, t: local_shard(t, _at(specs, keys, index), mesh)
+    local = map_leaves(lambda keys, index, t: _local_leaf(cfg, keys, t, _at(specs, keys, index),
+                                                          mesh)
                        .to(device if device is not None else t.device), params)
     return MeshParams(local, specs, mesh)
+
+
+def serving_cache_specs(cfg: ModelConfig, cache: dict, mesh, batch_size: int) -> dict:
+    """The specs of a serving engine's per-slot state and slab on a mesh:
+    `cache_specs`, with two departures the port makes. The moe family's
+    rows replicate over `data` (K6 numbers every row of a call against one
+    capacity, so every rank runs every row: `MeshRank.split_rows`),
+    and the hybrid family's Mamba2 state keeps its channels whole (Mamba2
+    runs whole on every rank). The engine's `pos` replicates."""
+    specs = cache_specs(cfg, cache, mesh, batch_size)
+    out = {}
+    for k, spec in specs.items():
+        spec = list(spec)
+        if spec and cfg.family == "moe":
+            spec[1] = None
+        if k in ("conv", "ssm") and cfg.family == "hybrid":
+            spec = [e if e != TP else None for e in spec]
+        out[k] = tuple(spec)
+    return out
+
+
+def global_nbytes(tree: dict, specs: dict, mesh, seq_len: int | None = None) -> int:
+    """The bytes of the global tensors whose shards on this rank are the
+    tensors of `tree` under `specs` (a sharded tensor counts whole, as the
+    JAX package counts a sharded array). `seq_len` is the global length of
+    a trimmed prefix snapshot's sequence-sharded KV (its shards differ in
+    length from rank to rank)."""
+    total = 0
+    for k, t in tree.items():
+        if not torch.is_tensor(t):
+            continue
+        shape = list(t.shape)
+        for d, entry in enumerate(specs.get(k, ())):
+            if not _entry_axes(entry):
+                continue
+            if seq_len is not None and d == 2 and k in ("k", "v", "ckv", "krope"):
+                shape[d] = seq_len
+            else:
+                for a in _entry_axes(entry):
+                    shape[d] *= axis_size(mesh, a)
+        n = 1
+        for x in shape:
+            n *= x
+        total += n * t.element_size()
+    return total
 
 
 def _at(tree, keys, index):
@@ -359,36 +422,73 @@ class MeshRank:
       `make_constrain(mesh, B)`'s "hidden" spec (all rows where the batch
       replicates, as B = 1 prefill does), and `rows_cat` all-gathers a
       batch-sharded result's rows over `data`;
-    - `on_model(name, dim)` says whether the layers' leaf `name` has dim
-      `dim` over `model` (every layer of a stack has the same spec).
+    - `on_model(name, dim)` says whether the leaf `name` has dim `dim` over
+      `model`: a top-level leaf by its key ("embed"), a block's leaf by its
+      last two keys ("attn/wo", "mlp/w_down", "moe/w_down",
+      "shared/w_down", "mamba/x_proj"; every layer of a stack has the same
+      spec, and the stacks agree where they share such a path);
+    - `gather_whole` all-gathers every sharded dim (a leaf the port keeps
+      whole where JAX shards it: the hybrid family's Mamba2 blocks), and
+      `model_cat_dim` concatenates a `model`-sharded dim of an activation;
+    - the moe family's rows replicate over `data`, which then carries only
+      FSDP: every rank runs every row (`split_rows` False);
+    - `seq_shards` is (shards, this rank's shard) of the sequence of the
+      owner's slab of `slab_len` positions: (n_model, model_rank) where it
+      is over `model` (`cache_specs`: the KV's sequence where n_model
+      divides it), else (1, 0), as where the owner keeps no slab
+      (`slab_len` None: the paged layout, whose MLA page views run the
+      slab's functions whole); `seq_split` says which, and `seq_attn` is
+      then the sequence-sharded combine on this mesh
+      (`make_seq_sharded_decode_attn`), else None.
 
     Collectives run whatever the size of their group: a 1x1 mesh runs the
     same code as a 2x2 one."""
 
-    def __init__(self, params: MeshParams):
+    def __init__(self, cfg: ModelConfig, params: MeshParams, slab_len: int | None):
         mesh = params.mesh
         if axis_names(mesh) != (FSDP, TP):
             raise ValueError(f"a serving mesh has axes ('data', 'model'), got "
                              f"{axis_names(mesh)}")
         self.mesh = mesh
         self.specs = params.specs
+        self.split_rows = cfg.family != "moe"
         self.data = axes_group(mesh, FSDP)
         self.model = axes_group(mesh, TP)
         self.n_data, self.n_model = axis_size(mesh, FSDP), axis_size(mesh, TP)
         self.data_rank, self.model_rank = axis_rank(mesh, FSDP), axis_rank(mesh, TP)
-        # leaf name -> spec: the top-level leaves (embed, lm_head, ...), then
-        # the first layer's (every layer of a stack has the same)
+        self.seq_split = slab_len is not None and cfg.family != "ssm" \
+            and slab_len % self.n_model == 0
+        self.seq_shards = (self.n_model, self.model_rank) if self.seq_split else (1, 0)
+        self.seq_attn = make_seq_sharded_decode_attn(mesh) if self.seq_split else None
+        # leaf path -> spec: the top-level leaves by key (embed, lm_head,
+        # ...), then each stack's first layer by its last two keys
         self._specs = {}
         top = {k: v for k, v in self.specs.items() if not isinstance(v, list)}
-        blocks = self.specs.get("layers") or [{}]
-        for tree in (top, blocks[0]):
-            map_leaves(lambda keys, index, s: self._specs.__setitem__(keys[-1], s), tree)
+        map_leaves(lambda keys, index, s: self._specs.__setitem__("/".join(keys), s), top)
+        for stack in ("layers", "dense_layers", "enc_layers", "dec_layers", "shared_blocks",
+                      "lora"):
+            for block in self.specs.get(stack, [])[:1]:
+                map_leaves(lambda keys, index, s:
+                           self._specs.__setitem__("/".join(keys[-2:]), s), block)
 
     # parameters ------------------------------------------------------------
 
     def on_model(self, name: str, dim: int) -> bool:
         spec = self._specs.get(name, ())
         return dim < len(spec) and TP in _entry_axes(spec[dim])
+
+    def gather_whole(self, tree, specs):
+        """`gather`, then every `model`-sharded dim all-gathered too: the
+        whole leaves on every rank."""
+        tree = self.gather(tree, specs)
+
+        def whole(keys, index, t):
+            spec = _at(specs, keys, index)
+            for d, entry in enumerate(spec):
+                if TP in _entry_axes(entry):
+                    t = self._cat(t, d, self.model, self.n_model)
+            return t
+        return map_leaves(whole, tree)
 
     def _cat(self, t, dim, group, n):
         """The n ranks' t concatenated along `dim`, in group rank order: one
@@ -444,9 +544,31 @@ class MeshRank:
     def model_cat(self, x):
         return self._cat(x, x.ndim - 1, self.model, self.n_model)
 
+    def model_cat_dim(self, x, dim: int):
+        return self._cat(x, dim, self.model, self.n_model)
+
+    def model_slice(self, x, dim: int):
+        """This rank's part of dim `dim` of a whole activation, over `model`."""
+        n = x.shape[dim] // self.n_model
+        return x.narrow(dim, self.model_rank * n, n)
+
     def batch_split(self, B: int) -> bool:
+        if not self.split_rows:
+            return False
         spec = make_constrain(self.mesh, B)((B,), "hidden")
         return spec[0] is not None
+
+    def local_cache(self, cfg: ModelConfig, cache: dict, B: int) -> dict:
+        """This rank's shard of a full per-slot state or slab of B rows under
+        `serving_cache_specs`, as its own contiguous tensors."""
+        specs = serving_cache_specs(cfg, cache, self.mesh, B)
+        return {k: local_shard(a, specs[k], self.mesh) for k, a in cache.items()}
+
+    def local_row(self, row: int, B: int):
+        """Row `row` of a batch of B rows in this rank's rows, or None where
+        another `data` rank holds it."""
+        r = self.rows(B)
+        return row - r.start if r.start <= row < r.stop else None
 
     def rows(self, B: int) -> slice:
         if not self.batch_split(B):

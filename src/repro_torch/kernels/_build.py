@@ -35,6 +35,7 @@ _SIGNATURES = {
     "repro_chunk_prefill_attention": [_P] * 6 + [_I] * 11 + [_P],
     "repro_paged_verify_attention": [_P] * 7 + [_I] * 11 + [_P],
     "repro_dense_decode_attention": [_P] * 6 + [_I] * 9 + [_P],
+    "repro_dense_decode_attention_stats": [_P] * 7 + [_I] * 10 + [_P],
     "repro_bidirectional_attention": [_P] * 5 + [_I] * 11 + [_P],
     "repro_bidirectional_attention_sm90": [_P] * 4 + [_I] * 7 + [_P],
     "repro_ssm_scan": [_P] * 10 + [_I] * 7 + [_P],

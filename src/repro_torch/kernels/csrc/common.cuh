@@ -96,15 +96,20 @@ __device__ __forceinline__ void cp_async_wait() {
 // -inf. The merge rescales the spans to their common max and writes
 // acc / l in the output's dtype; a row whose spans all saw no key gets
 // zeros. One warp per row; the row index is the flat index of the output
-// row, so out[row * D + d].
+// row, so out[row * D + d]. With stats_ml (K5s, the statistics mode) it
+// writes the merged state instead: the common max and the rescaled
+// denominator to stats_ml[2 * row] and [2 * row + 1], and the rescaled
+// accumulator, not divided, to out (float32); a row that saw no key gets
+// -inf, 0 and zeros.
 //
 // The tag (an empty type per caller) names each caller's kernels in a
 // profile: repro::PagedDecode (K1), ChunkPrefill (K2), PagedVerify (K4),
-// DenseDecode (K5).
+// DenseDecode (K5), DenseDecodeStats (K5s).
 struct PagedDecode;
 struct ChunkPrefill;
 struct PagedVerify;
 struct DenseDecode;
+struct DenseDecodeStats;
 struct Bidirectional;
 
 namespace {  // one copy per translation unit: no kernel symbol is shared
@@ -116,7 +121,8 @@ constexpr int kMergeWarps = 4;    // rows per block: one warp a row
 template <class Tag, typename T, int COLS, int BATCH>
 __global__ void __launch_bounds__(kMergeWarps * 32)
     merge_spans_kernel(const float* __restrict__ part_ml, const float* __restrict__ part_acc,
-                       T* __restrict__ out, size_t rows, int D, int nparts) {
+                       T* __restrict__ out, size_t rows, int D, int nparts,
+                       float* __restrict__ stats_ml) {
   const int lane = threadIdx.x & 31;
   const size_t row = static_cast<size_t>(blockIdx.x) * kMergeWarps + (threadIdx.x >> 5);
   if (row >= rows) return;
@@ -140,7 +146,8 @@ __global__ void __launch_bounds__(kMergeWarps * 32)
 #pragma unroll 8
   for (int s = 0; s < nparts; ++s)
     if (ml[2 * s] != -INFINITY) l += ml[2 * s + 1] * expf(ml[2 * s] - m);
-  const float inv = 1.f / fmaxf(l, 1e-30f);   // no visible key: l == 0, a == 0
+  // no visible key: l == 0, a == 0; the statistics mode does not divide
+  const float inv = stats_ml ? 1.f : 1.f / fmaxf(l, 1e-30f);
   // each column sums its spans in span order, as a serial merge would
   float a[COLS];
 #pragma unroll
@@ -162,33 +169,38 @@ __global__ void __launch_bounds__(kMergeWarps * 32)
     const int d = lane + 32 * c;
     if (d < D) out[row * D + d] = from_float<T>(a[c] * inv);
   }
+  if (stats_ml && lane == 0) {
+    stats_ml[2 * row] = m;
+    stats_ml[2 * row + 1] = l;
+  }
 }
 
 template <class Tag, typename T, int COLS>
 void launch_merge(const float* part_ml, const float* part_acc, T* out, size_t rows, int D,
-                  int nparts, cudaStream_t stream) {
+                  int nparts, cudaStream_t stream, float* stats_ml) {
   const unsigned blocks = static_cast<unsigned>((rows + kMergeWarps - 1) / kMergeWarps);
   // Few spans (K2's whole-prompt launch: 2) take a 4-span batch: fewer
   // registers, more rows in flight; on an H100 that merge ran ~4 us faster
   // than with 16-span batches, which suit K1, K4 and K5 (16 spans a row).
   if (nparts <= 4)
     merge_spans_kernel<Tag, T, COLS, 4><<<blocks, kMergeWarps * 32, 0, stream>>>(
-        part_ml, part_acc, out, rows, D, nparts);
+        part_ml, part_acc, out, rows, D, nparts, stats_ml);
   else
     merge_spans_kernel<Tag, T, COLS, 16><<<blocks, kMergeWarps * 32, 0, stream>>>(
-        part_ml, part_acc, out, rows, D, nparts);
+        part_ml, part_acc, out, rows, D, nparts, stats_ml);
 }
 
 // Launch the merge of `rows` output rows (D <= 256) on `stream`; returns the
-// launch's error.
+// launch's error. stats_ml selects the statistics mode (T = float).
 template <class Tag, typename T>
 cudaError_t merge_spans(const float* part_ml, const float* part_acc, void* out, size_t rows,
-                        int D, int nparts, cudaStream_t stream) {
+                        int D, int nparts, cudaStream_t stream, float* stats_ml = nullptr) {
   T* o = static_cast<T*>(out);
-  if (D <= 32) launch_merge<Tag, T, 1>(part_ml, part_acc, o, rows, D, nparts, stream);
-  else if (D <= 64) launch_merge<Tag, T, 2>(part_ml, part_acc, o, rows, D, nparts, stream);
-  else if (D <= 128) launch_merge<Tag, T, 4>(part_ml, part_acc, o, rows, D, nparts, stream);
-  else if (D <= 256) launch_merge<Tag, T, 8>(part_ml, part_acc, o, rows, D, nparts, stream);
+  float* sm = stats_ml;
+  if (D <= 32) launch_merge<Tag, T, 1>(part_ml, part_acc, o, rows, D, nparts, stream, sm);
+  else if (D <= 64) launch_merge<Tag, T, 2>(part_ml, part_acc, o, rows, D, nparts, stream, sm);
+  else if (D <= 128) launch_merge<Tag, T, 4>(part_ml, part_acc, o, rows, D, nparts, stream, sm);
+  else if (D <= 256) launch_merge<Tag, T, 8>(part_ml, part_acc, o, rows, D, nparts, stream, sm);
   else return cudaErrorInvalidValue;
   return cudaGetLastError();
 }

@@ -82,6 +82,12 @@ struct PagedArgs {
   int B, C, H, Hkv, D, ps, nb, span;
   float scale;
   int key_limit = 0;    // > 0: every row sees the keys < key_limit, not the causal limit
+  // K5s: every span writes its state to the workspace, one span's too, and
+  // the merge writes the row's merged statistics -- max (base e) and
+  // denominator to stats_ml (B * C * H, 2), the unnormalised accumulator
+  // to `out` as float32 -- in place of the output
+  bool stats = false;
+  float* stats_ml = nullptr;
 };
 
 namespace {  // one copy per translation unit: no kernel symbol is shared
@@ -280,6 +286,7 @@ __global__ void __launch_bounds__(kPaThreads) paged_attention_kernel(const Paged
   const int r0 = (gridDim.x - 1 - blockIdx.x) * QB;  // the longest causal rows first
   const int nq = min(QB, NQ - r0);
   const int split = blockIdx.y, nparts = gridDim.y;
+  const bool direct = nparts == 1 && !a.stats;  // the block writes the output itself
   const int cap = a.nb * a.ps;
   const int k_begin = split * a.span;
   const int span_end = min(k_begin + a.span, cap);
@@ -323,7 +330,7 @@ __global__ void __launch_bounds__(kPaThreads) paged_attention_kernel(const Paged
       static_cast<int>(min(static_cast<long long>(span_end), row_limit(r0 + nq - 1)));
 
   if (k_begin >= k_end) {  // no row of the block sees a key of this span
-    if (nparts == 1) {      // ... nor any key at all: zeros
+    if (direct) {           // ... nor any key at all: zeros
       for (int e = tid; e < nq * a.D; e += kPaThreads)
         static_cast<T*>(a.out)[out_row(e / a.D) * a.D + e % a.D] = from_float<T>(0.f);
     } else {
@@ -447,7 +454,7 @@ __global__ void __launch_bounds__(kPaThreads) paged_attention_kernel(const Paged
     for (int h = 0; h < 2; ++h) {
       const int i = wrow + (lane >> 2) + 8 * h;
       if (i >= nq) continue;
-      if (nparts == 1) {    // the span is the whole row: its output, as the merge writes it
+      if (direct) {         // the span is the whole row: its output, as the merge writes it
         const float inv = 1.f / fmaxf(l[h], 1e-30f);
         T* dst = out + out_row(i) * a.D;
 #pragma unroll
@@ -516,12 +523,12 @@ __global__ void __launch_bounds__(kPaThreads) paged_attention_kernel(const Paged
       float v = 0.f;
 #pragma unroll
       for (int w = 0; w < KW; ++w) v += sacc[(w * 16 + i) * DP + d];
-      if (nparts == 1)
+      if (direct)
         out[out_row(i) * a.D + d] = from_float<T>(v * (1.f / fmaxf(sden[i], 1e-30f)));
       else
         a.part_acc[(out_row(i) * nparts + split) * a.D + d] = v;
     }
-    if (nparts > 1 && warp == 0 && t4 == 0) {
+    if (!direct && warp == 0 && t4 == 0) {
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int i = (lane >> 2) + 8 * h;
@@ -545,9 +552,12 @@ cudaError_t launch_core(const PagedArgs& a, int nsplit, cudaStream_t stream) {
   dim3 grid((rows + kPaRows / KW - 1) / (kPaRows / KW), nsplit, a.B * a.Hkv);
   kernel<<<grid, kPaThreads, smem, stream>>>(a);
   err = cudaGetLastError();
-  if (err != cudaSuccess || nsplit == 1) return err;  // one span: the core wrote `out`
-  return merge_spans<Tag, T>(a.part_ml, a.part_acc, a.out,
-                             static_cast<size_t>(a.B) * a.C * a.H, a.D, nsplit, stream);
+  if (err != cudaSuccess || (nsplit == 1 && !a.stats)) return err;  // the core wrote `out`
+  const size_t out_rows = static_cast<size_t>(a.B) * a.C * a.H;
+  if (a.stats)
+    return merge_spans<Tag, float>(a.part_ml, a.part_acc, a.out, out_rows, a.D, nsplit, stream,
+                                   a.stats_ml);
+  return merge_spans<Tag, T>(a.part_ml, a.part_acc, a.out, out_rows, a.D, nsplit, stream);
 }
 
 template <class Tag, typename T, int DP>

@@ -46,6 +46,18 @@ core's identity layout, so no table is made per call) -- planned by
 (row, KV head, span), four key groups. The walk is bounded by S (a slot
 that is not live keeps advancing its position, so its length can pass
 S); a zero length gives zeros, as K1.
+
+K5s is K5 on one shard of a sequence-sharded slab, the per-shard leaf of
+`repro_torch.distributed.decode` (the counterpart of the jnp body of
+`repro.distributed.decode._partial_attn`, which has no Pallas kernel):
+`decode_attention_stats(q, k_shard, v_shard, lengths, start)` returns the
+float32 softmax statistics (m, l, acc) of the shard's keys, which the
+caller combines across shards. CUDA source:
+`csrc/dense_decode_attention_stats.cu`, on K5's core: its C entry runs
+the core on the shard with the row limit lengths - start and sends every
+span, one span's too, through the shared merge kernel in its statistics
+mode, which writes the merged (m, l, acc) in place of acc / l. Bound: as
+K5, the shard's visible K/V bytes; its outputs are (B, H, D + 2) float32.
 """
 from __future__ import annotations
 
@@ -266,3 +278,69 @@ def decode_attention(q, k_cache, v_cache, lengths):
     _build.check(rc, "decode_attention")
     dense_launches += 1
     return out
+
+
+# ----------------------------------------------------------------- K5s --
+
+stats_launches = 0
+
+
+def decode_attention_stats_plain(q, k_shard, v_shard, lengths, start: int):
+    """Plain PyTorch version: one shard's masked softmax statistics. q (B,
+    H, D); shards (B, S, Hkv, D) holding global positions [start, start +
+    S); lengths int or (B,) global lengths. Returns float32 m (B, H), the
+    max of the scaled scores; l (B, H), the sum of exp(score - m); acc
+    (B, H, D), the exp-weighted sum of V. A row whose length ends at or
+    before `start` gets m = -inf, l = 0 and acc = 0."""
+    B, H, D = q.shape
+    S, Hkv = k_shard.shape[1], k_shard.shape[2]
+    G = H // Hkv
+    lens = _lengths_vector(lengths, B, q.device).long()
+    qg = q.reshape(B, Hkv, G, D).float()
+    s = torch.einsum("bhgd,bshd->bhgs", qg, k_shard.float()) * D ** -0.5
+    pos = start + torch.arange(S, device=q.device)
+    ok = (pos[None, :] < lens[:, None])[:, None, None, :]
+    s = s.masked_fill(~ok, float("-inf"))
+    m = s.amax(dim=-1)
+    m_safe = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    p = torch.where(ok, torch.exp(s - m_safe[..., None]), torch.zeros_like(s))
+    acc = torch.einsum("bhgs,bshd->bhgd", p, v_shard.float())
+    return m.reshape(B, H), p.sum(dim=-1).reshape(B, H), acc.reshape(B, H, D)
+
+
+def decode_attention_stats(q, k_shard, v_shard, lengths, start: int):
+    """q (B, H, D); shards (B, S, Hkv, D) in q's dtype, positions [start,
+    start + S) of the sequence; lengths int, 0-d or (B,) int32 (broadcast);
+    start an int >= 0 -> float32 (m (B, H), l (B, H), acc (B, H, D)). CPU
+    tensors take the plain version; CUDA tensors launch the kernel or
+    raise."""
+    global stats_launches
+    if q.device.type == "cpu":
+        return decode_attention_stats_plain(q, k_shard, v_shard, lengths, start)
+    if q.device.type != "cuda":
+        raise ValueError(f"decode_attention_stats: device {q.device}")
+    if int(start) < 0:
+        raise ValueError(f"decode_attention_stats: start {start}")
+    q = q.contiguous()
+    if not _aligned(q):
+        q = q.clone()
+    B, H, D = q.shape
+    lens = _lengths_vector(lengths, B, q.device)
+    _check_dense(q, k_shard, v_shard, lens)
+    S, Hkv = k_shard.shape[1], k_shard.shape[2]
+    ml = torch.empty((B, H, 2), dtype=torch.float32, device=q.device)
+    acc = torch.empty((B, H, D), dtype=torch.float32, device=q.device)
+    if B == 0:
+        return ml[..., 0], ml[..., 1], acc
+    plan = plan_spans(H // Hkv, B * Hkv, S)
+    ws = torch.empty((B * H * plan.nsplit * (D + 2),), dtype=torch.float32, device=q.device)
+    lib = _build.library()
+    rc = lib.repro_dense_decode_attention_stats(
+        q.data_ptr(), k_shard.data_ptr(), v_shard.data_ptr(), lens.data_ptr(),
+        ml.data_ptr(), acc.data_ptr(), ws.data_ptr(), B, S, H, Hkv, D, int(start),
+        plan.key_groups, plan.nsplit, plan.span,
+        _build.DTYPE_CODES[str(q.dtype).removeprefix("torch.")],
+        _build.stream_handle(q.device))
+    _build.check(rc, "decode_attention_stats")
+    stats_launches += 1
+    return ml[..., 0], ml[..., 1], acc

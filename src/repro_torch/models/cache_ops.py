@@ -76,10 +76,15 @@ def slot_cache(cache: dict, slot: int) -> dict:
     return sub
 
 
-def write_slot(cache: dict, sub: dict, slot: int) -> dict:
-    """Merge a B=1 sub-cache into `slot` of a batched slab cache, in place.
-    The cache's pos is (B,) (the engine's) or 0-d; the sub-cache's is 0-d."""
-    for k in cache:
+def write_slot(cache: dict, sub: dict, slot: int, mesh=None) -> dict:
+    """Merge a B=1 sub-cache (or a per-slot state) into `slot` of a batched
+    slab cache, in place. The cache's pos is (B,) (the engine's) or 0-d;
+    the sub-cache's is 0-d. On a mesh rank (`mesh`, a
+    `distributed.sharding.MeshRank`) the cache holds the rank's rows of
+    the B slots: the slot's row is written by the `data` rank that holds it
+    (`MeshRank.local_row`), and pos, every slot's, on every rank."""
+    row = slot if mesh is None else mesh.local_row(slot, cache["pos"].shape[0])
+    for k in sub:
         if k == "pos":
             pos = cache["pos"]
             if pos.ndim:
@@ -87,30 +92,38 @@ def write_slot(cache: dict, sub: dict, slot: int) -> dict:
             else:
                 cache["pos"] = torch.as_tensor(sub["pos"], dtype=pos.dtype,
                                                device=pos.device).clone()
-        else:
-            cache[k][:, slot] = sub[k][:, 0].to(cache[k].dtype)
+        elif row is not None:
+            cache[k][:, row] = sub[k][:, 0].to(cache[k].dtype)
     return cache
 
 
-def prefix_snapshot(sub: dict, prefix_len: int) -> dict:
+def prefix_snapshot(sub: dict, prefix_len: int, mesh=None) -> dict:
     """Trim a B=1 sub-cache (taken right after prefilling exactly the
     prefix) to O(prefix_len) storage: pos a 0-d int32 of prefix_len, the
-    token axis cut to prefix_len (copied)."""
+    token axis cut to prefix_len (copied). On a mesh rank (`mesh`, a
+    `distributed.sharding.MeshRank`) whose slab's sequence is over `model`
+    the token axis is the rank's shard (`MeshRank.seq_shards`), and keeps
+    its positions below prefix_len."""
+    n_shards, shard = (1, 0) if mesh is None else mesh.seq_shards
     snap = {}
     for k, a in sub.items():
         if k == "pos":
             snap[k] = torch.tensor(prefix_len, dtype=torch.int32, device=a.device)
         elif k in LENGTH_KEYS:
-            snap[k] = a[:, :, :prefix_len].clone()
+            keep = min(max(prefix_len - shard * a.shape[2], 0), a.shape[2]) \
+                if n_shards > 1 else prefix_len
+            snap[k] = a[:, :, :keep].clone()
         else:
             snap[k] = a.clone()
     return snap
 
 
-def expand_snapshot(snap: dict, max_len: int) -> dict:
+def expand_snapshot(snap: dict, max_len: int, mesh=None) -> dict:
     """Zero-pad a trimmed snapshot's token axis back to `max_len` so it is
     shape-compatible with the engine's slab cache (new tensors: the
-    snapshot stays as it was)."""
+    snapshot stays as it was); on a mesh rank (`mesh`) to the length of
+    the rank's shard of `max_len`."""
+    max_len //= 1 if mesh is None else mesh.seq_shards[0]
     sub = {}
     for k, a in snap.items():
         if k in LENGTH_KEYS and a.shape[2] < max_len:

@@ -130,7 +130,7 @@ def mlp_apply(cfg: ModelConfig, p, x, tp=None):
     else:
         h = act(x @ p["w_in"])
     y = h @ p["w_down"]
-    if tp is not None and tp.on_model("w_down", 0):
+    if tp is not None and tp.on_model("mlp/w_down", 0):
         y = tp.model_sum(y)
     return y
 
@@ -176,18 +176,30 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, scale=None):
     return torch.einsum("bhgqs,bshd->bqhgd", p.to(v_cache.dtype), v_cache)
 
 
-def _project_qkv(cfg: ModelConfig, p, x, lora=None):
+def _lora_b(tp, lora, name: str, proj: str):
+    """The adapter's b_* for a projection's heads. On a mesh b_* (r, heads
+    x hd) has its columns over `model` where they divide: the rank's heads
+    where the projection's heads are over `model` too, and otherwise a
+    split inside a head, which is gathered whole."""
+    b = lora[name]
+    if tp is not None and tp.on_model(name, 1) and not tp.on_model(proj, 1):
+        b = tp.model_cat(b)
+    return b
+
+
+def _project_qkv(cfg: ModelConfig, p, x, lora=None, tp=None):
     """q, k, v (B, S, heads, hd) of x (B, S, d); with `lora` (one
     application's adapter, the hybrid family's shared blocks) the low-rank
     deltas (x a) b are added before the bias and the q/k norms, as the JAX
-    package adds them."""
+    package adds them. On a mesh (`tp`) the heads are the rank's where the
+    weights hold them so."""
     q = torch.einsum("bsd,dhe->bshe", x, p["wq"])
     k = torch.einsum("bsd,dhe->bshe", x, p["wk"])
     v = torch.einsum("bsd,dhe->bshe", x, p["wv"])
     if lora is not None:
-        q = q + ((x @ lora["a_q"]) @ lora["b_q"]).reshape(q.shape)
-        k = k + ((x @ lora["a_k"]) @ lora["b_k"]).reshape(k.shape)
-        v = v + ((x @ lora["a_v"]) @ lora["b_v"]).reshape(v.shape)
+        q = q + ((x @ lora["a_q"]) @ _lora_b(tp, lora, "b_q", "attn/wq")).reshape(q.shape)
+        k = k + ((x @ lora["a_k"]) @ _lora_b(tp, lora, "b_k", "attn/wk")).reshape(k.shape)
+        v = v + ((x @ lora["a_v"]) @ _lora_b(tp, lora, "b_v", "attn/wv")).reshape(v.shape)
     if cfg.attn_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     if cfg.qk_norm:
@@ -202,7 +214,7 @@ def _out_proj(p, out, lora=None, tp=None):
     On a mesh (`tp`) the heads are this rank's, and where wo's heads are
     over `model` the partial products are summed over it."""
     out = torch.einsum("bshe,hed->bsd", out, p["wo"])
-    if tp is not None and tp.on_model("wo", 0):
+    if tp is not None and tp.on_model("attn/wo", 0):
         out = tp.model_sum(out)
     if lora is not None:
         out = out + (out @ lora["a_o"]) @ lora["b_o"]
@@ -228,6 +240,57 @@ def _rank_heads(cfg: ModelConfig, q, n_kv: int, tp, dim: int = 1):
     shape[dim] = n_kv * h
     wide = q.new_zeros(shape).index_copy_(dim, idx, q)
     return wide, lambda out: out.index_select(dim, idx)
+
+
+def _whole_heads(tp, proj: str, t):
+    """t (B, S, heads, hd) of projection `proj` with every head on every
+    rank: gathered over `model` where the weight holds the rank's heads."""
+    return tp.model_cat_dim(t, 2) if tp is not None and tp.on_model(proj, 1) else t
+
+
+def _rank_kv(cfg: ModelConfig, q, k_layer, v_layer, tp, dim: int = 2):
+    """This rank's query heads q (on `dim`) against the KV heads they read,
+    where the query heads are over `model` and the slab layers (B, S, Hkv,
+    hd) keep every KV head. The rank's h heads from head f = r * h read KV
+    heads [a, b) (a = f // G, b = (f + h - 1) // G + 1, G = H / Hkv): the
+    layers keep those heads (a copy unless they are all), and the kernel's
+    query is q itself where its heads read them in the kernel's grouping
+    (all one KV head, or whole groups), else q widened to the (b - a) G
+    heads of those groups, the other entries zeros whose outputs are
+    dropped -- never more heads than the whole query. Off a mesh, and
+    where q holds every head, that is q and the layers as they are.
+    Returns (q', k', v', back), back(out) the rank's heads of the output."""
+    h = q.shape[dim]
+    if tp is None or h == cfg.n_heads:
+        return q, k_layer, v_layer, lambda out: out
+    G = cfg.n_heads // cfg.n_kv_heads
+    first = tp.model_rank * h
+    a, b = first // G, (first + h - 1) // G + 1
+    if (a, b) != (0, k_layer.shape[2]):
+        k_layer = k_layer[:, :, a:b].contiguous()
+        v_layer = v_layer[:, :, a:b].contiguous()
+    if b - a == 1 or h % G == 0:
+        return q, k_layer, v_layer, lambda out: out
+    idx = first - a * G + torch.arange(h, device=q.device)
+    shape = list(q.shape)
+    shape[dim] = (b - a) * G
+    wide = q.new_zeros(shape).index_copy_(dim, idx, q)
+    return wide, k_layer, v_layer, lambda out: out.index_select(dim, idx)
+
+
+def _rank_out(tp, out):
+    """The rank's heads of an attention output (B, S, H, hd) computed for
+    every head, where wo holds the rank's heads."""
+    return tp.model_slice(out, 2) if tp is not None and tp.on_model("attn/wo", 0) else out
+
+
+def _seq_whole(tp, layer):
+    """A slab layer (B, S_loc, ...) whole: where its sequence is over
+    `model` (`MeshRank.seq_split`), the ranks' shards gathered, and the
+    function that writes the rank's part of a whole layer back into it."""
+    if tp is None or not tp.seq_split:
+        return layer, lambda whole: None
+    return tp.model_cat_dim(layer, 1), lambda whole: layer.copy_(tp.model_slice(whole, 1))
 
 
 def _rows_kv(tp, k, v, B: int):
@@ -257,7 +320,7 @@ def attn_chunk_apply(cfg: ModelConfig, p, x, *, start: int, k_pool, v_pool,
     """
     B, C, _ = x.shape
     q_pos = start + torch.arange(C, device=x.device)
-    q, k, v = _project_qkv(cfg, p, x, lora)
+    q, k, v = _project_qkv(cfg, p, x, lora, tp)
     if cfg.use_rope:
         q = apply_rope(q, q_pos[None], cfg.rope_theta)
         k = apply_rope(k, q_pos[None], cfg.rope_theta)
@@ -283,7 +346,7 @@ def attn_decode_apply(cfg: ModelConfig, p, x, *, pos, k_pool, v_pool, table,
     rows' K/V is all-gathered over `data` and written on every rank (the
     pool replicates over `data`). Returns (B, 1, d)."""
     B, S, _ = x.shape
-    q, k, v = _project_qkv(cfg, p, x, lora)
+    q, k, v = _project_qkv(cfg, p, x, lora, tp)
     if cfg.use_rope:
         pp = pos.reshape(B, 1)
         q = apply_rope(q, pp, cfg.rope_theta)
@@ -316,7 +379,7 @@ def attn_verify_apply(cfg: ModelConfig, p, x, *, pos, k_pool, v_pool, table,
     hybrid family's adapter. On a mesh (`tp`) as `attn_decode_apply`: this
     rank's rows and heads, every row's K/V written. Returns (B, C, d)."""
     B, C, _ = x.shape
-    q, k, v = _project_qkv(cfg, p, x, lora)
+    q, k, v = _project_qkv(cfg, p, x, lora, tp)
     if cfg.use_rope:
         q_pos = pos.reshape(B, 1) + torch.arange(C, device=x.device, dtype=pos.dtype)
         q = apply_rope(q, q_pos, cfg.rope_theta)
@@ -340,22 +403,27 @@ def attn_verify_apply(cfg: ModelConfig, p, x, *, pos, k_pool, v_pool, table,
 # bounds.
 
 
-def cache_write(cache, new, pos):
+def cache_write(cache, new, pos, n_shards: int = 1, shard: int = 0):
     """Write one token's K/V (new (B, 1, Hkv, hd)) into a slab layer in
     place at `pos`: a 0-d tensor -- every row at the same position, clamped
     into the cache as `lax.dynamic_update_slice` clamps it -- or per-row
     positions (B,), where a row at or past Smax is dropped, as the JAX
     scatter drops it (a slot that is not live keeps advancing its
-    position). No host synchronisation."""
+    position). With `n_shards` > 1 the layer is shard `shard` of a
+    sequence cut in n_shards equal parts (a slab over `model`): a position
+    is global, and one outside the shard is not written here. No host
+    synchronisation."""
     B, S = cache.shape[:2]
     rows = torch.arange(B, device=cache.device)
     val = new[:, 0].to(cache.dtype)
-    if pos.ndim == 0:
+    if pos.ndim == 0 and n_shards == 1:
         cache[rows, pos.clamp(0, S - 1).long().expand(B)] = val
         return cache
-    idx = pos.long()
-    ok = (idx < S).reshape((B,) + (1,) * (val.ndim - 1))
-    idx = idx.clamp(max=S - 1)
+    if pos.ndim == 0:
+        pos = pos.clamp(0, S * n_shards - 1).expand(B)
+    idx = pos.long() - shard * S
+    ok = ((idx >= 0) & (idx < S)).reshape((B,) + (1,) * (val.ndim - 1))
+    idx = idx.clamp(0, S - 1)
     cache[rows, idx] = torch.where(ok, val, cache[rows, idx])
     return cache
 
@@ -403,23 +471,39 @@ def slab_tables(B: int, S: int, ps: int, device):
     return torch.arange(B * nb, dtype=torch.int32, device=device).reshape(B, nb)
 
 
-def attn_apply_slab(cfg: ModelConfig, p, x, *, k_cache, v_cache, tables, lora=None):
+def attn_apply_slab(cfg: ModelConfig, p, x, *, k_cache, v_cache, tables, lora=None,
+                    tp=None):
     """Causal self-attention of a full prefill from position 0 (the JAX
     `attn_apply` of `prefill`), writing the K/V into slab layers. x
     (B, S, d); caches (B, Smax, Hkv, hd) of this layer, written in place at
     [0, S); tables (B, Smax/ps) from `slab_tables`. Each row runs kernel K2
-    over its slab seen as pages, the whole prompt as one chunk. Returns
-    (B, S, d)."""
-    q, k, v = _project_from0(cfg, p, x, lora)
-    cache_write_chunk(k_cache, k, 0)
-    cache_write_chunk(v_cache, v, 0)
-    return _attend_slab(cfg, p, q, k_cache, v_cache, tables, lora)
+    over its slab seen as pages, the whole prompt as one chunk. On a mesh
+    (`tp`) the slab holds every KV head and, where `tp.seq_split`, the
+    rank's part of the sequence: every head's k/v is gathered, the layer's
+    shards are gathered whole for the write, the rank's part goes back, and
+    K2 runs the rank's query heads over the KV heads they read
+    (`_rank_kv`). Returns (B, S, d)."""
+    q, k, v = _project_from0(cfg, p, x, lora, tp)
+    k, v = _whole_heads(tp, "attn/wk", k), _whole_heads(tp, "attn/wv", v)
+    kc, k_back = _seq_whole(tp, k_cache)
+    vc, v_back = _seq_whole(tp, v_cache)
+    cache_write_chunk(kc, k, 0)
+    cache_write_chunk(vc, v, 0)
+    k_back(kc)
+    v_back(vc)
+    return _attend_slab(cfg, p, q, kc, vc, tables, lora, tp)
 
 
-def _project_from0(cfg: ModelConfig, p, x, lora=None):
+def _whole_qkv(tp, q, k, v):
+    """q, k, v with every head on every rank (`_whole_heads`)."""
+    return (_whole_heads(tp, "attn/wq", q), _whole_heads(tp, "attn/wk", k),
+            _whole_heads(tp, "attn/wv", v))
+
+
+def _project_from0(cfg: ModelConfig, p, x, lora=None, tp=None):
     """q, k, v of x (B, S, d) at positions 0..S-1, rotated where the config
     uses rope."""
-    q, k, v = _project_qkv(cfg, p, x, lora)
+    q, k, v = _project_qkv(cfg, p, x, lora, tp)
     if cfg.use_rope:
         positions = torch.arange(x.shape[1], device=x.device)[None]
         q = apply_rope(q, positions, cfg.rope_theta)
@@ -427,65 +511,85 @@ def _project_from0(cfg: ModelConfig, p, x, lora=None):
     return q, k, v
 
 
-def _attend_slab(cfg: ModelConfig, p, q, k_layer, v_layer, tables, lora=None):
+def _attend_slab(cfg: ModelConfig, p, q, k_layer, v_layer, tables, lora=None, tp=None):
     """Each row's queries q (B, S, H, hd) from position 0 through kernel K2
     (its autograd form) over the row's K/V of slab layers (B, Smax, Hkv,
-    hd) seen as pages, one launch a row, then the output projection."""
+    hd) seen as pages, one launch a row, then the output projection. On a
+    mesh q holds the rank's heads, which read their KV heads (`_rank_kv`)."""
     B, S = q.shape[:2]
+    q, k_layer, v_layer, back = _rank_kv(cfg, q, k_layer, v_layer, tp)
     ps = k_layer.shape[1] // tables.shape[1]
     kp, vp = slab_pages(k_layer, ps), slab_pages(v_layer, ps)
     out = torch.stack([_kag.chunk_prefill_attention(q[b], kp, vp, tables[b], 0)
                        for b in range(B)])
-    return _out_proj(p, out.reshape(B, S, cfg.n_heads, cfg.resolved_head_dim), lora)
+    out = back(out.reshape(B, S, q.shape[2], cfg.resolved_head_dim))
+    return _out_proj(p, out, lora, tp)
 
 
 def attn_decode_apply_slab(cfg: ModelConfig, p, x, *, pos, k_cache, v_cache, lora=None,
-                           attn_impl=None):
+                           attn_impl=None, tp=None):
     """Single-token decode on slab layers (the JAX `attn_decode_apply`).
     x (B, 1, d); pos a 0-d tensor or per-row (B,) int32; the new K/V is
     written at pos (`cache_write`) before kernel K5 attends positions
     < pos + 1. `attn_impl(q (B, 1, Hkv, G, hd), k_cache, v_cache, length)`
     replaces K5 where given (the sequence-sharded combine of
-    `distributed.decode`). Returns (B, 1, d)."""
+    `distributed.decode`). On a mesh (`tp`) every head's q/k/v is gathered
+    (the slab holds every KV head) and the kernel runs every query head:
+    it reads each KV head of the layer once whichever query heads read it,
+    so the rank's heads alone would save no KV bytes without copying their
+    KV heads out of the layer. Where `tp.seq_split` the layers are the
+    rank's sequence shard, the token is written only by the rank that holds
+    its position, and `attn_impl` is the combine. Returns (B, 1, d)."""
     B, S, _ = x.shape
     nq, hd = cfg.n_heads, cfg.resolved_head_dim
-    q, k, v = _project_qkv(cfg, p, x, lora)
+    q, k, v = _project_qkv(cfg, p, x, lora, tp)
     if cfg.use_rope:
         pp = pos.reshape(-1, 1).expand(B, S)
         q = apply_rope(q, pp, cfg.rope_theta)
         k = apply_rope(k, pp, cfg.rope_theta)
-    cache_write(k_cache, k, pos)
-    cache_write(v_cache, v, pos)
+    q, k, v = _whole_qkv(tp, q, k, v)
+    shards = (1, 0) if tp is None else tp.seq_shards
+    cache_write(k_cache, k, pos, *shards)
+    cache_write(v_cache, v, pos, *shards)
     if attn_impl is not None:
         nkv = k_cache.shape[2]
         out = attn_impl(q.reshape(B, S, nkv, nq // nkv, hd), k_cache, v_cache, pos + 1)
     else:
         out = _k1.decode_attention(q[:, 0], k_cache, v_cache, pos + 1)
     out = out.reshape(B, S, nq, hd)
-    return _out_proj(p, out, lora)
+    return _out_proj(p, _rank_out(tp, out), lora, tp)
 
 
-def attn_chunk_apply_slab(cfg: ModelConfig, p, x, *, start, k_cache, v_cache, tables, lora=None):
+def attn_chunk_apply_slab(cfg: ModelConfig, p, x, *, start, k_cache, v_cache, tables, lora=None,
+                          tp=None):
     """Speculative-verify attention on slab layers (the JAX
     `attn_chunk_apply` with a per-row start): row b's C candidates sit at
     positions start[b] + c, are written there (positions at or past Smax
     dropped, `cache_write_chunk`) and attend every key up to their own
     position through kernel K4 over the slab seen as pages. x (B, C, d);
-    start (B,) int32; tables (B, Smax/ps). Returns (B, C, d)."""
+    start (B,) int32; tables (B, Smax/ps). On a mesh (`tp`) as
+    `attn_apply_slab`: every KV head, the layer gathered whole where its
+    sequence is over `model`, and K4 over the rank's query heads. Returns
+    (B, C, d)."""
     B, C, _ = x.shape
-    nq, hd = cfg.n_heads, cfg.resolved_head_dim
-    q, k, v = _project_qkv(cfg, p, x, lora)
+    q, k, v = _project_qkv(cfg, p, x, lora, tp)
     if cfg.use_rope:
         q_pos = start.reshape(B, 1) + torch.arange(C, device=x.device, dtype=start.dtype)
         q = apply_rope(q, q_pos, cfg.rope_theta)
         k = apply_rope(k, q_pos, cfg.rope_theta)
-    cache_write_chunk(k_cache, k, start)
-    cache_write_chunk(v_cache, v, start)
-    ps = k_cache.shape[1] // tables.shape[1]
-    out = _k4.paged_verify_attention(q.transpose(1, 2), slab_pages(k_cache, ps),
-                                     slab_pages(v_cache, ps), tables, start)
-    out = out.transpose(1, 2).reshape(B, C, nq, hd)
-    return _out_proj(p, out, lora)
+    k, v = _whole_heads(tp, "attn/wk", k), _whole_heads(tp, "attn/wv", v)
+    kc, k_back = _seq_whole(tp, k_cache)
+    vc, v_back = _seq_whole(tp, v_cache)
+    cache_write_chunk(kc, k, start)
+    cache_write_chunk(vc, v, start)
+    k_back(kc)
+    v_back(vc)
+    q, kl, vl, back = _rank_kv(cfg, q, kc, vc, tp)
+    ps = kl.shape[1] // tables.shape[1]
+    out = _k4.paged_verify_attention(q.transpose(1, 2), slab_pages(kl, ps),
+                                     slab_pages(vl, ps), tables, start)
+    out = back(out.transpose(1, 2).reshape(B, C, q.shape[2], cfg.resolved_head_dim))
+    return _out_proj(p, out, lora, tp)
 
 
 # -------------------------------------------- encoder-decoder (whisper) ----
@@ -496,13 +600,15 @@ def attn_chunk_apply_slab(cfg: ModelConfig, p, x, *, start, k_cache, v_cache, ta
 # one query a row over it, at length encoder_seq.
 
 
-def attn_apply_bidirectional(cfg: ModelConfig, p, x):
+def attn_apply_bidirectional(cfg: ModelConfig, p, x, tp=None):
     """The encoder's self-attention (the JAX `attn_apply(causal=False)`):
     every position attends every position (no rope: the family's configs
-    use learned and fixed positions). x (B, S, d) -> (B, S, d)."""
-    q, k, v = _project_qkv(cfg, p, x)
-    out = _kag.bidirectional_attention(q, k.contiguous(), v.contiguous(), k.shape[1])
-    return _out_proj(p, out)
+    use learned and fixed positions). x (B, S, d) -> (B, S, d). On a mesh
+    (`tp`) over the rank's heads, summed over `model` after wo."""
+    q, k, v = _project_qkv(cfg, p, x, tp=tp)
+    qk, back = _rank_heads(cfg, q, k.shape[2], tp, dim=2)
+    out = back(_kag.bidirectional_attention(qk, k.contiguous(), v.contiguous(), k.shape[1]))
+    return _out_proj(p, out, tp=tp)
 
 
 def cross_kv(p, enc_out):
@@ -517,22 +623,26 @@ def _cross_query(cfg: ModelConfig, p, x):
     return q + p["bq"] if cfg.attn_bias else q
 
 
-def cross_attn_apply(cfg: ModelConfig, p, x, *, ck, cv):
+def cross_attn_apply(cfg: ModelConfig, p, x, *, ck, cv, tp=None):
     """Cross-attention of C queries a row over that row's cross K/V (the
     JAX `attn_chunk_apply(cross=True)` and `attn_apply(kv_override=)`):
     x (B, C, d); ck, cv (B, S, Hkv, hd), contiguous. Every query sees all S
-    keys. Returns (B, C, d)."""
-    out = _kag.bidirectional_attention(_cross_query(cfg, p, x), ck, cv, ck.shape[1])
-    return _out_proj(p, out)
+    keys. On a mesh (`tp`) ck/cv hold the rank's heads (`cache_specs`) and
+    the queries are the rank's, summed over `model` after wo. Returns
+    (B, C, d)."""
+    qk, back = _rank_heads(cfg, _cross_query(cfg, p, x), ck.shape[2], tp, dim=2)
+    out = back(_kag.bidirectional_attention(qk, ck, cv, ck.shape[1]))
+    return _out_proj(p, out, tp=tp)
 
 
-def cross_decode_apply(cfg: ModelConfig, p, x, *, ck, cv):
+def cross_decode_apply(cfg: ModelConfig, p, x, *, ck, cv, tp=None):
     """A decode step's cross-attention (the JAX `attn_decode_apply(cross=
     True)`): x (B, 1, d), one query a row over its cross K/V ck, cv (B, S,
-    Hkv, hd) at length S. Returns (B, 1, d)."""
-    q = _cross_query(cfg, p, x)
-    out = _k1.decode_attention(q[:, 0], ck, cv, ck.shape[1])
-    return _out_proj(p, out[:, None])
+    Hkv, hd) at length S; on a mesh as `cross_attn_apply`. Returns
+    (B, 1, d)."""
+    qk, back = _rank_heads(cfg, _cross_query(cfg, p, x)[:, 0], ck.shape[2], tp)
+    out = back(_k1.decode_attention(qk, ck, cv, ck.shape[1]))
+    return _out_proj(p, out[:, None], tp=tp)
 
 
 # ------------------------------------------------- full sequence (training) --
@@ -590,25 +700,30 @@ def mla_project(cfg: ModelConfig, p, x, positions):
     return q_nope, q_rope, c_kv, k_rope
 
 
-def mla_apply(cfg: ModelConfig, p, x, *, positions):
+def mla_apply(cfg: ModelConfig, p, x, *, positions, tp=None):
     """Full-sequence causal MLA in the non-absorbed form (the slab's
     whole-prompt prefill): per-head K = [c_kv w_uk, k_rope] (nd + rd) and
-    V = c_kv w_uv (vd). Returns (out (B, S, d), c_kv, k_rope)."""
+    V = c_kv w_uv (vd). On a mesh (`tp`) over the rank's heads, summed over
+    `model` after wo. Returns (out (B, S, d), c_kv, k_rope)."""
     B, S, _ = x.shape
-    H, vd, rd = cfg.n_heads, cfg.v_head_dim, cfg.qk_rope_dim
+    vd, rd = cfg.v_head_dim, cfg.qk_rope_dim
     q_nope, q_rope, c_kv, k_rope = mla_project(cfg, p, x, positions)
+    H = q_nope.shape[2]
     k_nope = torch.einsum("bsr,rhe->bshe", c_kv, p["w_uk"])
     v = torch.einsum("bsr,rhe->bshe", c_kv, p["w_uv"])
     q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, S, H, rd)], dim=-1)
     out = sdpa(q[:, :, :, None, :], k, v, causal=True, scale=_mla_scale(cfg))
-    out = out.reshape(B, S, H, vd)
-    return torch.einsum("bshe,hed->bsd", out, p["wo"]), c_kv, k_rope
+    out = torch.einsum("bshe,hed->bsd", out.reshape(B, S, H, vd), p["wo"])
+    if tp is not None and tp.on_model("attn/wo", 0):
+        out = tp.model_sum(out)
+    return out, c_kv, k_rope
 
 
-def _mla_attend(cfg: ModelConfig, p, q_nope, q_rope, ckv, krope, q_pos):
+def _mla_attend(cfg: ModelConfig, p, q_nope, q_rope, ckv, krope, q_pos, tp=None):
     """Absorbed attention of queries at q_pos (B, C) over a compressed
-    cache (B, T, r) / (B, T, rd): keys at positions <= the query's own."""
+    cache (B, T, r) / (B, T, rd): keys at positions <= the query's own. On
+    a mesh (`tp`) the heads are the rank's, summed over `model` after wo."""
     q_abs = torch.einsum("bshe,rhe->bshr", q_nope, p["w_uk"])
     s = torch.einsum("bshr,btr->bhst", q_abs.float(), ckv.float())
     s = s + torch.einsum("bshe,bte->bhst", q_rope.float(), krope.float())
@@ -618,33 +733,45 @@ def _mla_attend(cfg: ModelConfig, p, q_nope, q_rope, ckv, krope, q_pos):
     pr = torch.softmax(s, dim=-1)
     ctx = torch.einsum("bhst,btr->bshr", pr.to(ckv.dtype), ckv)
     out = torch.einsum("bshr,rhe->bshe", ctx, p["w_uv"])
-    return torch.einsum("bshe,hed->bsd", out, p["wo"])
+    out = torch.einsum("bshe,hed->bsd", out, p["wo"])
+    return tp.model_sum(out) if tp is not None and tp.on_model("attn/wo", 0) else out
 
 
-def mla_decode_apply_slab(cfg: ModelConfig, p, x, *, pos, ckv_cache, krope_cache):
+def mla_decode_apply_slab(cfg: ModelConfig, p, x, *, pos, ckv_cache, krope_cache, tp=None):
     """Single-token MLA decode on slab layers (the JAX `mla_decode_apply`).
     x (B, 1, d); pos a 0-d tensor or per-row (B,); the token's c_kv/k_rope
     are written at pos (`cache_write`: clamped, or dropped past the slab
-    per row) before it attends positions <= pos. Returns (B, 1, d)."""
+    per row) before it attends positions <= pos. On a mesh (`tp`) the
+    layers are gathered whole where their sequence is over `model`, and
+    the rank's part goes back after the write. Returns (B, 1, d)."""
     B, S, _ = x.shape
     pp = pos.reshape(-1, 1).expand(B, S)
     q_nope, q_rope, c_kv, k_rope = mla_project(cfg, p, x, pp)
-    cache_write(ckv_cache, c_kv, pos)
-    cache_write(krope_cache, k_rope, pos)
-    return _mla_attend(cfg, p, q_nope, q_rope, ckv_cache, krope_cache, pp)
+    ckv, ckv_back = _seq_whole(tp, ckv_cache)
+    kr, kr_back = _seq_whole(tp, krope_cache)
+    cache_write(ckv, c_kv, pos)
+    cache_write(kr, k_rope, pos)
+    ckv_back(ckv)
+    kr_back(kr)
+    return _mla_attend(cfg, p, q_nope, q_rope, ckv, kr, pp, tp)
 
 
-def mla_chunk_apply_slab(cfg: ModelConfig, p, x, *, start, ckv_cache, krope_cache):
+def mla_chunk_apply_slab(cfg: ModelConfig, p, x, *, start, ckv_cache, krope_cache, tp=None):
     """C-token MLA chunk on slab layers (the JAX `mla_chunk_apply`): the
     chunk's compressed KV is written at [start, start+C) (`cache_write_chunk`:
     a shared start clamped, per-row (B,) starts dropped past the slab) and
-    each query attends positions <= its own. Returns (B, C, d)."""
+    each query attends positions <= its own. On a mesh as
+    `mla_decode_apply_slab`. Returns (B, C, d)."""
     B, C, _ = x.shape
     q_pos = chunk_positions(start, B, C, x.device)
     q_nope, q_rope, c_kv, k_rope = mla_project(cfg, p, x, q_pos)
-    cache_write_chunk(ckv_cache, c_kv, start)
-    cache_write_chunk(krope_cache, k_rope, start)
-    return _mla_attend(cfg, p, q_nope, q_rope, ckv_cache, krope_cache, q_pos)
+    ckv, ckv_back = _seq_whole(tp, ckv_cache)
+    kr, kr_back = _seq_whole(tp, krope_cache)
+    cache_write_chunk(ckv, c_kv, start)
+    cache_write_chunk(kr, k_rope, start)
+    ckv_back(ckv)
+    kr_back(kr)
+    return _mla_attend(cfg, p, q_nope, q_rope, ckv, kr, q_pos, tp)
 
 
 def page_view(pool, table):
@@ -653,6 +780,24 @@ def page_view(pool, table):
     (B, nb) -> a (B, nb * ps, *tail) copy."""
     g = pool[table.long()]
     return g.reshape((g.shape[0], g.shape[1] * g.shape[2]) + tuple(g.shape[3:]))
+
+
+def _latent_view(tp, pool, table, full: int):
+    """A `page_view` of one MLA pool, whole: on a mesh whose pool holds the
+    rank's part of its last dim (the latent rank r, or the rope dim:
+    `pool_specs`), the parts gathered over `model` -- every head's scores
+    sum over all of r. Returns (view, rank), rank(view) the rank's part of
+    a whole view, to write back."""
+    view = page_view(pool, table)
+    if tp is None or view.shape[-1] == full:
+        return view, lambda v: v
+    return tp.model_cat(view), lambda v: tp.model_slice(v, v.ndim - 1)
+
+
+def _latent_views(cfg: ModelConfig, ckv_pool, krope_pool, table, tp):
+    ckv, ckv_rank = _latent_view(tp, ckv_pool, table, cfg.kv_lora_rank)
+    kr, kr_rank = _latent_view(tp, krope_pool, table, cfg.qk_rope_dim)
+    return ckv, kr, lambda c, k: (ckv_rank(c), kr_rank(k))
 
 
 def write_view_blocks(pool, view, blocks, ids):
@@ -676,57 +821,64 @@ def write_view_blocks(pool, view, blocks, ids):
 
 
 def mla_decode_apply(cfg: ModelConfig, p, x, *, pos, ckv_pool, krope_pool, table,
-                     write_pages):
+                     write_pages, tp=None):
     """Single-token MLA decode of every slot on the page pool. Pools (P, ps,
     r) / (P, ps, rd) of this layer; table (B, nb) page tables; pos (B,);
     write_pages (B,) the page holding pos (the sink for a dead row). Each
     row attends its gathered view with the token written in, and the view
-    block holding pos (clamped into the view) goes back to write_pages.
-    Returns (B, 1, d)."""
+    block holding pos (clamped into the view) goes back to write_pages. On
+    a mesh (`tp`) the views are whole (`_latent_views`), the heads the
+    rank's, and each rank writes back its part of r. Returns (B, 1, d)."""
     ps = ckv_pool.shape[1]
-    ckv, kr = page_view(ckv_pool, table), page_view(krope_pool, table)
-    out = mla_decode_apply_slab(cfg, p, x, pos=pos, ckv_cache=ckv, krope_cache=kr)
+    ckv, kr, rank = _latent_views(cfg, ckv_pool, krope_pool, table, tp)
+    out = mla_decode_apply_slab(cfg, p, x, pos=pos, ckv_cache=ckv, krope_cache=kr, tp=tp)
     blocks = (pos.long() // ps).clamp(max=table.shape[1] - 1)[:, None]
     ids = write_pages.reshape(-1, 1)
+    ckv, kr = rank(ckv, kr)
     write_view_blocks(ckv_pool, ckv, blocks, ids)
     write_view_blocks(krope_pool, kr, blocks, ids)
     return out
 
 
-def mla_chunk_apply(cfg: ModelConfig, p, x, *, start: int, ckv_pool, krope_pool, ctx_ids):
+def mla_chunk_apply(cfg: ModelConfig, p, x, *, start: int, ckv_pool, krope_pool, ctx_ids,
+                    tp=None):
     """MLA prefill chunk of one sequence on the page pool: x (1, C, d) at
     positions [start, start+C); ctx_ids (n_ctx,) the sequence's page table.
     The view's blocks [b0, b0 + nb) that the padded chunk can dirty go back
     to their pages (the sink past the sequence's pages), with nb and b0 as
-    the JAX engine's chunk scatter. Returns (1, C, d)."""
+    the JAX engine's chunk scatter. On a mesh as `mla_decode_apply`.
+    Returns (1, C, d)."""
     ps = ckv_pool.shape[1]
     C, n_ctx = x.shape[1], ctx_ids.shape[0]
     table = ctx_ids[None]
-    ckv, kr = page_view(ckv_pool, table), page_view(krope_pool, table)
-    out = mla_chunk_apply_slab(cfg, p, x, start=start, ckv_cache=ckv, krope_cache=kr)
+    ckv, kr, rank = _latent_views(cfg, ckv_pool, krope_pool, table, tp)
+    out = mla_chunk_apply_slab(cfg, p, x, start=start, ckv_cache=ckv, krope_cache=kr, tp=tp)
     nb = (C + ps - 2) // ps + 1 if ps > 1 else C
     b0 = min(start // ps, n_ctx - nb)
     blocks = torch.arange(b0, b0 + nb, device=x.device)[None]
     ids = table[:, b0:b0 + nb]
+    ckv, kr = rank(ckv, kr)
     write_view_blocks(ckv_pool, ckv, blocks, ids)
     write_view_blocks(krope_pool, kr, blocks, ids)
     return out
 
 
 def mla_verify_apply(cfg: ModelConfig, p, x, *, pos, ckv_pool, krope_pool, table,
-                     block0s):
+                     block0s, tp=None):
     """Speculative-verify MLA of every slot on the page pool: row b's C
     candidates sit at pos[b] + c (per-row start; positions past the view
     dropped) and attend its gathered view. Blocks [block0s[b], block0s[b] +
     nb) of each view go back to the row's pages (the sink past them, and
-    for a dead row), as the JAX engine's verify scatter. Returns (B, C, d)."""
+    for a dead row), as the JAX engine's verify scatter. On a mesh as
+    `mla_decode_apply`. Returns (B, C, d)."""
     ps = ckv_pool.shape[1]
     C = x.shape[1]
-    ckv, kr = page_view(ckv_pool, table), page_view(krope_pool, table)
-    out = mla_chunk_apply_slab(cfg, p, x, start=pos, ckv_cache=ckv, krope_cache=kr)
+    ckv, kr, rank = _latent_views(cfg, ckv_pool, krope_pool, table, tp)
+    out = mla_chunk_apply_slab(cfg, p, x, start=pos, ckv_cache=ckv, krope_cache=kr, tp=tp)
     nb = (C + ps - 2) // ps + 1 if ps > 1 else C
     blocks = block0s.long()[:, None] + torch.arange(nb, device=x.device)[None, :]
     ids = table.long().gather(1, blocks)
+    ckv, kr = rank(ckv, kr)
     write_view_blocks(ckv_pool, ckv, blocks, ids)
     write_view_blocks(krope_pool, kr, blocks, ids)
     return out
@@ -742,7 +894,7 @@ def moe_capacity(cfg: ModelConfig, T: int) -> int:
     return max(8, -(-C // 8) * 8)
 
 
-def moe_apply(cfg: ModelConfig, p, x, *, return_aux=False):
+def moe_apply(cfg: ModelConfig, p, x, *, return_aux=False, tp=None):
     """Capacity-limited top-k MoE with gather/scatter dispatch (the JAX
     `moe_apply`, ungrouped). x (B, S, d) -> (B, S, d), and with
     `return_aux` (the training forward) also the Switch load-balance loss
@@ -762,7 +914,13 @@ def moe_apply(cfg: ModelConfig, p, x, *, return_aux=False):
     weight. Each token's k weighted expert rows are summed in
     rank order from zeros in the model dtype -- the JAX CPU scatter-add's
     order -- and not with `index_add_`, whose atomics on the card sum in an
-    order that changes from run to run."""
+    order that changes from run to run.
+
+    On a mesh (`tp`) every rank runs every row of the call (the moe
+    family's rows replicate over `data`), so K6 numbers the same
+    assignments as on one card; the experts' products run on the rank's
+    columns of w_gate/w_up and rows of w_down (and the shared experts'),
+    summed over `model`."""
     B, S, d = x.shape
     x2 = x.reshape(B * S, d)
     T, E, K = B * S, cfg.n_experts, cfg.moe_top_k
@@ -776,6 +934,8 @@ def moe_apply(cfg: ModelConfig, p, x, *, return_aux=False):
     act = activation_fn(cfg.activation)
     h = act(torch.bmm(xe, p["w_gate"])) * torch.bmm(xe, p["w_up"])
     ye = torch.bmm(h, p["w_down"])
+    if tp is not None and tp.on_model("moe/w_down", 1):
+        ye = tp.model_sum(ye)
     ye_flat = torch.cat([ye.reshape(E * C, d), ye.new_zeros((1, d))])
     back = ye_flat[slot] * kept[:, None].to(ye.dtype)
     back = back.reshape(T, K, d)
@@ -784,7 +944,10 @@ def moe_apply(cfg: ModelConfig, p, x, *, return_aux=False):
         y = y + back[:, j]
     if cfg.n_shared_experts:
         sp = p["shared"]
-        y = y + (act(x2 @ sp["w_gate"]) * (x2 @ sp["w_up"])) @ sp["w_down"]
+        ys = (act(x2 @ sp["w_gate"]) * (x2 @ sp["w_up"])) @ sp["w_down"]
+        if tp is not None and tp.on_model("shared/w_down", 0):
+            ys = tp.model_sum(ys)
+        y = y + ys
     y = y.reshape(B, S, d)
     if not return_aux:
         return y

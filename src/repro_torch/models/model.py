@@ -98,8 +98,6 @@ from . import ssm as S
 from .config import ModelConfig
 
 VISION_DIM = 1024  # stub vision-tower output width (llava)
-# the families whose paged forwards take a serving mesh (`mesh=`)
-MESH_FAMILIES = ("dense", "vlm")
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float16": torch.float16}
@@ -295,7 +293,9 @@ def _trunk(cfg, params, x, attend=None, mamba=None, cross=None, *, aux=None,
     training forward) every MoE layer appends its load-balance loss; with
     `remat` every block runs under `_run`'s checkpoint. On a mesh (`tp`, a
     `distributed.sharding.MeshRank`) each block first all-gathers its
-    `data`-sharded weights, and its MLP runs on this rank's columns."""
+    `data`-sharded weights; its MLP, MoE experts and Mamba1 channels run
+    on this rank's part of `model`, while a Mamba2 block (the hybrid
+    family) gathers its weights whole and runs on every rank."""
     def attention_block(li, lp, x, lora=None):
         x = x + attend(li, lp["attn"], L.norm_apply(cfg, lp["attn_norm"], x), lora)
         if cross is not None:
@@ -304,8 +304,10 @@ def _trunk(cfg, params, x, attend=None, mamba=None, cross=None, *, aux=None,
         if "moe" in lp and aux is not None:
             m, a = L.moe_apply(cfg, lp["moe"], h, return_aux=True)
             return x + m, a
-        return x + (L.moe_apply(cfg, lp["moe"], h) if "moe" in lp
-                    else L.mlp_apply(cfg, lp["mlp"], h, tp)), None
+        if "moe" in lp:
+            moe_kw = {} if tp is None else {"tp": tp}
+            return x + L.moe_apply(cfg, lp["moe"], h, **moe_kw), None
+        return x + L.mlp_apply(cfg, lp["mlp"], h, tp), None
 
     def attention(li, lp, x, lora=None):
         x, a = _run(remat, attention_block, li, lp, x, lora)
@@ -315,6 +317,9 @@ def _trunk(cfg, params, x, attend=None, mamba=None, cross=None, *, aux=None,
 
     def mamba_layer(li, x):
         lp = params["layers"][li]
+        if tp is not None:
+            spec = tp.specs["layers"][li]
+            lp = tp.gather_whole(lp, spec) if cfg.mamba_version == 2 else tp.gather(lp, spec)
         return x + mamba(li, lp["mamba"], L.norm_apply(cfg, lp["norm"], x))
 
     def mamba_block(li, x):
@@ -326,8 +331,12 @@ def _trunk(cfg, params, x, attend=None, mamba=None, cross=None, *, aux=None,
         return x
     if cfg.family == "hybrid":
         for i in range(n_applications(cfg)):
-            shared = params["shared_blocks"][i % cfg.n_shared_attn_blocks]
-            x = attention(i, shared, x, params["lora"][i])
+            j = i % cfg.n_shared_attn_blocks
+            shared, lora = params["shared_blocks"][j], params["lora"][i]
+            if tp is not None:
+                shared = tp.gather(shared, tp.specs["shared_blocks"][j])
+                lora = tp.gather(lora, tp.specs["lora"][i])
+            x = attention(i, shared, x, lora)
             for li in range(i * cfg.attn_every, (i + 1) * cfg.attn_every):
                 x = mamba_block(li, x)
         return x
@@ -372,61 +381,68 @@ def _state_shape(cfg: ModelConfig) -> tuple:
     return (cfg.d_inner, cfg.ssm_state)
 
 
-def init_verify_ckpts(cfg: ModelConfig, B: int, C: int, dtype=None, device=None) -> dict:
-    """Buffers a verify forward of B rows x C candidates fills with its
-    rollback checkpoints: "ssm" (L, B, C, *state) float32, the state after
-    every position, and "conv" (L, B, K-1+C, c), the raw input history with
-    the carried window. Allocated once and reused: at falcon-mamba-7b's
+def init_verify_ckpts(cache: dict, C: int) -> dict:
+    """Buffers a verify forward of C candidates over the rows of `cache`
+    (a per-slot state or slab with Mamba "ssm"/"conv", `init_state_cache`;
+    on a mesh rank the rank's shard) fills with its rollback checkpoints:
+    "ssm" (L, B, C, *state) float32, the state after every position, and
+    "conv" (L, B, K-1+C, c), the raw input history with the carried window,
+    in the cache's dtypes. Allocated once and reused: at falcon-mamba-7b's
     width and B = 4, C = 5 they hold ~0.7 GB, at zamba2-2.7b's ~1.4 GB."""
-    dev = resolve_device(device)
-    dt = dtype or torch_dtype(cfg.dtype)
-    Lc = cfg.num_layers
-    return {"ssm": torch.empty((Lc, B, C) + _state_shape(cfg), dtype=torch.float32,
-                               device=dev),
-            "conv": torch.empty((Lc, B, cfg.ssm_conv - 1 + C) + _conv_width(cfg), dtype=dt,
-                                device=dev)}
+    st, cv = cache["ssm"], cache["conv"]
+    return {"ssm": st.new_empty(st.shape[:2] + (C,) + st.shape[2:]),
+            "conv": cv.new_empty(cv.shape[:2] + (cv.shape[2] + C,) + cv.shape[3:])}
 
 
 def _mamba(cfg, S1, S2):
     return S2 if cfg.mamba_version == 2 else S1
 
 
-def _mamba_decode(cfg, state):
+def _tp_kw(cfg, tp) -> dict:
+    """The mesh argument of a Mamba function: Mamba1 runs on the rank's
+    channels (`tp`), Mamba2 whole (none)."""
+    return {"tp": tp} if tp is not None and cfg.mamba_version == 1 else {}
+
+
+def _mamba_decode(cfg, state, tp=None):
     """One decode step of each Mamba layer, updating `state` (conv/ssm, B
     rows) in place: plain tensor ops, as the JAX step."""
     step = _mamba(cfg, S.mamba1_decode, S.mamba2_decode)
+    kw = _tp_kw(cfg, tp)
 
     def run(li, p, h):
         y, state["conv"][li], state["ssm"][li] = step(
-            cfg, p, h, conv_state=state["conv"][li], ssm_state=state["ssm"][li])
+            cfg, p, h, conv_state=state["conv"][li], ssm_state=state["ssm"][li], **kw)
         return y
     return run
 
 
-def _mamba_chunk(cfg, state, length):
+def _mamba_chunk(cfg, state, length, tp=None):
     """A right-padded chunk through each Mamba layer from the carried state
     (updated in place, frozen past `length`): Mamba1's scan through K7,
     Mamba2's SSD matrix form."""
     chunk = _mamba(cfg, S.mamba1_chunk, S.mamba2_chunk)
+    kw = _tp_kw(cfg, tp)
 
     def run(li, p, h):
         y, state["conv"][li], state["ssm"][li] = chunk(
             cfg, p, h, conv_state=state["conv"][li], ssm_state=state["ssm"][li],
-            length=length)
+            length=length, **kw)
         return y
     return run
 
 
-def _mamba_verify(cfg, state, ckpts, C):
+def _mamba_verify(cfg, state, ckpts, C, tp=None):
     """A verify forward through each Mamba layer: the state advances through
     all C candidates in place, and `ckpts` (`init_verify_ckpts`) receives
     every position's state and the conv history. Mamba1 scans through K7,
     Mamba2 steps its decode recurrence."""
     fn = _mamba(cfg, S.mamba1_chunk_states, S.mamba2_chunk_states)
+    kw = _tp_kw(cfg, tp)
 
     def run(li, p, h):
         y, hist, hs = fn(cfg, p, h, conv_state=state["conv"][li],
-                         ssm_state=state["ssm"][li], states=ckpts["ssm"][li])
+                         ssm_state=state["ssm"][li], states=ckpts["ssm"][li], **kw)
         ckpts["conv"][li] = hist
         state["conv"][li] = hist[:, C:]
         state["ssm"][li] = hs[:, -1]
@@ -485,33 +501,44 @@ def _embed(cfg, params, tokens, image_embeds=None, tp=None):
 # ------------------------------------------------ encoder-decoder (encdec) --
 
 
-def _encoder(cfg, params, frames, *, remat=False):
+def _encoder(cfg, params, frames, *, remat=False, tp=None):
     """The encoder over the stub frontend's frames (B, S, d): fixed
     sinusoidal positions added in the model dtype, then LayerNorm pre-norm
     blocks of non-causal self-attention (kernel K2's non-causal form) and
     the MLP, each block under `_run(remat)`, then the final LayerNorm (the
-    JAX `_encoder`)."""
+    JAX `_encoder`). On a mesh (`tp`) every rank runs it, each block
+    gathering its `data`-sharded weights, over the rank's heads and MLP
+    columns with sums over `model`: the output is whole on every rank."""
     x = frames.to(params["embed"].dtype)
     x = x + L.sinusoidal_positions(x.shape[1], cfg.d_model, x.device).to(x.dtype)
 
     def block(lp, x):
         h = L.norm_apply(cfg, lp["attn_norm"], x)
-        x = x + L.attn_apply_bidirectional(cfg, lp["attn"], h)
-        return x + L.mlp_apply(cfg, lp["mlp"], L.norm_apply(cfg, lp["mlp_norm"], x))
-    for lp in params["enc_layers"]:
+        x = x + L.attn_apply_bidirectional(cfg, lp["attn"], h, tp)
+        return x + L.mlp_apply(cfg, lp["mlp"], L.norm_apply(cfg, lp["mlp_norm"], x), tp)
+    for i, lp in enumerate(params["enc_layers"]):
+        if tp is not None:
+            lp = tp.gather(lp, tp.specs["enc_layers"][i])
         x = _run(remat, block, lp, x)
     return L.norm_apply(cfg, params["enc_final_norm"], x)
 
 
-def encode_cross_kv(cfg: ModelConfig, params, frames):
+def encode_cross_kv(cfg: ModelConfig, params, frames, tp=None):
     """Run the encoder once over frames (B, encoder_seq, d) and project every
     decoder layer's cross K/V: (ck, cv), each (L, B, encoder_seq, Hkv, D)
     in the model dtype -- what `prefill_chunk`, `decode_step` and
     `verify_chunk` read from their state (the slab `prefill` computes them
-    inside the decoder blocks)."""
+    inside the decoder blocks). On a mesh (`tp`) the rank's KV heads where
+    wk/wv hold them so (`cache_specs` puts ck/cv's heads over `model`)."""
     _check_family(cfg)
-    enc = _encoder(cfg, params, frames)
-    kvs = [L.cross_kv(lp["cross_attn"], enc) for lp in params["dec_layers"]]
+    enc = _encoder(cfg, params, frames, tp=tp)
+    layers = params["dec_layers"]
+    if tp is not None:
+        layers = [tp.gather(lp["cross_attn"], tp.specs["dec_layers"][i]["cross_attn"])
+                  for i, lp in enumerate(layers)]
+    else:
+        layers = [lp["cross_attn"] for lp in layers]
+    kvs = [L.cross_kv(p, enc) for p in layers]
     return torch.stack([k for k, _ in kvs]), torch.stack([v for _, v in kvs])
 
 
@@ -532,7 +559,7 @@ def _add_dec_pos(cfg, params, x, positions, *, fill_nan=False):
     return x + rows
 
 
-def _cross_chunk(cfg, state):
+def _cross_chunk(cfg, state, tp=None):
     """The decoder's cross-attention of a chunk or verify round over the
     cross K/V in `state` (K2's non-causal form); None for the other
     families."""
@@ -540,18 +567,19 @@ def _cross_chunk(cfg, state):
         return None
 
     def run(li, p, h):
-        return L.cross_attn_apply(cfg, p, h, ck=state["ck"][li], cv=state["cv"][li])
+        return L.cross_attn_apply(cfg, p, h, ck=state["ck"][li], cv=state["cv"][li], tp=tp)
     return run
 
 
-def _cross_decode(cfg, state):
+def _cross_decode(cfg, state, tp=None):
     """The decoder's cross-attention of a decode step over the cross K/V in
     `state` (K5 at length encoder_seq); None for the other families."""
     if cfg.family != "encdec":
         return None
 
     def run(li, p, h):
-        return L.cross_decode_apply(cfg, p, h, ck=state["ck"][li], cv=state["cv"][li])
+        return L.cross_decode_apply(cfg, p, h, ck=state["ck"][li], cv=state["cv"][li],
+                                    tp=tp)
     return run
 
 
@@ -627,20 +655,13 @@ def forward(cfg: ModelConfig, params, batch, *, remat=False):
 # ------------------------------------------------------------- decode ------
 
 
-def _check_mesh(cfg: ModelConfig, mesh) -> None:
-    if mesh is not None and cfg.family not in MESH_FAMILIES:
-        raise NotImplementedError(
-            f"the {cfg.family} family on a mesh is not ported yet, see ROADMAP.md "
-            f"Queue 1 item 5")
-
-
 def _mesh_rows(mesh, *tensors):
-    """This rank's rows of each tensor (`MeshRank.rows`), or the tensors
-    off a mesh."""
+    """This rank's rows of each tensor (`MeshRank.rows`; None and a 0-d
+    tensor as they are), or the tensors off a mesh."""
     if mesh is None:
         return tensors
     r = mesh.rows(tensors[0].shape[0])
-    return tuple(t[r] for t in tensors)
+    return tuple(t if t is None or t.ndim == 0 else t[r] for t in tensors)
 
 
 def decode_step(cfg: ModelConfig, params, tokens, pos, pools, table, write_pages,
@@ -663,25 +684,25 @@ def decode_step(cfg: ModelConfig, params, tokens, pos, pools, table, write_pages
     as the JAX package's per-row read) and cross-attends the cross K/V in
     `state` (the engine's per-slot "ck"/"cv") through K5.
 
-    On a serving mesh (`mesh`, a `distributed.sharding.MeshRank`; the dense
-    and vlm families) `params` are this rank's shards (`shard_params`) and
-    the pools its head shard; the rank runs its rows of the batch
-    (`MeshRank.rows`, all of them where the batch replicates over `data`)
-    and returns their logits, and every row's K/V is written on every rank.
+    On a serving mesh (`mesh`, a `distributed.sharding.MeshRank`) `params`
+    are this rank's shards (`shard_params`), the pools its shard
+    (`pool_specs`) and `state` its rows and channels (`cache_specs`); the
+    rank runs its rows of the batch (`MeshRank.rows`, all of them where the
+    batch replicates over `data`: B = 1, and the moe family) and returns
+    their logits, and every row's K/V is written on every rank.
     """
     _check_family(cfg)
-    _check_mesh(cfg, mesh)
-    attend = None
+    attend = wp = offs = None
+    if not cfg.use_mla and cfg.family != "ssm":
+        wp = write_pages.long()
+        offs = (pos % pools["k"].shape[2]).long()
+    tokens, pos, table = _mesh_rows(mesh, tokens, pos, table)
     if cfg.use_mla:
         def attend(li, p, h, lora=None):
             return L.mla_decode_apply(cfg, p, h, pos=pos, ckv_pool=pools["ckv"][li],
                                       krope_pool=pools["krope"][li], table=table,
-                                      write_pages=write_pages)
+                                      write_pages=write_pages, tp=mesh)
     elif cfg.family != "ssm":
-        wp = write_pages.long()
-        offs = (pos % pools["k"].shape[2]).long()
-        tokens, pos, table = _mesh_rows(mesh, tokens, pos, table)
-
         def attend(li, p, h, lora=None):
             return L.attn_decode_apply(cfg, p, h, pos=pos, k_pool=pools["k"][li],
                                        v_pool=pools["v"][li], table=table,
@@ -689,9 +710,9 @@ def decode_step(cfg: ModelConfig, params, tokens, pos, pools, table, write_pages
                                        tp=mesh)
     x = _add_dec_pos(cfg, params, _lookup(params, tokens, mesh), pos.reshape(-1, 1),
                      fill_nan=True)
-    mamba = _mamba_decode(cfg, state)
+    mamba = _mamba_decode(cfg, state, mesh)
     return _logits(cfg, params, _trunk(cfg, params, x, attend, mamba,
-                                       _cross_decode(cfg, state), tp=mesh), mesh)
+                                       _cross_decode(cfg, state, mesh), tp=mesh), mesh)
 
 
 # ------------------------------------------------------- chunked prefill ---
@@ -725,14 +746,13 @@ def prefill_chunk(cfg: ModelConfig, params, tokens, start: int, length: int,
     over `data`) on its shards.
     """
     _check_family(cfg)
-    _check_mesh(cfg, mesh)
     x, n_img = _embed(cfg, params, tokens, image_embeds, mesh)
     x = _add_dec_pos(cfg, params, x, start + torch.arange(x.shape[1], device=x.device))
     attend = None
     if cfg.use_mla:
         def attend(li, p, h, lora=None):
             return L.mla_chunk_apply(cfg, p, h, start=start, ckv_pool=pools["ckv"][li],
-                                     krope_pool=pools["krope"][li], ctx_ids=ctx_ids)
+                                     krope_pool=pools["krope"][li], ctx_ids=ctx_ids, tp=mesh)
     elif cfg.family != "ssm":
         ps = pools["k"].shape[2]
         positions = start + torch.arange(x.shape[1], device=ctx_ids.device)
@@ -744,8 +764,8 @@ def prefill_chunk(cfg: ModelConfig, params, tokens, start: int, length: int,
                                       v_pool=pools["v"][li], ctx_ids=ctx_ids,
                                       write_pages=wp, write_offsets=offs, lora=lora,
                                       tp=mesh)
-    mamba = _mamba_chunk(cfg, state, length)
-    x = _trunk(cfg, params, x, attend, mamba, _cross_chunk(cfg, state), tp=mesh)
+    mamba = _mamba_chunk(cfg, state, length, mesh)
+    x = _trunk(cfg, params, x, attend, mamba, _cross_chunk(cfg, state, mesh), tp=mesh)
     last = n_img + length
     return _logits(cfg, params, x[:, last - 1:last], mesh)
 
@@ -783,16 +803,16 @@ def verify_chunk(cfg: ModelConfig, params, tokens, pos, pools, table,
     every row's candidates are written on every rank.
     """
     _check_family(cfg)
-    _check_mesh(cfg, mesh)
-    attend = None
+    attend = wp = offs = None
+    if not cfg.use_mla and cfg.family != "ssm":
+        wp, offs = write_pages.long(), write_offsets.long()
+    tokens, pos, table = _mesh_rows(mesh, tokens, pos, table)
     if cfg.use_mla:
         def attend(li, p, h, lora=None):
             return L.mla_verify_apply(cfg, p, h, pos=pos, ckv_pool=pools["ckv"][li],
                                       krope_pool=pools["krope"][li], table=table,
-                                      block0s=block0s)
+                                      block0s=block0s, tp=mesh)
     elif cfg.family != "ssm":
-        wp, offs = write_pages.long(), write_offsets.long()
-        tokens, pos, table = _mesh_rows(mesh, tokens, pos, table)
 
         def attend(li, p, h, lora=None):
             return L.attn_verify_apply(cfg, p, h, pos=pos, k_pool=pools["k"][li],
@@ -801,9 +821,9 @@ def verify_chunk(cfg: ModelConfig, params, tokens, pos, pools, table,
                                        tp=mesh)
     x = _add_dec_pos(cfg, params, _lookup(params, tokens, mesh),
                      L.chunk_positions(pos, tokens.shape[0], tokens.shape[1], tokens.device))
-    mamba = _mamba_verify(cfg, state, ckpts, tokens.shape[1])
+    mamba = _mamba_verify(cfg, state, ckpts, tokens.shape[1], mesh)
     return _logits(cfg, params, _trunk(cfg, params, x, attend, mamba,
-                                       _cross_chunk(cfg, state), tp=mesh), mesh)
+                                       _cross_chunk(cfg, state, mesh), tp=mesh), mesh)
 
 
 # ------------------------------------------------------------ slab KV ------
@@ -836,7 +856,7 @@ def init_decode_cache(cfg: ModelConfig, B: int, max_len: int, dtype=None,
 
 
 def prefill(cfg: ModelConfig, params, tokens, max_len: int, length=None,
-            image_embeds=None, frames=None):
+            image_embeds=None, frames=None, mesh=None):
     """Process a prompt into a fresh slab cache; return (last-position
     logits (B, 1, V), cache).
 
@@ -857,6 +877,13 @@ def prefill(cfg: ModelConfig, params, tokens, max_len: int, length=None,
     adds the learned positions [0, S) (S past the table raises, as the JAX
     slice does), projects its cross K/V of the encoder output into the
     cache's "ck"/"cv" and cross-attends it through K2's non-causal form.
+
+    On a serving mesh (`mesh`, a `distributed.sharding.MeshRank`) every
+    rank runs the prompt on its shards, and the cache is the rank's shard
+    of the global one (`MeshRank.local_cache`: the sequence of k/v and of
+    MLA's ckv/krope over `model`, Mamba1's channels, the cross K/V's heads);
+    attention gathers a layer's sequence shards whole for its write and K2,
+    and each rank keeps its part.
     """
     _check_family(cfg)
     B, S = tokens.shape
@@ -866,8 +893,10 @@ def prefill(cfg: ModelConfig, params, tokens, max_len: int, length=None,
                          f"max_len={max_len}")
     dev = params["embed"].device
     cache = init_decode_cache(cfg, B, max_len, device=dev)
+    if mesh is not None:
+        cache = mesh.local_cache(cfg, cache, B)
     n = n_img + (S if length is None else int(length))
-    x, _ = _embed(cfg, params, tokens, image_embeds)
+    x, _ = _embed(cfg, params, tokens, image_embeds, mesh)
     S = x.shape[1]
     attend = cross = None
     if cfg.family == "encdec":
@@ -877,19 +906,21 @@ def prefill(cfg: ModelConfig, params, tokens, max_len: int, length=None,
             raise ValueError(f"prefill: {S} positions exceed the decoder's position "
                              f"table ({cfg.max_position})")
         x = _add_dec_pos(cfg, params, x, torch.arange(S, device=dev))
-        enc = _encoder(cfg, params, frames)
+        enc = _encoder(cfg, params, frames, tp=mesh)
 
         def cross(li, p, h):
             ck, cv = L.cross_kv(p, enc)
             cache["ck"][li], cache["cv"][li] = ck, cv
-            return L.cross_attn_apply(cfg, p, h, ck=ck, cv=cv)
+            return L.cross_attn_apply(cfg, p, h, ck=ck, cv=cv, tp=mesh)
     if cfg.use_mla:
         positions = torch.arange(S, device=dev)[None]
 
         def attend(li, p, h, lora=None):
-            out, c_kv, k_rope = L.mla_apply(cfg, p, h, positions=positions)
-            L.cache_write_chunk(cache["ckv"][li], c_kv, 0)
-            L.cache_write_chunk(cache["krope"][li], k_rope, 0)
+            out, c_kv, k_rope = L.mla_apply(cfg, p, h, positions=positions, tp=mesh)
+            for name, new in (("ckv", c_kv), ("krope", k_rope)):
+                layer, back = L._seq_whole(mesh, cache[name][li])
+                L.cache_write_chunk(layer, new, 0)
+                back(layer)
             return out
     elif cfg.family != "ssm":
         ps = L.slab_page_size(max_len)
@@ -897,15 +928,16 @@ def prefill(cfg: ModelConfig, params, tokens, max_len: int, length=None,
 
         def attend(li, p, h, lora=None):
             return L.attn_apply_slab(cfg, p, h, k_cache=cache["k"][li],
-                                     v_cache=cache["v"][li], tables=tables, lora=lora)
+                                     v_cache=cache["v"][li], tables=tables, lora=lora,
+                                     tp=mesh)
     # the fresh cache's zero conv window and state are the zero history
-    mamba = _mamba_chunk(cfg, cache, n)
-    x = _trunk(cfg, params, x, attend, mamba, cross)
+    mamba = _mamba_chunk(cfg, cache, n, mesh)
+    x = _trunk(cfg, params, x, attend, mamba, cross, tp=mesh)
     cache["pos"] = torch.tensor(n, dtype=torch.int32, device=dev)
-    return _logits(cfg, params, x[:, n - 1:n]), cache
+    return _logits(cfg, params, x[:, n - 1:n], mesh), cache
 
 
-def decode_step_slab(cfg: ModelConfig, params, tokens, cache, attn_impl=None):
+def decode_step_slab(cfg: ModelConfig, params, tokens, cache, attn_impl=None, mesh=None):
     """One decode step on a slab cache (the JAX slab `decode_step`).
 
     tokens (B, 1) int; cache["pos"] a 0-d int32 (every row at one
@@ -920,28 +952,37 @@ def decode_step_slab(cfg: ModelConfig, params, tokens, cache, attn_impl=None):
     "ck"/"cv" through K5. `attn_impl` replaces K5 in the self-attention where
     given (`distributed.decode.make_seq_sharded_decode_attn`, as the JAX
     `decode_step(attn_impl=)`).
+
+    On a serving mesh (`mesh`, as `prefill`) the cache is the rank's shard:
+    its rows of the batch (`MeshRank.rows`; `pos` stays every row's) and
+    its part of the sequence, where the token is written by the rank that
+    holds its position and attention is the sequence-sharded combine over
+    kernel K5s (`MeshRank.seq_attn`). Returns the rank's rows' logits.
     """
     _check_family(cfg)
-    pos = cache["pos"]
-    x = _add_dec_pos(cfg, params, params["embed"][tokens.long()], pos.reshape(-1, 1),
-                     fill_nan=pos.ndim > 0)
+    pos_all = cache["pos"]
+    tokens, pos = _mesh_rows(mesh, tokens, pos_all)
+    if mesh is not None and attn_impl is None:
+        attn_impl = mesh.seq_attn
+    emb = params["embed"][tokens.long()] if mesh is None else _lookup(params, tokens, mesh)
+    x = _add_dec_pos(cfg, params, emb, pos.reshape(-1, 1), fill_nan=pos.ndim > 0)
     attend = None
     if cfg.use_mla:
         def attend(li, p, h, lora=None):
             return L.mla_decode_apply_slab(cfg, p, h, pos=pos, ckv_cache=cache["ckv"][li],
-                                           krope_cache=cache["krope"][li])
+                                           krope_cache=cache["krope"][li], tp=mesh)
     elif cfg.family != "ssm":
         def attend(li, p, h, lora=None):
             return L.attn_decode_apply_slab(cfg, p, h, pos=pos, k_cache=cache["k"][li],
                                             v_cache=cache["v"][li], lora=lora,
-                                            attn_impl=attn_impl)
-    mamba = _mamba_decode(cfg, cache)
-    x = _trunk(cfg, params, x, attend, mamba, _cross_decode(cfg, cache))
-    cache["pos"] = pos + 1
-    return _logits(cfg, params, x), cache
+                                            attn_impl=attn_impl, tp=mesh)
+    mamba = _mamba_decode(cfg, cache, mesh)
+    x = _trunk(cfg, params, x, attend, mamba, _cross_decode(cfg, cache, mesh), tp=mesh)
+    cache["pos"] = pos_all + 1
+    return _logits(cfg, params, x, mesh), cache
 
 
-def verify_chunk_slab(cfg: ModelConfig, params, tokens, cache, ckpts=None):
+def verify_chunk_slab(cfg: ModelConfig, params, tokens, cache, ckpts=None, mesh=None):
     """Speculative-decoding verification forward on a slab cache (the JAX
     slab `verify_chunk`).
 
@@ -955,26 +996,31 @@ def verify_chunk_slab(cfg: ModelConfig, params, tokens, cache, ckpts=None):
     is the engine's position reset. Mamba1 and Mamba2 advance the cache's
     conv/ssm in place and fill `ckpts` as `verify_chunk` does. The encdec
     family adds the learned positions (clipped) and cross-attends the
-    cache's "ck"/"cv" through K2's non-causal form.
+    cache's "ck"/"cv" through K2's non-causal form. On a serving mesh
+    (`mesh`, as `decode_step_slab`) each layer's sequence shards are
+    gathered whole for the write and K4, and the rank keeps its part.
     """
     _check_family(cfg)
-    pos = cache["pos"]
-    x = _add_dec_pos(cfg, params, params["embed"][tokens.long()],
+    pos_all = cache["pos"]
+    tokens, pos = _mesh_rows(mesh, tokens, pos_all)
+    emb = params["embed"][tokens.long()] if mesh is None else _lookup(params, tokens, mesh)
+    x = _add_dec_pos(cfg, params, emb,
                      L.chunk_positions(pos, tokens.shape[0], tokens.shape[1], tokens.device))
     attend = None
     if cfg.use_mla:
         def attend(li, p, h, lora=None):
             return L.mla_chunk_apply_slab(cfg, p, h, start=pos, ckv_cache=cache["ckv"][li],
-                                          krope_cache=cache["krope"][li])
+                                          krope_cache=cache["krope"][li], tp=mesh)
     elif cfg.family != "ssm":
-        S = cache["k"].shape[2]
+        S = cache["k"].shape[2] * (1 if mesh is None else mesh.seq_shards[0])
         ps = L.slab_page_size(S)
         tables = L.slab_tables(tokens.shape[0], S, ps, pos.device)
 
         def attend(li, p, h, lora=None):
             return L.attn_chunk_apply_slab(cfg, p, h, start=pos, k_cache=cache["k"][li],
-                                           v_cache=cache["v"][li], tables=tables, lora=lora)
-    mamba = _mamba_verify(cfg, cache, ckpts, tokens.shape[1])
-    x = _trunk(cfg, params, x, attend, mamba, _cross_chunk(cfg, cache))
-    cache["pos"] = pos + tokens.shape[1]
-    return _logits(cfg, params, x), cache
+                                           v_cache=cache["v"][li], tables=tables, lora=lora,
+                                           tp=mesh)
+    mamba = _mamba_verify(cfg, cache, ckpts, tokens.shape[1], mesh)
+    x = _trunk(cfg, params, x, attend, mamba, _cross_chunk(cfg, cache, mesh), tp=mesh)
+    cache["pos"] = pos_all + tokens.shape[1]
+    return _logits(cfg, params, x, mesh), cache

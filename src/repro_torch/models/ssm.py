@@ -100,16 +100,22 @@ def mamba1_init(cfg: ModelConfig, generator: torch.Generator, device, dtype) -> 
 
 
 def _mamba1_ssm_inputs(cfg: ModelConfig, p, x):
-    """x (B, S, d) -> (x_in, z), each (B, S, di)."""
+    """x (B, S, d) -> (x_in, z), each (B, S, di). On a mesh in_proj holds
+    the rank's channels of both halves side by side
+    (`distributed.sharding.shard_params`), so the halves split evenly."""
     xz = x @ p["in_proj"]
-    return xz[..., :cfg.d_inner], xz[..., cfg.d_inner:]
+    return xz.chunk(2, dim=-1)
 
 
-def _mamba1_scan_params(cfg: ModelConfig, p, x_conv):
+def _mamba1_scan_params(cfg: ModelConfig, p, x_conv, tp=None):
     """dt (B, S, di) in the model dtype, A (di, N) float32, and B, C
-    (B, S, N) contiguous, as K7 takes them."""
+    (B, S, N) contiguous, as K7 takes them. On a mesh (`tp`) x_conv holds
+    the rank's channels and x_proj their rows, so the projection is summed
+    over `model`; dt, A and the scan stay on the rank's channels."""
     N, r = cfg.ssm_state, cfg.resolved_dt_rank
     proj = x_conv @ p["x_proj"]
+    if tp is not None and tp.on_model("mamba/x_proj", 0):
+        proj = tp.model_sum(proj)
     dt_raw, B_mat, C_mat = proj[..., :r], proj[..., r:r + N], proj[..., r + N:]
     dt = F.softplus(dt_raw @ p["dt_proj"] + p["dt_bias"])
     A = -torch.exp(p["A_log"].float())
@@ -138,8 +144,11 @@ def mamba1_scan_states(x, dt, A, B_mat, C_mat, D, h0=None, states=None):
     return y, states
 
 
-def _out(p, y, z):
-    return (y * F.silu(z)) @ p["out_proj"]
+def _out(p, y, z, tp=None):
+    out = (y * F.silu(z)) @ p["out_proj"]
+    if tp is not None and tp.on_model("mamba/out_proj", 0):
+        out = tp.model_sum(out)
+    return out
 
 
 def mamba1_apply(cfg: ModelConfig, p, x):
@@ -154,22 +163,23 @@ def mamba1_apply(cfg: ModelConfig, p, x):
     return _out(p, y, z)
 
 
-def mamba1_decode(cfg: ModelConfig, p, x_t, *, conv_state, ssm_state):
+def mamba1_decode(cfg: ModelConfig, p, x_t, *, conv_state, ssm_state, tp=None):
     """x_t (B, 1, d); conv_state (B, K-1, di); ssm_state (B, di, N) float32.
-    Returns (out (B, 1, d), conv_state, ssm_state), new tensors."""
+    Returns (out (B, 1, d), conv_state, ssm_state), new tensors. On a mesh
+    (`tp`) di is the rank's channels, as the state's."""
     x_in, z = _mamba1_ssm_inputs(cfg, p, x_t)
     conv_state, xc = conv_step(conv_state, x_in[:, 0], p["conv_w"], p["conv_b"])
     xc = F.silu(xc)[:, None, :]
-    dt, A, B_mat, C_mat = _mamba1_scan_params(cfg, p, xc)
+    dt, A, B_mat, C_mat = _mamba1_scan_params(cfg, p, xc, tp)
     da = torch.exp(dt[:, 0, :, None].float() * A)
     ssm_state = da * ssm_state + (dt[:, 0] * xc[:, 0])[..., None].float() \
         * B_mat[:, 0, None, :].float()
     y = (ssm_state * C_mat[:, 0, None, :].float()).sum(-1)
     y = (y + xc[:, 0].float() * p["D"]).to(x_t.dtype)[:, None, :]
-    return _out(p, y, z), conv_state, ssm_state
+    return _out(p, y, z, tp), conv_state, ssm_state
 
 
-def _chunk_inputs(cfg: ModelConfig, p, x, conv_state):
+def _chunk_inputs(cfg: ModelConfig, p, x, conv_state, tp=None):
     """The carried conv window prepended to the chunk's raw inputs, so the
     causal conv sees the true history. Returns (x_cat (B, K-1+C, di), xc,
     z, dt, A, B, C)."""
@@ -177,32 +187,33 @@ def _chunk_inputs(cfg: ModelConfig, p, x, conv_state):
     x_in, z = _mamba1_ssm_inputs(cfg, p, x)
     x_cat = torch.cat([conv_state.to(x_in.dtype), x_in], dim=1)
     xc = F.silu(causal_depthwise_conv(x_cat, p["conv_w"], p["conv_b"])[:, K - 1:])
-    return (x_cat, xc, z) + _mamba1_scan_params(cfg, p, xc)
+    return (x_cat, xc, z) + _mamba1_scan_params(cfg, p, xc, tp)
 
 
-def mamba1_chunk(cfg: ModelConfig, p, x, *, conv_state, ssm_state, length=None):
+def mamba1_chunk(cfg: ModelConfig, p, x, *, conv_state, ssm_state, length=None, tp=None):
     """Advance conv and scan state through a C-token chunk (chunked
     prefill). x (B, C, d); `length` the true token count of a right-padded
     chunk: dt = 0 past it freezes the scan state, and the conv tail is cut
     at the real boundary. Returns (out, conv_state, ssm_state)."""
     K = p["conv_w"].shape[0]
-    x_cat, xc, z, dt, A, B_mat, C_mat = _chunk_inputs(cfg, p, x, conv_state)
+    x_cat, xc, z, dt, A, B_mat, C_mat = _chunk_inputs(cfg, p, x, conv_state, tp)
     if length is not None:
         dt = dt * (torch.arange(x.shape[1], device=x.device) < length)[None, :, None]
     y, h = mamba1_scan(xc, dt, A, B_mat, C_mat, p["D"], h0=ssm_state)
     tail = x_cat[:, -(K - 1):] if length is None else x_cat[:, length:length + K - 1]
-    return _out(p, y, z), tail, h
+    return _out(p, y, z, tp), tail, h
 
 
-def mamba1_chunk_states(cfg: ModelConfig, p, x, *, conv_state, ssm_state, states=None):
+def mamba1_chunk_states(cfg: ModelConfig, p, x, *, conv_state, ssm_state, states=None,
+                        tp=None):
     """`mamba1_chunk` for speculative verification: every position's
     output and state. Returns (out (B, C, d), x_cat (B, K-1+C, di), h_all
     (B, C, di, N)); after keeping j tokens the conv window is x_cat[:,
     j:j+K-1] and the scan state h_all[:, j-1]."""
-    x_cat, xc, z, dt, A, B_mat, C_mat = _chunk_inputs(cfg, p, x, conv_state)
+    x_cat, xc, z, dt, A, B_mat, C_mat = _chunk_inputs(cfg, p, x, conv_state, tp)
     y, hs = mamba1_scan_states(xc, dt, A, B_mat, C_mat, p["D"], h0=ssm_state,
                                states=states)
-    return _out(p, y, z), x_cat, hs
+    return _out(p, y, z, tp), x_cat, hs
 
 
 # ------------------------------------------------------------- mamba 2 -----

@@ -96,21 +96,27 @@ share one `PageAllocator` (`page_allocator=`): every page reference
 page tables and positions.
 
 `mesh=` (a (data, model) `DeviceMesh` from `launch.mesh`, over a default
-process group the caller has started) serves the paged layout of the dense
-and vlm families on a mesh, one process a rank. Every rank builds the
+process group the caller has started) serves every family, both layouts
+and every drafter on a mesh, one process a rank. Every rank builds the
 engine with the full parameters and the same arguments and runs the same
 requests: the host-side decisions (scheduling, page ids, prefix hits,
 drafts) are the same on every rank, so none is exchanged. Each rank keeps
 its shards of the parameters (`distributed.sharding.shard_params`: FSDP on
-`data`, tensor parallelism on `model`) and of the pool (heads over
-`model`, pages replicated, `PageAllocator.shard_pools`); the forwards
-write out the collectives that GSPMD inserts in the JAX engine
-(`distributed.sharding.MeshRank`). A batched decode step or verify round
-runs each `data` rank's slots, writes every slot's K/V on every rank and
-all-gathers the step's tokens; a prefill chunk runs on every rank. Rows,
-tokens and `stats` are those of the single-device engine. The slab layout,
-the draft-model drafter and the other families raise NotImplementedError
-on a mesh (ROADMAP.md Queue 1 item 5).
+`data`, tensor parallelism on `model`), of the pool (heads, or MLA's
+latent rank, over `model`, pages replicated, `PageAllocator.shard_pools`)
+and of the per-slot state and slab (`serving_cache_specs`: slots over
+`data`, the slab's sequence, Mamba1's channels and the cross K/V's heads
+over `model`); the forwards write out the collectives that GSPMD inserts
+in the JAX engine (`distributed.sharding.MeshRank`). A batched decode step
+or verify round runs each `data` rank's slots (the moe family: every slot
+on every rank, so K6 sees the whole call), writes every slot's K/V into a
+paged pool on every rank and all-gathers the step's tokens; a prefill
+chunk or whole prompt runs on every rank, and a B = 1 sub-cache is the
+rank's shard of the slab but for the batch. The slab's decode steps run
+the sequence-sharded combine over kernel K5s. A prefix entry holds the
+rank's shards, and its byte size, like `kv_bytes_peak`, counts the global
+tensors, as the JAX package counts a sharded array. Rows, tokens and
+`stats` are those of the single-device engine.
 """
 from __future__ import annotations
 
@@ -124,12 +130,13 @@ import torch
 
 from repro_torch.data import lm_data
 from repro_torch.device import resolve_device
-from repro_torch.distributed.sharding import MeshRank, shard_params
+from repro_torch.distributed.sharding import (MeshRank, global_nbytes, serving_cache_specs,
+                                              shard_params)
 from repro_torch.launch.mesh import mesh_device
 from repro_torch.models import (decode_step, decode_step_slab,
                                 encode_cross_kv, init_decode_cache, init_state_cache,
-                                init_verify_ckpts, prefill, prefill_chunk,
-                                verify_chunk, verify_chunk_slab)
+                                init_verify_ckpts, prefill, prefill_chunk, verify_chunk,
+                                verify_chunk_slab)
 from repro_torch.models.cache_ops import (PAGE_SINK, PageAllocator,
                                           PagePoolExhausted, cache_nbytes,
                                           expand_snapshot, prefix_snapshot,
@@ -137,28 +144,12 @@ from repro_torch.models.cache_ops import (PAGE_SINK, PageAllocator,
                                           sink_plan, sink_take, truncate_pages,
                                           write_slot)
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.model import MESH_FAMILIES, VISION_DIM
+from repro_torch.models.model import VISION_DIM
 from repro_torch.obs import MetricsRegistry, StatsDict, as_tracer
 from repro_torch.obs.metrics import ENGINE_STATS
 
 from .prefix_cache import PrefixCache
 from .spec_decode import DraftModelDrafter, PromptLookupDrafter
-
-_MESH_NEXT = "is not ported yet, see ROADMAP.md Queue 1 item 5"
-
-
-def check_mesh_serving(cfg: ModelConfig, kv_layout: str, spec_decode) -> None:
-    """Raise NotImplementedError for what a mesh does not serve yet: the
-    slab layout (its sequence-sharded KV needs `distributed.decode`'s
-    combine inside the engine), the draft-model drafter (a slab cache) and
-    every family but dense and vlm."""
-    if cfg.family not in MESH_FAMILIES:
-        raise NotImplementedError(f"the {cfg.family} family on a mesh {_MESH_NEXT}")
-    if kv_layout != "paged":
-        raise NotImplementedError(f"kv_layout={kv_layout!r} on a mesh {_MESH_NEXT}")
-    if isinstance(spec_decode, str) and spec_decode == "draft":
-        raise NotImplementedError(f"spec_decode='draft' on a mesh {_MESH_NEXT}")
-
 
 @dataclass
 class Request:
@@ -237,22 +228,21 @@ class ServingEngine:
         device: where the KV and the model run (None = the CUDA device);
         `params` must already live there.
         mesh: a (data, model) `DeviceMesh` (`launch.mesh.make_serving_mesh`)
-        over a started default process group: the paged layout of the
-        dense and vlm families on the mesh. `params` are the full
-        parameters (or `shard_params`' shards); the engine's device is the
-        rank's (`launch.mesh.mesh_device`), and `device` must be None."""
+        over a started default process group: the engine on the mesh.
+        `params` are the full parameters (or `shard_params`' shards), and
+        so are a draft model's; the engine's device is the rank's
+        (`launch.mesh.mesh_device`), and `device` must be None."""
         if kv_layout not in ("paged", "slab"):
             raise ValueError(f"kv_layout must be 'paged' or 'slab', got {kv_layout!r}")
         self.cfg = cfg
         self._mesh = None
         if mesh is not None:
-            check_mesh_serving(cfg, kv_layout, spec_decode)
             if device is not None:
                 raise ValueError("on a mesh the engine runs on the rank's device; "
                                  "pass device=None")
             self.device = mesh_device(mesh)
             params = shard_params(cfg, params, mesh, device=self.device)
-            self._mesh = MeshRank(params)
+            self._mesh = MeshRank(cfg, params, None if kv_layout == "paged" else max_len)
         else:
             self.device = resolve_device(device)
         self.params = params
@@ -285,8 +275,9 @@ class ServingEngine:
                     raise ValueError(
                         f"draft vocab {dcfg.vocab_size} != target vocab "
                         f"{cfg.vocab_size}")
-                self.drafter = DraftModelDrafter(dcfg, dparams, slots=slots,
-                                                 max_len=max_len, device=self.device)
+                self.drafter = DraftModelDrafter(
+                    dcfg, dparams, slots=slots, max_len=max_len, mesh=mesh,
+                    device=None if mesh is not None else self.device)
             else:
                 self.drafter = None
         else:
@@ -317,6 +308,12 @@ class ServingEngine:
         else:
             self.cache = init_decode_cache(cfg, slots, max_len, device=self.device)
             self._prefill_buckets: set = set()     # distinct prefill lengths
+        if mesh is not None:
+            # the rank's shards, and the specs that give their global bytes
+            # (the batched cache's, and a B = 1 sub-cache's or state's)
+            self._specs = serving_cache_specs(cfg, self.cache, mesh, slots)
+            self._sub_specs = serving_cache_specs(cfg, self.cache, mesh, 1)
+            self.cache = self._mesh.local_cache(cfg, self.cache, slots)
         self.cache["pos"] = torch.zeros((slots,), dtype=torch.int32, device=self.device)
         self._pos_h = np.zeros((slots,), np.int64)   # host mirror of pos
         self._live = np.zeros((slots,), bool)
@@ -423,7 +420,17 @@ class ServingEngine:
         self.stats["prefill_ctx_positions"] += (self._extra + bucket) ** 2
         return prefill(self.cfg, self.params, toks, self.max_len, length=n,
                        image_embeds=self._image_embeds() if self._extra else None,
-                       frames=self._frames() if self.cfg.family == "encdec" else None)
+                       frames=self._frames() if self.cfg.family == "encdec" else None,
+                       mesh=self._mesh)
+
+    def _nbytes(self, tree: dict, sub: bool = False, seq_len=None) -> int:
+        """Bytes of a cache dict; on a mesh those of the global tensors the
+        rank's shards belong to (the batched cache's specs, or with `sub` a
+        B = 1 sub-cache's; `seq_len` for a trimmed snapshot)."""
+        if self._mesh is None:
+            return cache_nbytes(tree)
+        return global_nbytes(tree, self._sub_specs if sub else self._specs,
+                             self._mesh.mesh, seq_len)
 
     def _insert_slab_co(self, slot: int, req: Request):
         """Slab-layout insert, yielding between prefill units (one bucketed
@@ -439,7 +446,7 @@ class ServingEngine:
             entry = self.prefix_cache.match(prompt)
             if entry is not None and len(entry.tokens) >= self.prefix_min_len:
                 prefix_len = len(entry.tokens)
-                sub = expand_snapshot(entry.cache, self.max_len)
+                sub = expand_snapshot(entry.cache, self.max_len, self._mesh)
                 self.stats["prefix_hits"] += 1
                 self.stats["prefix_saved_tokens"] += prefix_len
                 self.tracer.instant("engine.prefix_hit", kind="engine",
@@ -452,9 +459,11 @@ class ServingEngine:
                     _, sub = self._prefill_sub(prompt[:boundary])
                     did_work = True
                     self.stats["prefill_tokens"] += boundary
+                    lp = self._extra + boundary
+                    snap = prefix_snapshot(sub, lp, self._mesh)
                     self.prefix_cache.insert(
-                        prompt[:boundary],
-                        prefix_snapshot(sub, self._extra + boundary),
+                        prompt[:boundary], snap,
+                        nbytes=self._nbytes(snap, sub=True, seq_len=lp),
                         doc_ids=self._entry_docs(req, boundary))
                     self.stats["prefix_inserts"] += 1
                     prefix_len = boundary
@@ -469,12 +478,13 @@ class ServingEngine:
                 did_work = True
                 logits, sub = decode_step_slab(
                     self.cfg, self.params,
-                    torch.as_tensor([[t]], dtype=torch.int64, device=self.device), sub)
+                    torch.as_tensor([[t]], dtype=torch.int64, device=self.device), sub,
+                    mesh=self._mesh)
                 self.stats["prefill_invocations"] += 1
                 # each token-step attends the full max_len KV buffer
                 self.stats["prefill_ctx_positions"] += self.max_len
             self.stats["prefill_tokens"] += len(prompt) - prefix_len
-        write_slot(self.cache, sub, slot)
+        write_slot(self.cache, sub, slot, self._mesh)
         return logits, self._extra + len(prompt)
 
     # -------------------------------------------------- paged-mode prefill --
@@ -613,7 +623,7 @@ class ServingEngine:
         snap = {"pos": torch.tensor(lp, dtype=torch.int32),
                 **{k: a.clone() for k, a in state.items()}}
         nbytes = ((len(entry_pages) + (1 if tail is not None else 0))
-                  * self.alloc.page_nbytes + cache_nbytes(snap))
+                  * self.alloc.page_nbytes + self._nbytes(snap, sub=True))
         alloc, ids = self.alloc, entry_pages + ([tail] if tail is not None else [])
         self.prefix_cache.insert(prefix, snap, pages=entry_pages,
                                  tail_page=tail, nbytes=nbytes,
@@ -630,7 +640,8 @@ class ServingEngine:
         no forward writes a state's "ck"/"cv", and snapshots copy them."""
         if self.cfg.family == "encdec":
             if self._cross_kv is None:
-                self._cross_kv = encode_cross_kv(self.cfg, self.params, self._frames())
+                self._cross_kv = encode_cross_kv(self.cfg, self.params, self._frames(),
+                                                 tp=self._mesh)
             return dict(zip(("ck", "cv"), self._cross_kv))
         return {k: torch.zeros_like(a[:, :1]) for k, a in self.cache.items() if k != "pos"}
 
@@ -716,8 +727,7 @@ class ServingEngine:
                 logits, lpos, _ = yield from self._chunked_prefill_co(
                     slot, state, prompt, 0)
             self.stats["prefill_tokens"] += plen
-        for k, a in state.items():
-            self.cache[k][:, slot] = a[:, 0]
+        write_slot(self.cache, state, slot, self._mesh)
         return logits, lpos
 
     def _insert_co(self, slot: int, req: Request):
@@ -743,7 +753,7 @@ class ServingEngine:
         self._note_kv_bytes()
 
     def _note_kv_bytes(self):
-        used = cache_nbytes(self.cache)
+        used = self._nbytes(self.cache)
         if self.paged:
             used += self.alloc.nbytes_in_use
         elif self.prefix_cache is not None:
@@ -798,7 +808,7 @@ class ServingEngine:
             # (past max_len too, where its writes are dropped) until an
             # insert resets it, as in the JAX engine
             logits, self.cache = decode_step_slab(self.cfg, self.params,
-                                                  self._tokens, self.cache)
+                                                  self._tokens, self.cache, mesh=self._mesh)
         self._pos_h += 1
         self.stats["decode_steps"] += 1
         self.stats["decode_slot_steps"] += len(self.active)
@@ -885,8 +895,7 @@ class ServingEngine:
         ckpts = None
         if "ssm" in self.cache:
             if self._ckpts is None:
-                self._ckpts = init_verify_ckpts(self.cfg, self.slots, C,
-                                                device=self.device)
+                self._ckpts = init_verify_ckpts(self.cache, C)
             ckpts = self._ckpts
         if self.paged:
             ctx = wpages = woffs = b0s = None
@@ -930,7 +939,7 @@ class ServingEngine:
         else:
             logits, self.cache = verify_chunk_slab(
                 self.cfg, self.params, torch.as_tensor(toks, device=self.device),
-                self.cache, ckpts=ckpts)
+                self.cache, ckpts=ckpts, mesh=self._mesh)
 
         self.stats["decode_steps"] += 1
         self.stats["spec_rounds"] += 1
@@ -992,7 +1001,13 @@ class ServingEngine:
         """Batched Mamba1 rollback (the JAX engine's `_restore_ckpt_rows`):
         every row in `keeps` gets the state after its kept tokens -- the scan
         state checkpointed at position keep - 1 and the conv window of raw
-        inputs [keep, keep + K - 1) -- in one gather per buffer."""
+        inputs [keep, keep + K - 1) -- in one gather per buffer. On a mesh the
+        rank restores the rows it holds."""
+        if self._mesh is not None:
+            local = {self._mesh.local_row(s, self.slots): k for s, k in keeps.items()}
+            keeps = {r: k for r, k in local.items() if r is not None}
+            if not keeps:
+                return
         rows = torch.as_tensor(list(keeps), device=self.device)
         ks = torch.as_tensor(list(keeps.values()), device=self.device)
         km1 = self.cache["conv"].shape[2]

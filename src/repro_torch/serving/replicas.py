@@ -44,7 +44,7 @@ from repro_torch.launch.mesh import mesh_device
 from repro_torch.models.cache_ops import PageAllocator, PagePoolExhausted
 from repro_torch.models.config import ModelConfig
 
-from .engine import RunTruncated, ServingEngine, check_mesh_serving
+from .engine import RunTruncated, ServingEngine
 from .prefix_cache import PrefixCache
 
 # stats aggregated as max over replicas; every other counter sums
@@ -102,8 +102,6 @@ class ReplicaGroup:
         else:
             self.prefix_cache = PrefixCache() if prefix_cache else None
         shared_alloc = None
-        if mesh is not None:
-            check_mesh_serving(cfg, kv_layout, engine_kwargs.get("spec_decode", "off"))
         alloc_device = device if mesh is None else mesh_device(mesh)
         if kv_layout == "paged" and share_kv_pool and replicas > 1:
             pages_per_slot = max_len // max(1, int(page_size))

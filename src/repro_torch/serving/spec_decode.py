@@ -20,7 +20,11 @@ bucketed to `chunk_size` (kernel K2 on the card), each draft step is a
 batched slab decode step (kernel K5), and rows resynchronise to the
 target's kept history by common prefix at the start of every round. It
 keeps a host mirror of the cache positions, where the JAX drafter reads
-them back from the device twice a round.
+them back from the device twice a round. On a mesh (`mesh=`) its params
+are sharded as the target's (`shard_params`) and its slab is the rank's
+shard, run through the mesh forwards with a `MeshRank` of its own: the
+slab path of `serving.engine` on a mesh (the JAX drafter leaves its slab
+replicated; the port shards it as the engine's).
 
 Drafters see the engine through a narrow protocol: `on_insert(slot, req)`
 and `on_free(slot)` track slot lifecycle, `draft_round(reqs, k_eff)`
@@ -33,6 +37,8 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import MeshRank, shard_params
+from repro_torch.launch.mesh import mesh_device
 from repro_torch.models import decode_step_slab, init_decode_cache, prefill
 from repro_torch.models.cache_ops import write_slot
 from repro_torch.models.config import ModelConfig
@@ -107,17 +113,24 @@ class DraftModelDrafter:
             raise ValueError(
                 f"draft model family must be dense/moe (attention KV rollback "
                 f"is a position reset); got {cfg.family!r}")
-        if mesh is not None:
-            raise NotImplementedError(
-                "the draft model on a mesh is not ported yet (its slab cache needs "
-                "the sequence-sharded combine), see ROADMAP.md Queue 1 item 5")
         self.cfg = cfg
+        self._mesh = None
+        if mesh is not None:
+            if device is not None:
+                raise ValueError("on a mesh the drafter runs on the rank's device; "
+                                 "pass device=None")
+            self.device = mesh_device(mesh)
+            params = shard_params(cfg, params, mesh, device=self.device)
+            self._mesh = MeshRank(cfg, params, max_len)
+        else:
+            self.device = resolve_device(device)
         self.params = params
         self.slots = slots
         self.max_len = max_len
         self.chunk_size = max(1, int(chunk_size))
-        self.device = resolve_device(device)
         self.cache = init_decode_cache(cfg, slots, max_len, device=self.device)
+        if self._mesh is not None:
+            self.cache = self._mesh.local_cache(cfg, self.cache, slots)
         self.cache["pos"] = torch.zeros((slots,), dtype=torch.int32, device=self.device)
         self._pos_h = np.zeros((slots,), np.int64)          # host mirror of pos
         self._hist: dict = {s: [] for s in range(slots)}   # tokens fed per row
@@ -138,8 +151,9 @@ class DraftModelDrafter:
         bucket = min(((n + b - 1) // b) * b, self.max_len)
         toks = torch.as_tensor([prompt + [0] * (bucket - n)], dtype=torch.int64,
                                device=self.device)
-        _, sub = prefill(self.cfg, self.params, toks, self.max_len, length=n)
-        write_slot(self.cache, sub, slot)
+        _, sub = prefill(self.cfg, self.params, toks, self.max_len, length=n,
+                         mesh=self._mesh)
+        write_slot(self.cache, sub, slot, self._mesh)
         self._pos_h[slot] = n
         self._hist[slot] = prompt
         self.stats["draft_prefill_tokens"] += n
@@ -197,10 +211,13 @@ class DraftModelDrafter:
                 self._hist[slot].append(tok)
             logits, self.cache = decode_step_slab(
                 self.cfg, self.params, torch.as_tensor(row_tok, device=self.device),
-                self.cache)
+                self.cache, mesh=self._mesh)
             self._pos_h = self._pos_h + 1
             self.stats["draft_model_steps"] += 1
-            nxt = torch.argmax(logits[:, 0, :], dim=-1).cpu().numpy()
+            nxt = torch.argmax(logits[:, 0, :], dim=-1)
+            if self._mesh is not None:
+                nxt = self._mesh.rows_cat(nxt, self.slots)
+            nxt = nxt.cpu().numpy()
             for slot in list(fed_now):
                 if not feeds[slot] and len(props[slot]) < want[slot]:
                     props[slot].append(int(nxt[slot]))

@@ -12,6 +12,7 @@ import math
 import pytest
 
 torch = pytest.importorskip("torch")
+import torch_threads  # noqa: E402,F401
 
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402

@@ -10,6 +10,7 @@ packages."""
 import pytest
 
 torch = pytest.importorskip("torch")
+import torch_threads  # noqa: E402,F401
 
 import jax  # noqa: E402
 import numpy as np  # noqa: E402
@@ -135,7 +136,8 @@ def test_draft_validation(weights):
     """The JAX engine's validation: a missing draft model, a vocab
     mismatch and a family other than dense/moe raise ValueError; a MoE
     draft (standard attention, as grok-1-314b) passes it and gets its slab
-    cache; mesh= is not ported."""
+    cache; on a mesh the drafter runs on the rank's device, so a device
+    beside mesh= raises (the drafter on a mesh: test_torch_mesh_families)."""
     _, _, tcfg, tparams, _ = weights
     with pytest.raises(ValueError, match="draft_model"):
         ServingEngine(tcfg, tparams, device="cpu", spec_decode="draft")
@@ -149,7 +151,7 @@ def test_draft_validation(weights):
                         draft_model=(tcfg.replace(family="moe", n_experts=4), tparams))
     assert moe.drafter.cfg.family == "moe" and moe.drafter.cache["k"].shape[0] == \
         tcfg.num_layers
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
+    with pytest.raises(ValueError, match="device=None"):
         DraftModelDrafter(tcfg, tparams, slots=1, max_len=64, mesh=object(), device="cpu")
 
 

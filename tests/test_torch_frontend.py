@@ -12,6 +12,7 @@ import time
 import pytest
 
 torch = pytest.importorskip("torch")
+import torch_threads  # noqa: E402,F401
 
 import repro.core as jcore  # noqa: E402
 import repro_torch.core as tcore  # noqa: E402

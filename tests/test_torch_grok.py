@@ -14,6 +14,7 @@ compare the K/V pools, sink page included, with the JAX engine's."""
 import pytest
 
 torch = pytest.importorskip("torch")
+import torch_threads  # noqa: E402,F401
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402

@@ -16,6 +16,7 @@ trunk's states are ~1e-4)."""
 import pytest
 
 torch = pytest.importorskip("torch")
+import torch_threads  # noqa: E402,F401
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -204,7 +205,7 @@ def test_params_match_jax_layout_and_published_count(weights):
                                                             device="cpu").items()} == want
     assert {k: tuple(v.shape) for k, v in init_state_cache(tcfg, 3, device="cpu").items()} == \
         {k: want[k] for k in ("conv", "ssm")}
-    ck = init_verify_ckpts(tcfg, 3, 5, device="cpu")
+    ck = init_verify_ckpts(init_state_cache(tcfg, 3, device="cpu"), 5)
     assert ck["ssm"].shape == (4, 3, 5) + want["ssm"][2:]
     assert ck["conv"].shape == (4, 3, 3 + 5, want["conv"][3])
 
@@ -258,7 +259,7 @@ def test_paged_model_matches_reference(weights):
     toks = rng.integers(0, 256, size=(1, C))
     cache["pos"] = jnp.asarray([pos], jnp.int32)
     jl, jcache, jck = jax_verify_chunk(jcfg, jparams, {"tokens": jnp.asarray(toks)}, cache)
-    ck = init_verify_ckpts(tcfg, 1, C, device="cpu")
+    ck = init_verify_ckpts(init_state_cache(tcfg, 1, device="cpu"), C)
     cpos = torch.as_tensor(pos + np.arange(C))
     tl = verify_chunk(tcfg, tparams, torch.as_tensor(toks),
                       torch.as_tensor([pos], dtype=torch.int32), pools, ctx[None],
@@ -290,7 +291,7 @@ def test_slab_model_matches_reference(weights):
     tc["pos"] = tc["pos"].reshape(1)
     vt = rng.integers(0, 256, size=(1, 5))
     jl, jc, jck = jax_verify_chunk(jcfg, jparams, {"tokens": jnp.asarray(vt)}, jc)
-    ck = init_verify_ckpts(tcfg, 1, 5, device="cpu")
+    ck = init_verify_ckpts(init_state_cache(tcfg, 1, device="cpu"), 5)
     tl, tc = verify_chunk_slab(tcfg, tparams, torch.as_tensor(vt), tc, ckpts=ck)
     _close(tl.numpy(), jl, msg="verify")
     for k in ("k", "v", "conv", "ssm"):

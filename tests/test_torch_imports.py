@@ -15,6 +15,7 @@ from pathlib import Path
 import pytest
 
 pytest.importorskip("torch")
+import torch_threads  # noqa: E402,F401
 
 SRC = Path(__file__).resolve().parents[1] / "src"
 PORT = SRC / "repro_torch"
@@ -49,7 +50,6 @@ EDITED = {
     "serving/replicas.py": (
         ["import jax",
          "",
-         "from .engine import RunTruncated, ServingEngine",
          "                 share_kv_pool: bool = True, **engine_kwargs):",
          "            shared_alloc = PageAllocator(cfg, num_pages, page_size)",
          "            # shard once; each engine's device_put of already-sharded",
@@ -60,12 +60,9 @@ EDITED = {
          "                **engine_kwargs)"],
         ["from repro_torch.distributed.sharding import shard_params",
          "from repro_torch.launch.mesh import mesh_device",
-         "from .engine import RunTruncated, ServingEngine, check_mesh_serving",
          "                 share_kv_pool: bool = True, device=None, **engine_kwargs):",
          "        device: where the shared pool and every replica run (None = the",
          "        CUDA device; on a mesh the rank's device, and device must be None).",
-         "        if mesh is not None:",
-         "            check_mesh_serving(cfg, kv_layout, engine_kwargs.get(\"spec_decode\", \"off\"))",
          "        alloc_device = device if mesh is None else mesh_device(mesh)",
          "            shared_alloc = PageAllocator(cfg, num_pages, page_size,",
          "                                         device=alloc_device)",

@@ -5,6 +5,7 @@ retriever's segments on a legal subset."""
 import pytest
 
 torch = pytest.importorskip("torch")
+import torch_threads  # noqa: E402,F401
 
 import numpy as np  # noqa: E402
 

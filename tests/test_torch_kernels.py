@@ -10,6 +10,7 @@ kernels themselves are held against these plain versions on the card by
 import pytest
 
 torch = pytest.importorskip("torch")
+import torch_threads  # noqa: E402,F401
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402

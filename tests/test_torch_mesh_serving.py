@@ -15,13 +15,14 @@ prompt lookup; on 1x4 (n_kv_heads 2 < 4: the pool keeps every head)
 qwen2.5-3b plain; and a `ReplicaGroup` of 2 replicas on 1x2. Every rank's
 rows and tokens and the engine's `stats` must be identical to the
 single-device engine's. The slab layout, the draft-model drafter and the
-moe, ssm, hybrid and encdec families refuse a mesh."""
+moe, ssm, hybrid and encdec families on a mesh: `test_torch_mesh_families`."""
 import json
 
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import torch_threads  # noqa: E402,F401
 
 import jax  # noqa: E402
 
@@ -34,7 +35,6 @@ from repro_torch.bridge import params_from_numpy  # noqa: E402
 from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.data import lm_data  # noqa: E402
 from repro_torch.serving.engine import Request, ServingEngine  # noqa: E402
-from repro_torch.serving.spec_decode import DraftModelDrafter  # noqa: E402
 from test_torch_distributed import run_ranks  # noqa: E402
 
 SHARED = [7, 3, 9, 4, 2, 8, 1, 6, 5, 7, 3, 2]
@@ -182,30 +182,3 @@ def test_mesh_engine_matches_jax_single_device(served):
     want = {str(i): list(r.out) for i, r in eng.run().items()}
     for res in four:
         assert res["qwen-pc-pl@2x2"]["rows"] == want
-
-
-REFUSALS = {
-    "slab": ("qwen2.5-3b", dict(kv_layout="slab")),
-    "draft": ("qwen2.5-3b", dict(spec_decode="draft")),
-    "moe": ("deepseek-v2-lite-16b", {}),
-    "moe-gqa": ("grok-1-314b", {}),
-    "ssm": ("falcon-mamba-7b", {}),
-    "hybrid": ("zamba2-2.7b", {}),
-    "encdec": ("whisper-medium", {}),
-}
-
-
-@pytest.mark.parametrize("case", sorted(REFUSALS))
-def test_mesh_refuses_what_is_not_ported(case):
-    """The engine refuses, before it touches the mesh or the weights, what
-    the next slice brings (ROADMAP.md Queue 1 item 5)."""
-    arch, kw = REFUSALS[case]
-    cfg = get_smoke_config(arch)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 5"):
-        ServingEngine(cfg, None, mesh=object(), **kw)
-
-
-def test_draft_model_drafter_refuses_a_mesh():
-    cfg = get_smoke_config("qwen2.5-3b")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 5"):
-        DraftModelDrafter(cfg, None, slots=2, max_len=64, mesh=object())

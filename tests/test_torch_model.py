@@ -4,6 +4,7 @@ decode logits teacher-forced, then greedy decoding token for token."""
 import pytest
 
 torch = pytest.importorskip("torch")
+import torch_threads  # noqa: E402,F401
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402

@@ -11,6 +11,7 @@ port must drop the same ones as the JAX engine."""
 import pytest
 
 torch = pytest.importorskip("torch")
+import torch_threads  # noqa: E402,F401
 
 import jax  # noqa: E402
 import numpy as np  # noqa: E402

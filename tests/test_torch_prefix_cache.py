@@ -8,6 +8,7 @@ on the same requests (bridged SMOKE qwen2.5-3b weights)."""
 import pytest
 
 torch = pytest.importorskip("torch")
+import torch_threads  # noqa: E402,F401
 
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402

@@ -8,6 +8,7 @@ two replicas share one `PageAllocator` and one prefix cache."""
 import pytest
 
 torch = pytest.importorskip("torch")
+import torch_threads  # noqa: E402,F401
 
 from repro.serving import replicas as jrep  # noqa: E402
 from repro.serving.engine import Request as JaxRequest  # noqa: E402
@@ -157,8 +158,8 @@ def test_replica_group_shared_prefix_cache_and_pool(weights):
 
 def test_shared_allocator_checks_and_refusals(weights):
     """The engine takes a shared allocator only at its page size and on its
-    device; the group refuses what a mesh does not serve yet (the slab
-    layout) as the engine does, before it touches the mesh."""
+    device. (A mesh serves every layout now: the group on a mesh is
+    `tests/test_torch_mesh_serving.py`'s and `test_torch_mesh_families`'.)"""
     _, _, tcfg, tparams, _ = weights
     alloc = PageAllocator(tcfg, 9, 16, device="cpu")
     eng = ServingEngine(tcfg, tparams, device="cpu", page_allocator=alloc)
@@ -169,5 +170,3 @@ def test_shared_allocator_checks_and_refusals(weights):
     meta = PageAllocator(tcfg, 9, 16, device="meta")
     with pytest.raises(AssertionError, match="pools live on"):
         ServingEngine(tcfg, tparams, device="cpu", page_allocator=meta)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
-        trep.ReplicaGroup(tcfg, tparams, device="cpu", kv_layout="slab", mesh=object())

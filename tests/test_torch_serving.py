@@ -10,6 +10,7 @@ import dataclasses
 import pytest
 
 torch = pytest.importorskip("torch")
+import torch_threads  # noqa: E402,F401
 
 import jax  # noqa: E402
 import numpy as np  # noqa: E402
@@ -130,16 +131,6 @@ def test_served_mini_swde_query_identical(weights):
     got = _run_torch(weights, _mini_swde(tcorpus), _swde_query(tcore))
     want = _run_jax(weights, _mini_swde(jcorpus), _swde_query(jcore))
     _assert_identical(want, got)
-
-
-def test_unported_options_raise(weights):
-    """A mesh serves the paged layout; the slab layout and the draft model
-    on a mesh are the next slice's."""
-    _, _, tcfg, tparams, _ = weights
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
-        ServingEngine(tcfg, tparams, device="cpu", kv_layout="slab", mesh=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
-        ServingEngine(tcfg, tparams, device="cpu", spec_decode="draft", mesh=object())
 
 
 def test_engine_lifecycle(weights):

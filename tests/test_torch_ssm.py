@@ -8,6 +8,7 @@ surgery and the bridge, on bridged SMOKE falcon-mamba-7b weights."""
 import pytest
 
 torch = pytest.importorskip("torch")
+import torch_threads  # noqa: E402,F401
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -351,7 +352,7 @@ def test_verify_ckpts_match_jax_and_rollback_contract(weights):
     cand = [5, 9, 13, 17, 21]
     jv, jnew, jck = jax_verify_chunk(jcfg, jparams, {"tokens": jnp.asarray([cand])}, dict(jc))
     state = {k: tc[k].clone() for k in ("conv", "ssm")}
-    ckpts = init_verify_ckpts(tcfg, 1, len(cand), device="cpu")
+    ckpts = init_verify_ckpts(init_state_cache(tcfg, 1, device="cpu"), len(cand))
     tv = verify_chunk(tcfg, tparams, torch.as_tensor([cand]), torch.zeros(1), {}, None, None,
                       None, state=state, ckpts=ckpts)
     _close(tv.numpy(), jv)
@@ -360,7 +361,7 @@ def test_verify_ckpts_match_jax_and_rollback_contract(weights):
     # the slab signature fills the same checkpoints
     slab = {"pos": torch.tensor([9], dtype=torch.int32),
             **{k: tc[k].clone() for k in ("conv", "ssm")}}
-    ck2 = init_verify_ckpts(tcfg, 1, len(cand), device="cpu")
+    ck2 = init_verify_ckpts(init_state_cache(tcfg, 1, device="cpu"), len(cand))
     sv, slab = verify_chunk_slab(tcfg, tparams, torch.as_tensor([cand]), slab, ckpts=ck2)
     assert torch.equal(sv, tv) and int(slab["pos"][0]) == 9 + len(cand)
     for k in ck2:

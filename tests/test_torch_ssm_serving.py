@@ -10,6 +10,7 @@ counters)."""
 import pytest
 
 torch = pytest.importorskip("torch")
+import torch_threads  # noqa: E402,F401
 
 import jax  # noqa: E402
 import numpy as np  # noqa: E402
