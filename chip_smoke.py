@@ -81,7 +81,7 @@ main's rows, kernels checks the launches the model paths captured):
              K3, K4), each also on the card without a mesh: rows, ledger,
              engine counters (kv_bytes_peak included), every request's
              tokens and the launch counts must be identical; on the first
-             REF_SLAB_DOCS documents the same for the slab layout (the
+             MESH_FEW_DOCS documents the same for the slab layout (the
              slab's sequence over `model`: its decode steps run the
              sequence-sharded combine, whose leaf is K5s, where the card
              alone runs K5) and the draft-model drafter (its slab on the
@@ -92,7 +92,7 @@ main's rows, kernels checks the launches the model paths captured):
              exactly; the process group is destroyed. A failed NCCL init
              or collective fails the phase. The ssm, moe, grok, hybrid
              and whisper phases each end with their query on the first
-             REF_SLAB_DOCS documents on a 1x1 mesh of their own and on the
+             FAMILY_MESH_DOCS = 3 documents on a 1x1 mesh of their own and on the
              card alone, on the phase's cut weights, which must be
              identical in the same way (`_family_mesh`, a line
              "<phase>_mesh");
@@ -107,7 +107,16 @@ main's rows, kernels checks the launches the model paths captured):
              and gradients within TRAIN_CONTROL_TOL of the same step through
              the kernels' plain versions on the card; a second trainer on
              one repeated batch must lower its loss (`phase_train`); with
-             --profile one more step's device busy share;
+             --profile one more step's device busy share. Then, with those
+             trainers freed, the same Trainer for MESH_TRAIN_STEPS = 2 steps
+             on a 1x1 NCCL mesh (`Trainer(mesh=)`: `forward(mesh=)`, the
+             collectives with their gradients, the sharded AdamW state):
+             its losses, gradient norms and per-leaf parameter checksums
+             equal to the card alone's first two steps bit for bit, K2 =
+             layers x rows x 2 and nothing else; its step ms beside the
+             card alone's. The peak memory is read from the allocation at
+             the phase's start, after the garbage of the earlier phases is
+             collected (both allocations reported);
   ssm        with the qwen2.5-3b weights freed, the same query on
              falcon-mamba-7b (Mamba1) at its published width, cut to its
              first SSM_LAYERS = 16 of 64 layers (d_model 4096, d_inner 8192,
@@ -196,7 +205,11 @@ main's rows, kernels checks the launches the model paths captured):
              and K7: a prefill chunk and a verify round; K2 also the slab
              phase's largest whole-prompt launch and the vlm phase's first
              chunk with the image prefix, K2 and K4 also at grok's and
-             zamba2's shapes, K6 also at grok's E 8, k 2; K2's non-causal
+             zamba2's shapes, K6 also at grok's E 8, k 2, and K6's grouped
+             launch (`_kernel_k6_grouped`: the moe chunk's logits as 2 and
+             4 groups, grok's as 2, each group at its own capacity, beside
+             one ungrouped launch a group; its launches are the reference
+             phase's grouped mode's); K2's non-causal
              form at whisper's encoder, cross-attention chunk and verify
              round, K5 also at whisper's cross-attention of a decode step
              (four slots over 1,500 keys); K1
@@ -262,8 +275,8 @@ main's rows, kernels checks the launches the model paths captured):
              falcon-mamba-7b's four and whisper-medium in llava's three with a
              position table of REF_WHISPER_POSITIONS rows, its slots' cross
              K/V card against CPU (every mode on the first REF_NEW_DOCS =
-             10 documents, every slab mode on the first
-             REF_SLAB_DOCS = 5, beside qwen2.5-3b's plain mode there,
+             5 documents, every slab mode on the first
+             REF_SLAB_DOCS = 3, beside qwen2.5-3b's plain mode there,
              "off_few", which gives their rows); and the serving
              tier in three qwen2.5-3b modes (the frontend phase's two
              tenants over two replicas; cascade="on" with the cheap tier;
@@ -286,10 +299,14 @@ main's rows, kernels checks the launches the model paths captured):
              agree across the devices. Training modes (`training_runs`):
              the seven families' SMOKE configs in float32, the first
              step's loss and gradients and the parameters after two AdamW
-             steps (qwen2.5-3b also Adafactor and 8-bit Adam) card against
-             CPU within TRAIN_REF_TOL, each family's kernels launched on the
-             card, and crash-resume on the card (crash at step 6, resume
-             from the step-4 checkpoint) bit for bit.
+             steps (qwen2.5-3b also Adafactor and 8-bit Adam;
+             deepseek-v2-lite-16b also under set_moe_groups(2): K6's
+             grouped launch, aux 0) card against CPU within TRAIN_REF_TOL,
+             each family's kernels launched on the card, and crash-resume
+             on the card (crash at step 6, resume from the step-4
+             checkpoint) bit for bit, also with the crash on a 1x1 NCCL
+             mesh (its checkpoint the global arrays) resumed on the card
+             alone.
 
 Every phase raises on a mismatch. Then it prints each phase's seconds,
 the `kernels` summary line (K1-K7 and K2's non-causal form; empty when
@@ -302,6 +319,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import json
 import math
 import subprocess
@@ -577,16 +595,25 @@ DEEP_CHUNK = 128
 # first REF_NEW_DOCS legal documents, the vlm phase on the first VLM_DOCS,
 # and falcon-mamba-7b and deepseek-v2-lite-16b run their first SSM_LAYERS
 # of 64 and MOE_LAYERS of 27 layers at full width (drawn whole, then cut).
-REF_NEW_DOCS = 10
+# REF_NEW_DOCS went from 10 to 5 (3 rows, every spec mode with prefix hits
+# and drafts) to pay, with REF_SLAB_DOCS, for the train phase's mesh run,
+# the grouped training mode and the mesh crash-resume.
+REF_NEW_DOCS = 5
 VLM_DOCS = 40
 # The mesh phase (~20 s on one H100 80GB HBM3) took its time from the
 # reference phase's slab modes, that phase's largest block (~204 of its
 # ~260 s of card time on 10 documents): with the prefix cache each request
 # decodes its unshared suffix token by token, so a slab mode's time follows
-# its documents. Every slab mode runs on the first REF_SLAB_DOCS documents
-# (3 rows, at least one prefix hit), its rows held to qwen2.5-3b's plain
-# mode on the same documents ("off_few").
-REF_SLAB_DOCS = 5
+# its documents. Every slab mode runs on the first REF_SLAB_DOCS documents,
+# its rows held to qwen2.5-3b's plain mode on the same documents
+# ("off_few"): 5 until the mesh training runs came, then 3 (1 row, two
+# prefix hits a mode).
+REF_SLAB_DOCS = 3
+# Each family's query on a 1x1 mesh (`_family_mesh`: 49.7 s over five
+# phases on 5 documents) runs on the first FAMILY_MESH_DOCS, which pays
+# for the train phase's mesh run and the reference phase's grouped mode
+# and mesh crash-resume.
+FAMILY_MESH_DOCS = 3
 # With the whisper phase, its kernel rows and its three reference modes
 # the command would pass its limit with --profile, so the earlier depths
 # were cut again (whisper itself runs on FAMILY_DOCS, its reference modes
@@ -666,7 +693,8 @@ def _check_like_main(name, result, main_result):
 
 def _launch_counts():
     """Every kernel's launches; "K2nc" is K2's non-causal form on either of
-    its kernels, "K2nc_sm90" those of them on its Hopper kernel."""
+    its kernels, "K2nc_sm90" those of them on its Hopper kernel, "K6_grouped"
+    K6's launches over more than one group (counted in "K6" too)."""
     from repro_torch.kernels import decode_attention as k15
     from repro_torch.kernels import flash_attention as k2
     from repro_torch.kernels import moe_gating as k6
@@ -676,7 +704,7 @@ def _launch_counts():
     return {"K1": k15.launches, "K2": k2.launches, "K2nc": k2.bidirectional_launches,
             "K2nc_sm90": k2.bidirectional_sm90_launches, "K3": k3.launches,
             "K4": k4.launches, "K5": k15.dense_launches, "K5s": k15.stats_launches,
-            "K6": k6.launches, "K7": k7.launches}
+            "K6": k6.launches, "K6_grouped": k6.grouped_launches, "K7": k7.launches}
 
 
 def _zero_launches():
@@ -689,6 +717,7 @@ def _zero_launches():
     k15.launches = k15.dense_launches = k15.stats_launches = 0
     k2.launches = k3.launches = k4.launches = 0
     k2.bidirectional_launches = k2.bidirectional_sm90_launches = k6.launches = k7.launches = 0
+    k6.grouped_launches = 0
 
 
 def _timed_query(session):
@@ -1280,12 +1309,14 @@ MESH_MODES = {"off": {}, "spec": SPEC}
 # cache, whose hits decode each unshared suffix token by token: ~8,000
 # one-token steps on these documents, each with the mesh's collectives)
 # and the draft-model drafter (the target as its own draft, its slab on
-# the mesh too), on the first REF_SLAB_DOCS documents; each family's query on the mesh runs in its
-# own phase, on that phase's cut weights (`_family_mesh`). On 5 documents
+# the mesh too), on the first MESH_FEW_DOCS documents; each family's query
+# on the mesh runs in its own phase, on that phase's cut weights
+# (`_family_mesh`). On 5 documents
 # retrieval ranks below K3's 256-row gate (numpy, as on any device), so
 # those runs launch no K3; the two modes on FAMILY_DOCS do.
 MESH_NEW_MODES = {"slab": SLAB,
                   "draft": {"prefix_cache": True, "spec_decode": "draft", "spec_k": 4}}
+MESH_FEW_DOCS = 5
 # Every collective costs host time (~30 of them a forward on the mesh), so
 # the phase's time follows its forwards: prompts go in 256-token chunks,
 # half as many as DEEP_CHUNK's (with those the phase took 19.8-27.5 s on
@@ -1379,11 +1410,11 @@ def _check_mesh_pairs(phase: str, pairs: dict) -> None:
 def _family_mesh(phase: str, cfg, params) -> dict:
     """A family's query on its phase's cut weights, on a 1x1 NCCL mesh and
     on the card alone (the served settings, DEEP_CHUNK chunks, the first
-    REF_SLAB_DOCS documents): identical rows, ledger, engine counters,
+    FAMILY_MESH_DOCS documents): identical rows, ledger, engine counters,
     tokens and launches. Emitted as its own line."""
     from repro_torch.data.corpus import make_legal_corpus
     full = make_legal_corpus(seed=1)
-    corpus = full.subset(sorted(full.docs)[:REF_SLAB_DOCS])
+    corpus = full.subset(sorted(full.docs)[:FAMILY_MESH_DOCS])
     t0 = time.perf_counter()
     with _nccl_mesh(None) as (mesh, init_s):
         pairs = _mesh_pairs(cfg, params, corpus, {"spec": SPEC}, mesh, DEEP_CHUNK)
@@ -1405,7 +1436,7 @@ def phase_mesh(seed: int, main_run, out_dir) -> dict:
     the mesh and on the card alone, whose rows, ledger, engine counters,
     tokens and launches must be identical: on the first FAMILY_DOCS legal
     documents off (K1, K2, K3) and prompt lookup with the prefix cache
-    (K2, K3, K4); on the first REF_SLAB_DOCS the slab layout (K2, and
+    (K2, K3, K4); on the first MESH_FEW_DOCS the slab layout (K2, and
     K5s on the mesh where the card alone runs K5) and the draft-model
     drafter with the prefix cache (K2, K4, and K5s for K5). Then
     `make_seq_sharded_decode_attn` (its leaf K5s) against K5
@@ -1426,7 +1457,7 @@ def phase_mesh(seed: int, main_run, out_dir) -> dict:
     full = make_legal_corpus(seed=1)
     docs = sorted(full.docs)
     corpus = full.subset(docs[:FAMILY_DOCS])
-    few = full.subset(docs[:REF_SLAB_DOCS])
+    few = full.subset(docs[:MESH_FEW_DOCS])
     with _nccl_mesh(out_dir) as (mesh, init_s):
         pairs = _mesh_pairs(cfg, params, corpus, MESH_MODES, mesh)
         new = _mesh_pairs(cfg, params, few, MESH_NEW_MODES, mesh)
@@ -1581,9 +1612,9 @@ def phase_moe(seed: int, captures: dict, main_result) -> tuple:
     # 4 x (spec_k + 1))
     verify_T = 4 * (SPEC["spec_k"] + 1)
     captures["K6_verify"] = Capture(k6, "moe_gating",
-                                    lambda lg, k, C=None: 1 if lg.shape[0] == verify_T else -1)
+                                    lambda lg, k, C=None, G=1: 1 if lg.shape[0] == verify_T else -1)
     captures["K6"] = Capture(k6, "moe_gating",
-                             lambda lg, k, C=None: 1 if lg.shape[0] == DEEP_CHUNK else -1)
+                             lambda lg, k, C=None, G=1: 1 if lg.shape[0] == DEEP_CHUNK else -1)
     result, wall, launches = _timed_query(session)
     captures["K6"].restore()
     captures["K6_verify"].restore()
@@ -1763,9 +1794,9 @@ def _family_phase(phase: str, arch: str, n_layers: int, seed: int, captures: dic
         lambda q, kp, vp, tbl, starts: tbl.shape[1] * q.shape[0] if q.shape[1] == H else -1)
     if cfg.n_experts:
         captures[f"K6_{phase}_verify"] = Capture(
-            k6, "moe_gating", lambda lg, k, C=None: 1 if lg.shape[0] == verify_T else -1)
+            k6, "moe_gating", lambda lg, k, C=None, G=1: 1 if lg.shape[0] == verify_T else -1)
         captures[f"K6_{phase}"] = Capture(
-            k6, "moe_gating", lambda lg, k, C=None: 1 if lg.shape[0] == DEEP_CHUNK else -1)
+            k6, "moe_gating", lambda lg, k, C=None, G=1: 1 if lg.shape[0] == DEEP_CHUNK else -1)
     if encdec:
         shapes = {"encoder": (1, cfg.encoder_seq), "chunk": (1, DEEP_CHUNK),
                   "verify": (4, SPEC["spec_k"] + 1)}
@@ -2152,7 +2183,9 @@ def phase_train(seed: int, profile: bool, out_dir) -> dict:
     TRAIN_SEQ)` (the byte ids reach only the first rows of the embedding;
     the logits span the whole vocabulary). Reported: each step's loss and
     host seconds (synchronised), the step time (the median of steps 2-4)
-    and tokens/s, the peak of allocated device memory, and the model-flops
+    and tokens/s, the peak of allocated device memory (reset after the
+    earlier phases' garbage is collected; the allocation on entry and at
+    the start beside it), and the model-flops
     share: `launch/flops.py`'s 6 N D for a training step over the step time
     and `serving/costs.py`'s peak (989e12 flop/s). Asserted: finite losses,
     K2 = layers x rows x steps (one launch a row a layer, forward only: the
@@ -2182,11 +2215,13 @@ def phase_train(seed: int, profile: bool, out_dir) -> dict:
     stream = lm_data.corpus_token_stream(make_wiki_corpus())
     ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_train_")    # stays empty
 
-    def trainer(tokens):
-        tcfg = TrainerConfig(total_steps=TRAIN_STEPS, ckpt_every=TRAIN_STEPS + 1,
+    def trainer(tokens, steps=TRAIN_STEPS, mesh=None):
+        tcfg = TrainerConfig(total_steps=steps, ckpt_every=TRAIN_STEPS + 1,
                              ckpt_dir=ckpt_dir, seed=seed, log_every=1)
-        t = Trainer(cfg, OptConfig(), lm_data.LMBatches(tokens, TRAIN_BATCH, TRAIN_SEQ), tcfg)
-        step, seconds = t.train_step, []
+        t = Trainer(cfg, OptConfig(), lm_data.LMBatches(tokens, TRAIN_BATCH, TRAIN_SEQ), tcfg,
+                    mesh=mesh)
+        t.init()
+        seconds, norms, sums = [], [], []
 
         def timed(*args):
             torch.cuda.synchronize()
@@ -2194,13 +2229,22 @@ def phase_train(seed: int, profile: bool, out_dir) -> dict:
             out = step(*args)
             torch.cuda.synchronize()
             seconds.append(time.perf_counter() - t0)
+            norms.append(float(out[2]["grad_norm"]))
+            if len(seconds) == MESH_TRAIN_STEPS:
+                sums.extend(_checksums(out[0]))
             return out
+        step = t.train_step
         t.train_step = timed
-        t.init()
-        return t, seconds
+        return t, seconds, {"grad_norms": norms, "checksums": sums}
 
+    # what the earlier phases left: garbage that a reference cycle keeps
+    # until Python's cyclic collector runs, and tensors still referenced
+    entry = torch.cuda.memory_allocated()
+    gc.collect()
+    torch.cuda.empty_cache()
+    start = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    t, seconds = trainer(stream)
+    t, seconds, alone = trainer(stream)
     control = _train_control(cfg, t)
     _zero_launches()
     losses = t.run()
@@ -2214,7 +2258,8 @@ def phase_train(seed: int, profile: bool, out_dir) -> dict:
            "parameters": cfg.param_count(), "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
            "optimizer": "adamw, OptConfig() defaults", "losses": losses,
            "step_seconds": seconds, "step_ms": step_s * 1e3, "tokens_per_s": tokens / step_s,
-           "max_memory_allocated": peak, "model_flops_per_step": flops,
+           "max_memory_allocated": peak, "allocated_at_entry": entry,
+           "allocated_at_start": start, "model_flops_per_step": flops,
            "model_flops_share": flops / step_s / PEAK_FLOPS, "peak_flops": PEAK_FLOPS,
            "launches": launches, "control": control}
     if profile:
@@ -2235,10 +2280,11 @@ def phase_train(seed: int, profile: bool, out_dir) -> dict:
             raise AssertionError("train: the profiler saw no device time")
     del t
     torch.cuda.empty_cache()
-    repeat, _ = trainer(stream[:TRAIN_BATCH * (TRAIN_SEQ + 1)])
+    repeat, _, _ = trainer(stream[:TRAIN_BATCH * (TRAIN_SEQ + 1)])
     out["losses_one_batch"] = repeat.run()
     del repeat
     torch.cuda.empty_cache()
+    out["mesh"] = _train_mesh(trainer, stream, losses, seconds, alone, out_dir)
     emit(out)
     want = MAIN_LAYERS * TRAIN_BATCH * TRAIN_STEPS
     others = {k: n for k, n in launches.items() if k != "K2" and n}
@@ -2255,7 +2301,74 @@ def phase_train(seed: int, profile: bool, out_dir) -> dict:
     if not last < first:
         raise AssertionError(f"train: the loss on one repeated batch did not fall: "
                              f"{out['losses_one_batch']}")
+    _check_train_mesh(out["mesh"])
     return out
+
+
+# The train phase's mesh run: MESH_TRAIN_STEPS steps of the same Trainer on
+# a 1x1 NCCL mesh, held to the card alone's first steps. At group size 1
+# every collective is the identity and the mesh step keeps one card's
+# arithmetic (the loss's share is 1, the norm adds its leaves in one
+# card's order), so its losses, gradient norms and the checksums of each
+# parameter leaf must equal the card alone's bit for bit.
+MESH_TRAIN_STEPS = 2
+
+
+def _checksums(params) -> list:
+    """(sum, sum of |x|) of each parameter leaf: float32 reductions, which
+    allocate no copy of the leaf (the phase reports its peak memory), and
+    which the card computes in the same order for the same leaf."""
+    import torch
+    from repro_torch.tree import flat
+    return [(float(t.detach().sum()), float(torch.linalg.vector_norm(t.detach(), 1)))
+            for t in flat(params)]
+
+
+def _train_mesh(trainer, stream, losses, seconds, alone, out_dir) -> dict:
+    """The train phase's Trainer for MESH_TRAIN_STEPS steps on a 1x1 NCCL
+    mesh (`Trainer(mesh=)`: `forward(mesh=)`, the FSDP gathers and their
+    reduce-scatters, the `model` sums and region entries, the vocabulary's
+    gather, the sharded AdamW state), after the card-alone trainers are
+    freed: its losses, gradient norms and parameter checksums beside the
+    card alone's first steps (their largest differences, 0 where they are
+    identical), its step ms and K2 launches."""
+    import statistics
+
+    import torch
+    with _nccl_mesh(out_dir) as (mesh, init_s):
+        t, mesh_seconds, got = trainer(stream, MESH_TRAIN_STEPS, mesh)
+        _zero_launches()
+        mesh_losses = t.run()
+        launches = _launch_counts()
+        del t
+        torch.cuda.empty_cache()
+    n = MESH_TRAIN_STEPS
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(mesh_losses, losses[:n]))
+    norm_err = max(abs(a - b) / abs(b) for a, b in zip(got["grad_norms"], alone["grad_norms"][:n]))
+    sum_err = max(abs(a[0] - b[0]) / max(b[1], 1e-30)
+                  for a, b in zip(got["checksums"], alone["checksums"]))
+    return {"mesh": list(MESH_SHAPE), "backend": "nccl", "steps": n,
+            "process_group_and_mesh_s": init_s,
+            "losses": mesh_losses, "losses_alone": losses[:n],
+            "grad_norms": got["grad_norms"], "grad_norms_alone": alone["grad_norms"][:n],
+            "loss_rel_err": loss_err, "grad_norm_rel_err": norm_err,
+            "checksum_rel_err": sum_err,
+            "identical_to_the_card_alone": (mesh_losses == losses[:n]
+                                            and got["grad_norms"] == alone["grad_norms"][:n]
+                                            and got["checksums"] == alone["checksums"]),
+            "step_seconds": mesh_seconds, "step_ms": statistics.median(mesh_seconds) * 1e3,
+            "step_ms_alone": statistics.median(seconds[:n]) * 1e3,
+            "launches": launches}
+
+
+def _check_train_mesh(m: dict) -> None:
+    want = MAIN_LAYERS * TRAIN_BATCH * MESH_TRAIN_STEPS
+    others = {k: n for k, n in m["launches"].items() if k != "K2" and n}
+    if m["launches"]["K2"] != want or others:
+        raise AssertionError(f"train on the mesh: K2 launched {m['launches']['K2']} times, "
+                             f"want {want}, and nothing else: {others}")
+    if not m["identical_to_the_card_alone"]:
+        raise AssertionError(f"train on the 1x1 mesh is not the card alone's bit for bit: {m}")
 
 
 def phase_kernels(captures: dict, launches: dict) -> list:
@@ -2277,6 +2390,7 @@ def phase_kernels(captures: dict, launches: dict) -> list:
                         " [whisper cross decode]"))
     rows += _kernel_k2nc(captures, launches, edges)
     rows += _kernel_k6(captures, launches)
+    rows += _kernel_k6_grouped(captures)
     rows.append(_kernel_k7(captures, launches))
     rows += _kernel_grads(launches["train"])
 
@@ -3103,8 +3217,9 @@ def _kernel_k6(captures: dict, launches: dict) -> list:
 
     def case(logits, k, factor=1.25):
         return logits, k, _k6_cap(logits.shape[0], k, logits.shape[1], factor)
-    pre, ver = captures["K6"].args, captures["K6_verify"].args
-    gpre, gver = captures["K6_grok"].args, captures["K6_grok_verify"].args
+    # (logits, k, capacity) of the captured ungrouped launches (their groups, 1, dropped)
+    pre, ver = captures["K6"].args[:3], captures["K6_verify"].args[:3]
+    gpre, gver = captures["K6_grok"].args[:3], captures["K6_grok_verify"].args[:3]
     one = r(50, 16)
     one[:, 3] += 10.0
     cases = {"chunk": pre, "verify": ver, "chunk f32": (pre[0].float(), *pre[1:]),
@@ -3147,6 +3262,69 @@ def _kernel_k6(captures: dict, launches: dict) -> list:
         rows.append(row)
     rows[0].update(max_abs_err_edge_float32=edge_err, tol_float32=K6_TOL, edge_cases=edges,
                    dropped=dropped)
+    return rows
+
+
+# K6 grouped's cases: (captured chunk, its k's path name, groups)
+K6_GROUPED = (("K6", "moe", 2), ("K6", "moe", 4), ("K6_grok", "grok", 2))
+
+
+def _kernel_k6_grouped(captures: dict) -> list:
+    """K6's grouped launch (`moe_gating(..., groups=G)`, the grouped
+    dispatch of `moe_apply`) on the moe phase's captured chunk logits (T
+    128, E 64, k 6) as G = 2 and 4 groups and grok's (E 8, k 2) as G = 2,
+    each group at its own capacity moe_capacity(T / G): against the plain
+    version group by group, the weights within K6_TOL and the indices,
+    slots and kept weights identical. Times beside two yardsticks: G
+    ungrouped launches, one a group, and the library sequence of K6's row
+    (the cast, the gating alone, the numbering group by group). `launches`
+    is filled in from the reference phase's grouped training mode, the
+    path that runs it."""
+    import torch
+    from repro_torch.kernels import moe_gating as k6
+
+    rows = []
+    for key, path, G in K6_GROUPED:
+        logits, k = captures[key].args[:2]
+        T, E = logits.shape
+        C = _k6_cap(T // G, k, E)
+        wk, ik, sk, kk = k6.moe_gating(logits, k, C, G)
+        wp, ip, sp, kp = k6.moe_gating_plain(logits, k, C, G)
+        drop = E * C
+        same = (torch.equal(ik, ip) and torch.equal(sk, sp) and torch.equal(kk, kp)
+                and torch.equal(kk, wk.reshape(-1) * (sk != drop)))
+        err = max(max_err(wk, wp), max_err(kk, kp))
+        if not (same and err <= K6_TOL):
+            raise AssertionError(f"K6 grouped [{path}, G {G}] disagrees with its plain "
+                                 f"version: error {err}, identical {same}")
+
+        def loop(logits=logits, k=k, C=C, G=G):
+            return [k6.moe_gating(g, k, C) for g in logits.chunk(G)]
+
+        def replaced(logits=logits, k=k, C=C, G=G):
+            w, i = k6.moe_gating(logits.float(), k)
+            return [k6.number_assignments(a, b, E, C)
+                    for a, b in zip(w.chunk(G), i.chunk(G))]
+        nbytes = T * E * logits.element_size() + T * k * (4 + 4 + 8 + 4)
+        b_ms, b_by = bound(nbytes, T * E * (3 + k) + 4 * T * k, "float32", T * E)
+        rows.append(dict(
+            name=f"moe_gating grouped [{path}, G {G}]", route="cuda",
+            source="src/repro_torch/kernels/csrc/moe_gating.cu",
+            replaces="src/repro/kernels/moe_gating.py:47 (the grouped dispatch's gating "
+                     "and numbering, src/repro/models/layers.py:588-634)",
+            launches=None, tol=K6_TOL, max_abs_err=err, identical=same,
+            dropped=int((sk == drop).sum()),
+            shape=f"logits{tuple(logits.shape)} {logits.dtype} k={k} G={G} C={C} a group",
+            ms=cuda_ms(lambda: k6.moe_gating(logits, k, C, G)),
+            plain_ms=cuda_ms(lambda: k6.moe_gating_plain(logits, k, C, G)),
+            device_ms=device_ms(lambda: k6.moe_gating(logits, k, C, G)),
+            ungrouped_launches_ms=cuda_ms(loop), ungrouped_launches_device_ms=device_ms(loop),
+            library_ms=cuda_ms(replaced), library_device_ms=device_ms(replaced),
+            device_ms_method=DEVICE_MS_METHOD,
+            library_call="the sequence of K6's row, the numbering group by group: "
+                         "logits.float(), this kernel's gating alone, one_hot + cumsum - 1 + "
+                         "gather, < C, where, w * keep",
+            bound_ms=b_ms, bound_by=b_by, bound_bytes=nbytes))
     return rows
 
 
@@ -3687,7 +3865,8 @@ def _reference_docs(arch: str, mode: str) -> int:
     """How many of the legal corpus's first documents a mode serves:
     REF_SLAB_DOCS for every slab mode and qwen2.5-3b's "off_few" (the slab
     modes' plain rows), REF_NEW_DOCS for every other mode (the first three
-    models' served 20 until the mesh phases' family runs needed the time)."""
+    models' served 20 until the mesh phases' family runs needed the time,
+    and 10 until the mesh training runs did)."""
     if mode in ("slab", "off_few"):
         return REF_SLAB_DOCS
     return REF_NEW_DOCS
@@ -3772,6 +3951,9 @@ TRAIN_REF_ARCHS = ("qwen2.5-3b", "deepseek-v2-lite-16b", "grok-1-314b", "falcon-
 TRAIN_REF_OPT = {"lr": 1e-3, "warmup_steps": 1}
 TRAIN_REF_EXTRA = {"adafactor": {"name": "adafactor"},
                    "adam8bit": {"name": "adam8bit", "q_block": 32}}
+# deepseek-v2-lite-16b's grouped mode: AdamW under set_moe_groups(
+# GROUPED_GROUPS), K6's grouped launch on the card
+GROUPED_MODE, GROUPED_GROUPS = "adamw grouped", 2
 # the kernels each family's training forward must launch on the card
 TRAIN_REF_KERNELS = {"qwen2.5-3b": ("K2",), "deepseek-v2-lite-16b": ("K6",),
                      "grok-1-314b": ("K2", "K6"), "falcon-mamba-7b": ("K7",),
@@ -3806,42 +3988,56 @@ def training_runs(seed: int, device: str) -> dict:
     """The training modes on one device: for each (arch, optimizer) the
     first step's loss and gradients, then two train steps' losses and
     gradient norms and the parameters after each step, and the kernels the two steps launched;
-    on the card also the crash-resume check (`_crash_resume`)."""
-    import torch
+    deepseek-v2-lite-16b also under set_moe_groups(GROUPED_GROUPS) (K6's
+    grouped launch); on the card also the crash-resume check
+    (`_crash_resume`, its crash written from a 1x1 mesh too)."""
     from repro_torch.configs import get_smoke_config
-    from repro_torch.models import init_params
-    from repro_torch.training import OptConfig, make_loss_fn, make_train_step
-    from repro_torch.tree import flat
+    from repro_torch.models import layers
 
     out = {}
     for arch in TRAIN_REF_ARCHS:
         cfg = get_smoke_config(arch)
-        opts = ("adamw", "adafactor", "adam8bit") if arch == "qwen2.5-3b" else ("adamw",)
+        opts = ("adamw", "adafactor", "adam8bit") if arch == "qwen2.5-3b" else \
+            ("adamw", GROUPED_MODE) if arch == "deepseek-v2-lite-16b" else ("adamw",)
         for opt in opts:
-            params = _to(init_params(cfg, torch.Generator().manual_seed(seed), device="cpu",
-                                     dtype=torch.float32), device)
-            init_fn, step = make_train_step(
-                cfg, OptConfig(**TRAIN_REF_OPT, **TRAIN_REF_EXTRA.get(opt, {})), remat=False)
-            state = init_fn(params)
-            batch = _train_ref_batch(cfg, seed)
-            leaves = flat(params)
-            for t in leaves:
-                t.requires_grad_(True)
-            loss, parts = make_loss_fn(cfg, remat=False)(
-                params, {k: torch.as_tensor(v, device=device) for k, v in batch.items()})
-            grads = torch.autograd.grad(loss, leaves)
-            _zero_launches()
-            steps, after = [], []
-            for _ in range(2):
-                params, state, metrics = step(params, state, batch)
-                steps += [float(metrics["loss"]), float(metrics["grad_norm"])]
-                # a copy: the next step writes the parameters in place
-                after.append([t.detach().to("cpu", copy=True) for t in flat(params)])
-            out[arch, opt] = {"loss": loss.item(), "ce": parts["ce"].item(),
-                              "aux": parts["aux"].item(), "steps": steps,
-                              "grads": [g.cpu() for g in grads], "params": after,
-                              "launches": _launch_counts()}
+            layers.set_moe_groups(GROUPED_GROUPS if opt == GROUPED_MODE else 0)
+            try:
+                out[arch, opt] = _training_mode(cfg, opt, seed, device)
+            finally:
+                layers.set_moe_groups(0)
     return {"modes": out, "crash_resume": _crash_resume(device) if device == "cuda" else None}
+
+
+def _training_mode(cfg, opt: str, seed: int, device: str) -> dict:
+    """One training mode of `training_runs`."""
+    import torch
+    from repro_torch.models import init_params
+    from repro_torch.training import OptConfig, make_loss_fn, make_train_step
+    from repro_torch.tree import flat
+
+    params = _to(init_params(cfg, torch.Generator().manual_seed(seed), device="cpu",
+                             dtype=torch.float32), device)
+    init_fn, step = make_train_step(
+        cfg, OptConfig(**TRAIN_REF_OPT, **TRAIN_REF_EXTRA.get(opt, {})), remat=False)
+    state = init_fn(params)
+    batch = _train_ref_batch(cfg, seed)
+    leaves = flat(params)
+    for t in leaves:
+        t.requires_grad_(True)
+    loss, parts = make_loss_fn(cfg, remat=False)(
+        params, {k: torch.as_tensor(v, device=device) for k, v in batch.items()})
+    grads = torch.autograd.grad(loss, leaves)
+    _zero_launches()
+    steps, after = [], []
+    for _ in range(2):
+        params, state, metrics = step(params, state, batch)
+        steps += [float(metrics["loss"]), float(metrics["grad_norm"])]
+        # a copy: the next step writes the parameters in place
+        after.append([t.detach().to("cpu", copy=True) for t in flat(params)])
+    return {"loss": loss.item(), "ce": parts["ce"].item(),
+            "aux": parts["aux"].item(), "steps": steps,
+            "grads": [g.cpu() for g in grads], "params": after,
+            "launches": _launch_counts()}
 
 
 def _crash_resume(device: str) -> dict:
@@ -3849,38 +4045,60 @@ def _crash_resume(device: str) -> dict:
     on `device`: SMOKE qwen2.5-3b on the byte vocabulary, 12 steps with a
     checkpoint every 4 straight through, then a run that crashes at step 6
     and a third trainer that resumes from its step-4 checkpoint and runs to
-    12: its losses must equal the first run's steps 5-12 bit for bit."""
+    12: its losses must equal the first run's steps 5-12 bit for bit. The
+    same with the crash on a 1x1 NCCL mesh (`Trainer(mesh=)`, its
+    checkpoint the global arrays) resumed on the card alone: at group size
+    1 the mesh step is one card's arithmetic, so bit for bit too."""
     import tempfile
 
     from repro_torch.configs import get_smoke_config
     from repro_torch.data import lm_data
     from repro_torch.data.corpus import make_swde_corpus
-    from repro_torch.training import CrashInjected, OptConfig, Trainer, TrainerConfig
+    from repro_torch.training import OptConfig, Trainer, TrainerConfig
 
     cfg = get_smoke_config("qwen2.5-3b").replace(vocab_size=lm_data.VOCAB)
     stream = lm_data.corpus_token_stream(make_swde_corpus())
     root = Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt_"))
 
-    def trainer(name):
+    def trainer(name, mesh=None):
+        kw = {"device": device} if mesh is None else {"mesh": mesh}
         return Trainer(cfg, OptConfig(lr=1e-3, warmup_steps=2),
                        lm_data.LMBatches(stream, batch=2, seq=16),
                        TrainerConfig(total_steps=12, ckpt_every=4, ckpt_dir=str(root / name),
-                                     seed=0, log_every=100), device=device)
+                                     seed=0, log_every=100), **kw)
     a = trainer("a")
     a.init()
     straight = a.run()
-    b = trainer("b")
-    b.init()
+    out = {"straight": straight[4:]}
+    for name in ("b", "mesh"):
+        if name == "mesh":
+            # the crash on a 1x1 NCCL mesh: its step-4 checkpoint holds the
+            # global arrays, gathered and written by rank 0
+            with _nccl_mesh(None) as (mesh, _):
+                crashed = _crash(trainer(name, mesh))
+        else:
+            crashed = _crash(trainer(name))
+        if not crashed:
+            raise AssertionError(f"crash-resume ({name}): the injected failure did not fire")
+        resumed = trainer(name)            # on the card alone
+        resumed.init()
+        if not resumed.resume() or resumed.step != 4:
+            raise AssertionError(f"crash-resume ({name}): resumed at step {resumed.step}, "
+                                 f"want 4")
+        out["resumed" if name == "b" else "resumed_from_the_mesh"] = resumed.run()
+    return out
+
+
+def _crash(t) -> bool:
+    """Run trainer t to its injected failure at step 6; whether it fired."""
+    from repro_torch.training import CrashInjected
+    t.init()
     try:
-        b.run(failure_at=6)
-        raise AssertionError("crash-resume: the injected failure did not fire")
+        t.run(failure_at=6)
     except CrashInjected:
-        b.ckpt.wait()
-    resumed = trainer("b")
-    resumed.init()
-    if not resumed.resume() or resumed.step != 4:
-        raise AssertionError(f"crash-resume: resumed at step {resumed.step}, want 4")
-    return {"straight": straight[4:], "resumed": resumed.run()}
+        t.ckpt.wait()
+        return True
+    return False
 
 
 def _check_training(training: dict, crash: dict) -> None:
@@ -3901,8 +4119,12 @@ def _check_training(training: dict, crash: dict) -> None:
     if missing or qwen_k2 != get_smoke_config("qwen2.5-3b").num_layers * 2 * 2:
         raise AssertionError(f"training did not launch its kernels on the card: {missing}, "
                              f"qwen2.5-3b's K2 {qwen_k2}")
-    if crash["straight"] != crash["resumed"]:
+    if not crash["straight"] == crash["resumed"] == crash["resumed_from_the_mesh"]:
         raise AssertionError(f"crash-resume on the card is not bit for bit: {crash}")
+    grouped = training[f"deepseek-v2-lite-16b/{GROUPED_MODE}"]
+    if not grouped["launches"].get("K6_grouped") or grouped["aux"] != 0.0:
+        raise AssertionError(f"the grouped mode did not launch K6's grouped form on the card "
+                             f"or its aux is not 0: {grouped}")
 
 
 def _compare_training(card: dict, cpu: dict) -> dict:
@@ -4389,6 +4611,11 @@ def main() -> int:
         if "reference" in phases:
             report["reference"] = phase_reference(args.seed, cpu_reference)
             lap("reference")
+            grouped = report["reference"]["training"][
+                f"deepseek-v2-lite-16b/{GROUPED_MODE}"]["launches"].get("K6_grouped", 0)
+            for row in report.get("kernels", []):
+                if row["name"].startswith("moe_gating grouped"):
+                    row["launches"] = grouped
         seconds["total"] = time.perf_counter() - t_start
         report["seconds"] = {"phase": "seconds", **seconds}
         emit(report["seconds"])

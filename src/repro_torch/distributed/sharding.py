@@ -23,8 +23,20 @@ specs keep it. `placements` turns a spec into DTensor placements, and
 that for a whole parameter tree.
 
 Where GSPMD inserts collectives from these specs, the port writes them
-out: `MeshRank` is a rank's view of a serving mesh that the model's
-forwards take (`models.model`, `models.layers`). JAX's `shard_map` and
+out: `MeshRank` is a rank's view of a (data, model) mesh that the model's
+forwards take (`models.model`, `models.layers`), serving's and training's.
+Training needs each collective with its adjoint, which GSPMD derives and
+the port writes as `torch.autograd.Function`s: the FSDP all-gather over
+`data` (backward: a reduce-scatter, sum), the `model` sum of row-parallel
+partials (backward: the identity), the entry of a column-parallel region,
+whose input is replicated over `model` (`MeshRank.model_in`: forward the
+identity, backward an all-reduce over `model`), and a gather over `model`
+whose result every rank uses whole, the vocabulary's (backward: the
+rank's slice). A collective takes its autograd form only where its input
+records a gradient, so serving runs the raw c10d calls as before.
+`shard_opt_state` cuts an optimizer state by `opt_state_specs`, and
+`Sharding` (`param_shardings`, `opt_state_shardings`) cuts a global
+tensor into a rank's shard and gathers it back, for checkpoints. JAX's `shard_map` and
 `to_shardings` are JAX idiom (a per-device program and `NamedSharding`
 objects) and have no counterpart: in the port every rank already runs its
 own program on its own shards.
@@ -35,6 +47,8 @@ The spec functions read a mesh only through `launch.mesh.axis_names` and
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 import torch.distributed as dist
 from torch.distributed.tensor import Replicate, Shard
@@ -42,6 +56,7 @@ from torch.distributed.tensor import Replicate, Shard
 from repro_torch.launch.mesh import (axes_group, axis_names, axis_rank, axis_size,
                                      batch_axes)
 from repro_torch.models.config import ModelConfig
+from repro_torch.tree import at as _at
 from repro_torch.tree import keystr, leaves, map_leaves, path_keys
 
 from .decode import make_seq_sharded_decode_attn
@@ -323,21 +338,6 @@ class MeshParams(dict):
         self.mesh = mesh
 
 
-def _local_leaf(cfg: ModelConfig, keys, t, spec, mesh):
-    """This rank's shard of one parameter. Mamba1's in_proj (d, 2 di) is
-    "ft" over the x | z halves: a contiguous slice of its columns would
-    give model rank r a whole half (or parts of both that are not its
-    channels), so it takes rank r's columns of the x half and the same
-    columns of the z half, side by side -- the conv, the scan and the gate
-    then all run on the rank's d_inner channels."""
-    if keys[-1] == "in_proj" and cfg.mamba_version == 1 and len(spec) == 2 \
-            and spec[1] == TP:
-        x, z = t.chunk(2, dim=1)
-        spec1 = (spec[0], TP)
-        return torch.cat([local_shard(x, spec1, mesh), local_shard(z, spec1, mesh)], dim=1)
-    return local_shard(t, spec, mesh)
-
-
 def shard_params(cfg: ModelConfig, params, mesh, device=None) -> MeshParams:
     """Cut a full parameter tree into this rank's shards under
     `param_specs`, on `device` (default: where the tensors are). Shards
@@ -345,10 +345,127 @@ def shard_params(cfg: ModelConfig, params, mesh, device=None) -> MeshParams:
     if isinstance(params, MeshParams):
         return params
     specs = param_specs(cfg, params, mesh)
-    local = map_leaves(lambda keys, index, t: _local_leaf(cfg, keys, t, _at(specs, keys, index),
-                                                          mesh)
-                       .to(device if device is not None else t.device), params)
+    local = map_leaves(lambda keys, index, t: _sharding(cfg, keys, _at(specs, keys, index), mesh)
+                       .local(t).to(device if device is not None else t.device), params)
     return MeshParams(local, specs, mesh)
+
+
+def shard_opt_state(cfg: ModelConfig, opt_state, pspecs, mesh, device=None):
+    """Cut an optimizer state (`training.optim`'s, of the global
+    parameters; tensors on any device, the meta device included, which
+    gives zeros) into this rank's shards under `opt_state_specs`, on
+    `device` (default: where the tensors are). The state of Mamba1's
+    in_proj takes the parameter's x | z layout (`_interleaved`)."""
+    shard = opt_state_shardings(cfg, opt_state, pspecs, mesh)
+
+    def cut(keys, index, t):
+        dev = device if device is not None else t.device
+        if t.device.type == "meta":
+            return torch.zeros(shard_shape(t.shape, _at(shard, keys, index).spec, mesh),
+                               dtype=t.dtype, device=dev)
+        return _at(shard, keys, index).local(t).to(dev)
+    return map_leaves(cut, opt_state)
+
+
+def shard_shape(shape, spec, mesh) -> tuple:
+    """The shape of a rank's shard of a global tensor of `shape` under
+    `spec`."""
+    out = list(shape)
+    for d, entry in enumerate(spec):
+        for a in _entry_axes(entry):
+            out[d] //= axis_size(mesh, a)
+    return tuple(out)
+
+
+def global_shape(shape, spec, mesh) -> tuple:
+    """The global shape whose shards under `spec` have `shape`."""
+    out = list(shape)
+    for d, entry in enumerate(spec):
+        for a in _entry_axes(entry):
+            out[d] *= axis_size(mesh, a)
+    return tuple(out)
+
+
+def _interleaved(cfg: ModelConfig, path: str, spec) -> bool:
+    """Whether a leaf at `path` (a JAX keystr: a parameter, an optimizer
+    state's leaf of one, or a statistic of one) holds Mamba1 in_proj's
+    x | z halves on its last dim, over `model` under `spec`. Its shard is
+    then not a contiguous slice of the columns, which would give model
+    rank r a whole half (or parts of both that are not its channels), but
+    rank r's columns of the x half beside the same columns of the z half:
+    the conv, the scan and the gate then all run on the rank's d_inner
+    channels."""
+    return (cfg.mamba_version == 1 and "['mamba']['in_proj']" in path
+            and len(spec) >= 1 and spec[-1] == TP)
+
+
+def _sharding(cfg: ModelConfig, keys, spec, mesh) -> "Sharding":
+    """The `Sharding` of the leaf at tree `keys` under `spec`."""
+    return Sharding(spec, mesh, _interleaved(cfg, keystr(keys), spec))
+
+
+class Sharding(NamedTuple):
+    """How one leaf of a tree is cut over a mesh, the port's counterpart of
+    a JAX `NamedSharding`: `local(t)` is this rank's shard of the global
+    tensor t, and `whole(t)` gathers the ranks' shards back into the global
+    tensor (a collective: every rank of the mesh calls it). `interleave`:
+    the last dim holds Mamba1 in_proj's x | z halves, each cut on its own
+    (`_interleaved`)."""
+    spec: tuple
+    mesh: object
+    interleave: bool = False
+
+    def local(self, t):
+        if self.interleave:
+            x, z = t.chunk(2, dim=-1)
+            return torch.cat([local_shard(x, self.spec, self.mesh),
+                              local_shard(z, self.spec, self.mesh)], dim=-1)
+        return local_shard(t, self.spec, self.mesh)
+
+    def whole(self, t):
+        with torch.no_grad():
+            for d, entry in enumerate(self.spec):
+                for a in reversed(_entry_axes(entry)):
+                    t = _gather_dim(t, d, axes_group(self.mesh, a), axis_size(self.mesh, a),
+                                    self.interleave and d == t.ndim - 1)
+        return t
+
+
+def _gather_dim(t, dim, group, n, interleave=False):
+    """The n ranks' t concatenated along `dim`, in group rank order (raw,
+    no gradient); `interleave`: each rank's t is x | z halves, and the
+    result is every x, then every z."""
+    t = t.contiguous()
+    out = t.new_empty((n,) + tuple(t.shape))
+    dist.all_gather_into_tensor(out.view((n * t.shape[0],) + tuple(t.shape[1:])), t,
+                                group=group)
+    if interleave:
+        x, z = out.chunk(2, dim=dim + 1)
+        return torch.cat([_merge(x, dim), _merge(z, dim)], dim=dim)
+    return _merge(out, dim)
+
+
+def _merge(out, dim):
+    """(n, *shape) pieces concatenated along `dim`."""
+    shape = list(out.shape[1:])
+    shape[dim] *= out.shape[0]
+    return out.movedim(0, dim).reshape(shape)
+
+
+def param_shardings(cfg: ModelConfig, params, mesh):
+    """A `Sharding` per leaf of a (global or per-layer) parameter tree
+    under `param_specs` (the JAX `param_shardings`)."""
+    specs = param_specs(cfg, params, mesh)
+    return map_leaves(lambda keys, index, t: _sharding(cfg, keys, _at(specs, keys, index), mesh),
+                      params)
+
+
+def opt_state_shardings(cfg: ModelConfig, opt_state, pspecs, mesh):
+    """A `Sharding` per leaf of an optimizer state under
+    `opt_state_specs` (`pspecs` the parameters' `param_specs`)."""
+    specs = opt_state_specs(cfg, opt_state, pspecs, mesh)
+    return map_leaves(lambda keys, index, t: _sharding(cfg, keys, _at(specs, keys, index), mesh),
+                      opt_state)
 
 
 def serving_cache_specs(cfg: ModelConfig, cache: dict, mesh, batch_size: int) -> dict:
@@ -396,15 +513,81 @@ def global_nbytes(tree: dict, specs: dict, mesh, seq_len: int | None = None) -> 
     return total
 
 
-def _at(tree, keys, index):
-    """The entry of a tree at dict `keys`, in list entry `index` where the
-    path crosses a list (the port's layer stacks)."""
-    node = tree
-    for k in keys:
-        node = node[k]
-        if isinstance(node, list):
-            node = node[index]
-    return node
+# ------------------------------------------- collectives with gradients ----
+
+
+def _records(*xs) -> bool:
+    """Whether a collective's input records a gradient (its autograd form
+    runs then, the raw c10d call otherwise)."""
+    return torch.is_grad_enabled() and any(x.requires_grad for x in xs)
+
+
+def _reduce_scatter(g, group, n: int, rank: int):
+    """This rank's row of the sum over `group` of g (n, numel): a
+    reduce-scatter where the backend has one (NCCL), else an all-reduce
+    and the rank's row (gloo)."""
+    g = g.contiguous()
+    if dist.get_backend(group) == "nccl":
+        out = g.new_empty(g.shape[1:])
+        dist.reduce_scatter_tensor(out, g, group=group)
+        return out
+    g = g.clone()
+    dist.all_reduce(g, op=dist.ReduceOp.SUM, group=group)
+    return g[rank]
+
+
+class _Gather(torch.autograd.Function):
+    """x (numel,) -> (n, numel), the n ranks' x in group rank order.
+    Backward: `sum_grad` -- a reduce-scatter (sum) where every rank used
+    its whole copy for its own part of the loss (the FSDP gather over
+    `data`), else the rank's slice, where every rank computed the same
+    whole gradient (a gather over `model` used whole)."""
+
+    @staticmethod
+    def forward(ctx, x, group, n, rank, sum_grad):
+        ctx.group, ctx.n, ctx.rank, ctx.sum_grad = group, n, rank, sum_grad
+        out = x.new_empty((n, x.numel()))
+        dist.all_gather_into_tensor(out.view(-1), x.contiguous(), group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.sum_grad:
+            gx = _reduce_scatter(g, ctx.group, ctx.n, ctx.rank)
+        else:
+            gx = g[ctx.rank].contiguous()
+        return gx, None, None, None, None
+
+
+class _Sum(torch.autograd.Function):
+    """The sum over `group` of row-parallel partials; backward the
+    identity (every rank holds the whole gradient of the sum)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        y = x.contiguous().clone()
+        dist.all_reduce(y, op=dist.ReduceOp.SUM, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _In(torch.autograd.Function):
+    """The entry of a column-parallel region: forward the identity,
+    backward the sum over `group` of the ranks' partial gradients."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, op=dist.ReduceOp.SUM, group=ctx.group)
+        return g, None
 
 
 # ------------------------------------------------------------- MeshRank ----
@@ -441,6 +624,19 @@ class MeshRank:
       then the sequence-sharded combine on this mesh
       (`make_seq_sharded_decode_attn`), else None.
 
+    Training (`models.model.forward(mesh=)`) adds, each with its gradient:
+    `model_in(x)` at the entry of a column-parallel region (forward the
+    identity, backward dx all-reduced over `model`), and `region(p,
+    prefix)`, which passes a block's parameters replicated over `model`
+    through it too (each rank's use of them inside the region is a part
+    of the whole); `gather`'s backward is then a reduce-scatter over
+    `data`, `model_sum`'s the identity, and a `model` gather's the rank's
+    slice. `train_rows(B, G)` picks a training forward's rows and MoE
+    groups, `sync_grads` sums the gradients of the leaves replicated over
+    `data`, `leaf_sum` sums a per-leaf statistic over the axes that shard
+    the leaf, and `sharding(path, spec)` is the `Sharding` by which the
+    optimizers cut and gather a leaf's statistics.
+
     Collectives run whatever the size of their group: a 1x1 mesh runs the
     same code as a 2x2 one."""
 
@@ -449,8 +645,10 @@ class MeshRank:
         if axis_names(mesh) != (FSDP, TP):
             raise ValueError(f"a serving mesh has axes ('data', 'model'), got "
                              f"{axis_names(mesh)}")
+        self.cfg = cfg
         self.mesh = mesh
         self.specs = params.specs
+        self._leaf_specs = None
         self.split_rows = cfg.family != "moe"
         self.data = axes_group(mesh, FSDP)
         self.model = axes_group(mesh, TP)
@@ -477,6 +675,23 @@ class MeshRank:
         spec = self._specs.get(name, ())
         return dim < len(spec) and TP in _entry_axes(spec[dim])
 
+    def model_local(self, name: str) -> bool:
+        """Whether the leaf `name` has any dim over `model`."""
+        return any(TP in _entry_axes(e) for e in self._specs.get(name, ()))
+
+    def region(self, p: dict, prefix: str, names=None) -> dict:
+        """A block's parameters `p` (leaves "<prefix>/<key>") for use inside
+        a column-parallel region: a leaf with no dim over `model` goes
+        through `model_in` (its gradient on each rank is that rank's part
+        of the whole); the rank's own shards as they are. `names` limits
+        it to those keys."""
+        def one(k, v):
+            if not torch.is_tensor(v) or (names is not None and k not in names):
+                return v
+            name = f"{prefix}/{k}" if prefix else k
+            return v if self.model_local(name) else self.model_in(v)
+        return {k: one(k, v) for k, v in p.items()}
+
     def gather_whole(self, tree, specs):
         """`gather`, then every `model`-sharded dim all-gathered too: the
         whole leaves on every rank."""
@@ -486,21 +701,25 @@ class MeshRank:
             spec = _at(specs, keys, index)
             for d, entry in enumerate(spec):
                 if TP in _entry_axes(entry):
-                    t = self._cat(t, d, self.model, self.n_model)
+                    t = self._cat(t, d, self.model, self.n_model, self.model_rank)
             return t
         return map_leaves(whole, tree)
 
-    def _cat(self, t, dim, group, n):
+    def _cat(self, t, dim, group, n, rank=0):
         """The n ranks' t concatenated along `dim`, in group rank order: one
         all-gather into an (n, *t.shape) buffer, whose rank axis then moves
-        next to `dim` (a copy only where n > 1)."""
+        next to `dim` (a copy only where n > 1). With a gradient, its
+        backward is this rank's (`rank`) slice: every rank uses the whole
+        result."""
         t = t.contiguous()
+        if _records(t):
+            out = _Gather.apply(t.reshape(-1), group, n, rank, False).view(
+                (n,) + tuple(t.shape))
+            return _merge(out, dim)
         out = t.new_empty((n,) + tuple(t.shape))
         dist.all_gather_into_tensor(out.view((n * t.shape[0],) + tuple(t.shape[1:])), t,
                                     group=group)
-        shape = list(t.shape)
-        shape[dim] *= n
-        return out.movedim(0, dim).reshape(shape)
+        return _merge(out, dim)
 
     def gather(self, tree, specs):
         """`tree` (local shards, or one tensor) with its `data`-sharded dims
@@ -523,8 +742,11 @@ class MeshRank:
         n = self.n_data
         for dtype, leaves_ in packs.items():
             flat = torch.cat([t.reshape(-1) for _, _, t in leaves_])
-            out = flat.new_empty((n, flat.numel()))
-            dist.all_gather_into_tensor(out.view(-1), flat, group=self.data)
+            if _records(flat):
+                out = _Gather.apply(flat, self.data, n, self.data_rank, True)
+            else:
+                out = flat.new_empty((n, flat.numel()))
+                dist.all_gather_into_tensor(out.view(-1), flat, group=self.data)
             off = 0
             for at, d, t in leaves_:
                 shape = list(t.shape)
@@ -537,15 +759,22 @@ class MeshRank:
     # activations -----------------------------------------------------------
 
     def model_sum(self, x):
+        if _records(x):
+            return _Sum.apply(x, self.model)
         x = x.contiguous()
         dist.all_reduce(x, op=dist.ReduceOp.SUM, group=self.model)
         return x
 
+    def model_in(self, x):
+        """x at the entry of a column-parallel region: itself, and with a
+        gradient, its gradient summed over `model` in the backward pass."""
+        return _In.apply(x, self.model) if _records(x) else x
+
     def model_cat(self, x):
-        return self._cat(x, x.ndim - 1, self.model, self.n_model)
+        return self._cat(x, x.ndim - 1, self.model, self.n_model, self.model_rank)
 
     def model_cat_dim(self, x, dim: int):
-        return self._cat(x, dim, self.model, self.n_model)
+        return self._cat(x, dim, self.model, self.n_model, self.model_rank)
 
     def model_slice(self, x, dim: int):
         """This rank's part of dim `dim` of a whole activation, over `model`."""
@@ -575,6 +804,66 @@ class MeshRank:
             return slice(0, B)
         n = B // self.n_data
         return slice(self.data_rank * n, (self.data_rank + 1) * n)
+
+    def train_rows(self, cfg: ModelConfig, B: int, G, constrain=None):
+        """(rows, groups) of a training forward over B rows: this rank's
+        rows (`constrain`'s "hidden" spec, default `make_constrain(mesh,
+        B)`'s: the batch over `data` where it divides, else every row) and
+        the MoE dispatch groups among them, of the call's G (None:
+        ungrouped; `models.layers.moe_groups`). The moe family's rows split
+        only under grouped dispatch with G a multiple of n_data: each rank
+        then holds whole groups, G / n_data of them, numbered as on one
+        card (the JAX "moe_grouped" constraint); ungrouped, capacity counts
+        every token of the call, so every rank runs every row."""
+        split = (constrain or make_constrain(self.mesh, B))((B,), "hidden")[0] is not None
+        if cfg.family == "moe" and (G is None or G % self.n_data):
+            split = False
+        if not split:
+            return slice(0, B), G
+        n = B // self.n_data
+        return slice(self.data_rank * n, (self.data_rank + 1) * n), \
+            (None if G is None else G // self.n_data)
+
+    def data_sum(self, x):
+        """x summed over `data` (raw, no gradient)."""
+        x = x.contiguous().clone()
+        dist.all_reduce(x, op=dist.ReduceOp.SUM, group=self.data)
+        return x
+
+    def sync_grads(self, grads):
+        """The gradients of the leaves replicated over `data` summed over
+        it (each rank's is the gradient of its part of the loss); a
+        `data`-sharded leaf's gradient is already summed by the backward of
+        its FSDP gather."""
+        def one(keys, index, g):
+            spec = _at(self.specs, keys, index)
+            if any(FSDP in _entry_axes(e) for e in spec):
+                return g
+            return self.data_sum(g)
+        return map_leaves(one, grads)
+
+    def leaf_sum(self, x, spec):
+        """x, a statistic of one leaf's shard, summed over the axes of the
+        mesh that shard the leaf under `spec` (raw, no gradient)."""
+        axes = {a for e in spec for a in _entry_axes(e)}
+        for a in (FSDP, TP):
+            if a in axes:
+                x = x.contiguous().clone()
+                dist.all_reduce(x, op=dist.ReduceOp.SUM,
+                                group=self.data if a == FSDP else self.model)
+        return x
+
+    def leaf_specs(self) -> dict:
+        """{JAX keystr path: spec of the JAX leaf} of the parameters (a
+        stacked leaf's spec with its layer axis's leading None)."""
+        if self._leaf_specs is None:
+            self._leaf_specs = _jax_leaf_specs(self.specs)
+        return self._leaf_specs
+
+    def sharding(self, path: str, spec) -> Sharding:
+        """The `Sharding` under `spec` of a leaf at JAX path `path` (one of
+        the parameters', or a statistic of one), on this rank's mesh."""
+        return Sharding(spec, self.mesh, _interleaved(self.cfg, path, spec))
 
     def rows_cat(self, x, B: int):
         """The batch-sharded rows of x (this rank's `rows(B)`) all-gathered

@@ -39,7 +39,7 @@ _SIGNATURES = {
     "repro_bidirectional_attention": [_P] * 5 + [_I] * 11 + [_P],
     "repro_bidirectional_attention_sm90": [_P] * 4 + [_I] * 7 + [_P],
     "repro_ssm_scan": [_P] * 10 + [_I] * 7 + [_P],
-    "repro_moe_gating": [_P, _I] + [_P] * 4 + [_I] * 7 + [_P],
+    "repro_moe_gating": [_P, _I] + [_P] * 4 + [_I] * 8 + [_P],
 }
 
 _lib = None

@@ -83,10 +83,10 @@ class _Bidirectional(torch.autograd.Function):
 
 class _Gating(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, logits, k, capacity):
-        w, idx, slot, kept = _k6.moe_gating(logits, k, capacity)
+    def forward(ctx, logits, k, capacity, groups):
+        w, idx, slot, kept = _k6.moe_gating(logits, k, capacity, groups)
         ctx.save_for_backward(logits)
-        ctx.k, ctx.capacity = k, capacity
+        ctx.k, ctx.capacity, ctx.groups = k, capacity, groups
         ctx.mark_non_differentiable(idx, slot)
         return w, idx, slot, kept
 
@@ -95,9 +95,9 @@ class _Gating(torch.autograd.Function):
         (logits,) = ctx.saved_tensors
 
         def plain(logits):
-            return _k6.moe_gating_plain(logits, ctx.k, ctx.capacity)
+            return _k6.moe_gating_plain(logits, ctx.k, ctx.capacity, ctx.groups)
         return _plain_grads(plain, (logits,), ctx.needs_input_grad[:1],
-                            (g_w, None, None, g_kept)) + (None, None)
+                            (g_w, None, None, g_kept)) + (None, None, None)
 
 
 class _Scan(torch.autograd.Function):
@@ -136,13 +136,14 @@ def bidirectional_attention(q, k, v, n_keys: int):
     return _Bidirectional.apply(q, k, v, n_keys)
 
 
-def moe_gating(logits, k: int, capacity: int):
-    """`moe_gating.moe_gating` with a capacity: (weights, indices, slots,
-    kept weights), the weights and kept weights with a gradient for the
-    logits; the indices and slots are integers and carry none."""
+def moe_gating(logits, k: int, capacity: int, groups: int = 1):
+    """`moe_gating.moe_gating` with a capacity (and `groups`, the grouped
+    launch): (weights, indices, slots, kept weights), the weights and kept
+    weights with a gradient for the logits; the indices and slots are
+    integers and carry none."""
     if _direct(logits):
-        return _k6.moe_gating(logits, k, capacity)
-    return _Gating.apply(logits, k, capacity)
+        return _k6.moe_gating(logits, k, capacity, groups)
+    return _Gating.apply(logits, k, capacity, groups)
 
 
 def ssm_scan(x, dt, A, B_mat, C_mat, D, h0=None):

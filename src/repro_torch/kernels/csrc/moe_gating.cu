@@ -42,6 +42,14 @@
 //    launches (a CUDA graph replays it as it is), no allocation. The
 //    wrapper caps T x k (MAX_ASSIGNMENTS) so a block's expert bytes fit in
 //    shared memory; `gating_plan` (kernels/moe_gating.py) is the plan.
+//  - Groups (the grouped dispatch of `moe_apply`, the JAX
+//    `jax.vmap(_moe_dispatch_group)`): the T rows are G contiguous groups
+//    of T / G, each numbered against its own capacity C with group-local
+//    slots e C + pos or E C. The grid is (cs, G): grid row g is one
+//    cluster, which reads rows [g T/G, (g+1) T/G) and writes their
+//    weights, indices, slots and kept weights at the same rows. G is a
+//    runtime grid dimension, so no instance is added; G = 1 is the
+//    ungrouped launch.
 #include <climits>
 #include <cooperative_groups.h>
 
@@ -135,7 +143,8 @@ __device__ __forceinline__ void gate_row(const T* __restrict__ x, int E, int k, 
   }
 }
 
-// Blocks of one cluster share the T rows, `per` a block. With slot == null
+// Blocks of one cluster share the n_tok rows of its group (blockIdx.y),
+// `per` a block. With slot == null
 // only the gating runs. Shared memory (numbering only): wcnt[nwarps][E]
 // (per-warp expert counts, then their exclusive scan), btot[E] (the block's
 // totals, read by later blocks), cbase[E] (the totals of earlier blocks),
@@ -150,7 +159,9 @@ __global__ void __launch_bounds__(1024)
   cg::cluster_group cluster = cg::this_cluster();
   const int b = static_cast<int>(cluster.block_rank());
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, nwarps = blockDim.x >> 5;
-  const int row_lo = min(n_tok, b * per), row_hi = min(n_tok, row_lo + per);
+  // rows are the call's: the group's first row is blockIdx.y * n_tok
+  const int first = static_cast<int>(blockIdx.y) * n_tok;
+  const int row_lo = first + min(n_tok, b * per), row_hi = first + min(n_tok, b * per + per);
   int* wcnt = smem_i;
   int* btot = wcnt + nwarps * E;
   int* cbase = btot + E;
@@ -220,7 +231,7 @@ __global__ void __launch_bounds__(1024)
 template <typename T, int EPL>
 static cudaError_t launch_gating(const void* x, float* w, int* idx, long long* slot,
                                  float* kept, int n_tok, int E, int k, int C, int cs, int per,
-                                 int threads, cudaStream_t stream) {
+                                 int threads, int groups, cudaStream_t stream) {
   auto kernel = moe_gating_kernel<T, EPL>;
   const size_t smem =
       slot == nullptr ? 0
@@ -230,7 +241,7 @@ static cudaError_t launch_gating(const void* x, float* w, int* idx, long long* s
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(cs);
+  cfg.gridDim = dim3(cs, groups);
   cfg.blockDim = dim3(threads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
@@ -248,16 +259,16 @@ static cudaError_t launch_gating(const void* x, float* w, int* idx, long long* s
 template <typename T>
 static cudaError_t dispatch_gating(const void* x, float* w, int* idx, long long* slot,
                                    float* kept, int n_tok, int E, int k, int C, int cs, int per,
-                                   int threads, cudaStream_t s) {
+                                   int threads, int G, cudaStream_t s) {
   switch ((E + 31) / 32) {
-    case 1: return launch_gating<T, 1>(x, w, idx, slot, kept, n_tok, E, k, C, cs, per, threads, s);
-    case 2: return launch_gating<T, 2>(x, w, idx, slot, kept, n_tok, E, k, C, cs, per, threads, s);
-    case 3: return launch_gating<T, 3>(x, w, idx, slot, kept, n_tok, E, k, C, cs, per, threads, s);
-    case 4: return launch_gating<T, 4>(x, w, idx, slot, kept, n_tok, E, k, C, cs, per, threads, s);
-    case 5: return launch_gating<T, 5>(x, w, idx, slot, kept, n_tok, E, k, C, cs, per, threads, s);
-    case 6: return launch_gating<T, 6>(x, w, idx, slot, kept, n_tok, E, k, C, cs, per, threads, s);
-    case 7: return launch_gating<T, 7>(x, w, idx, slot, kept, n_tok, E, k, C, cs, per, threads, s);
-    default: return launch_gating<T, 8>(x, w, idx, slot, kept, n_tok, E, k, C, cs, per, threads, s);
+    case 1: return launch_gating<T, 1>(x, w, idx, slot, kept, n_tok, E, k, C, cs, per, threads, G, s);
+    case 2: return launch_gating<T, 2>(x, w, idx, slot, kept, n_tok, E, k, C, cs, per, threads, G, s);
+    case 3: return launch_gating<T, 3>(x, w, idx, slot, kept, n_tok, E, k, C, cs, per, threads, G, s);
+    case 4: return launch_gating<T, 4>(x, w, idx, slot, kept, n_tok, E, k, C, cs, per, threads, G, s);
+    case 5: return launch_gating<T, 5>(x, w, idx, slot, kept, n_tok, E, k, C, cs, per, threads, G, s);
+    case 6: return launch_gating<T, 6>(x, w, idx, slot, kept, n_tok, E, k, C, cs, per, threads, G, s);
+    case 7: return launch_gating<T, 7>(x, w, idx, slot, kept, n_tok, E, k, C, cs, per, threads, G, s);
+    default: return launch_gating<T, 8>(x, w, idx, slot, kept, n_tok, E, k, C, cs, per, threads, G, s);
   }
 }
 
@@ -265,13 +276,18 @@ static cudaError_t dispatch_gating(const void* x, float* w, int* idx, long long*
 
 // logits (T, E) in `dtype` (kFloat32 / kBFloat16) -> w, idx (T, k); with
 // `slot` non-null also slot (T k,) int64 and kept (T k,) float32 for
-// capacity C. Plan: cs blocks (one cluster) of `threads`, `per` rows a block.
+// capacity C. The rows are G groups of T / G, each numbered on its own
+// (G = 1: one group). Plan: a cluster of cs blocks of `threads` a group,
+// `per` rows a block.
 extern "C" int repro_moe_gating(const void* logits, int dtype, void* w, void* idx, void* slot,
                                 void* kept, int T, int E, int k, int C, int cs, int per,
-                                int threads, void* stream) {
-  if (T <= 0 || E <= 0 || E > 256 || k <= 0 || k > E) return cudaErrorInvalidValue;
-  if (cs < 1 || cs > repro::kGatingMaxCluster || per < 1 || static_cast<long long>(cs) * per < T ||
-      threads < 32 || threads > 1024 || threads % 32 || (slot != nullptr && (C <= 0 || !kept)))
+                                int threads, int G, void* stream) {
+  if (T <= 0 || E <= 0 || E > 256 || k <= 0 || k > E || G < 1 || G > 65535 || T % G)
+    return cudaErrorInvalidValue;
+  const int n_tok = T / G;
+  if (cs < 1 || cs > repro::kGatingMaxCluster || per < 1 ||
+      static_cast<long long>(cs) * per < n_tok || threads < 32 || threads > 1024 ||
+      threads % 32 || (slot != nullptr && (C <= 0 || !kept)))
     return cudaErrorInvalidValue;
   float* wo = static_cast<float*>(w);
   int* io = static_cast<int*>(idx);
@@ -280,10 +296,11 @@ extern "C" int repro_moe_gating(const void* logits, int dtype, void* w, void* id
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == repro::kFloat32)
-    err = repro::dispatch_gating<float>(logits, wo, io, so, ko, T, E, k, C, cs, per, threads, s);
+    err = repro::dispatch_gating<float>(logits, wo, io, so, ko, n_tok, E, k, C, cs, per, threads,
+                                        G, s);
   else if (dtype == repro::kBFloat16)
-    err = repro::dispatch_gating<__nv_bfloat16>(logits, wo, io, so, ko, T, E, k, C, cs, per,
-                                                threads, s);
+    err = repro::dispatch_gating<__nv_bfloat16>(logits, wo, io, so, ko, n_tok, E, k, C, cs, per,
+                                                threads, G, s);
   else
     return cudaErrorInvalidValue;
   if (err != cudaSuccess) return err;

@@ -22,8 +22,16 @@ order). Router logits formed in bf16 tie often, and the dispatch numbers
 assignments in (token, rank) order, so the rank decides which assignment
 a full expert drops.
 
+Grouped (`groups=G`, the grouped dispatch of `moe_apply`, the JAX
+`jax.vmap(_moe_dispatch_group)` at src/repro/models/layers.py:621-634):
+the T rows are G contiguous groups of T / G rows, each numbered against
+its own capacity with group-local slots (e C + pos, or the drop slot E C),
+in one launch over a (cs, G) grid, a cluster a group. `MAX_ASSIGNMENTS`
+caps a group's T / G x k.
+
 `moe_gating` runs the kernel on a CUDA tensor and `moe_gating_plain` on a
-CPU tensor; `launches` counts kernel launches.
+CPU tensor; `launches` counts kernel launches, `grouped_launches` those of
+them over more than one group.
 """
 from __future__ import annotations
 
@@ -37,9 +45,10 @@ from . import _build
 MAX_EXPERTS = 256
 MAX_CLUSTER = 8             # blocks a cluster, the portable size
 ROWS_PER_BLOCK = 16         # rows a block until all MAX_CLUSTER blocks are used
-MAX_ASSIGNMENTS = 1 << 17   # T x k a call: a block's expert bytes in shared memory
+MAX_ASSIGNMENTS = 1 << 17   # T x k a group: a block's expert bytes in shared memory
 
 launches = 0
+grouped_launches = 0
 
 
 class GatingPlan(NamedTuple):
@@ -67,14 +76,21 @@ def number_assignments(w: torch.Tensor, idx: torch.Tensor, E: int, capacity: int
     return torch.where(keep, flat_e * capacity + pos, E * capacity), w.reshape(-1) * keep
 
 
-def moe_gating_plain(logits: torch.Tensor, k: int, capacity: int | None = None):
+def moe_gating_plain(logits: torch.Tensor, k: int, capacity: int | None = None,
+                     groups: int = 1):
     """Plain PyTorch version, as `repro.kernels.ref.moe_gating_ref`: a
     float32 softmax, a stable descending sort cut to k (equal
     probabilities keep the lower index first; `torch.topk` leaves their
     order unspecified), the weights clamped at 0 and divided by
     max(their sum, 1e-9), summed in rank order as the kernel sums them.
     Returns (weights (T, k) float32, indices (T, k) int32), and with a
-    capacity also `number_assignments`' (slot, kept)."""
+    capacity also `number_assignments`' (slot, kept). With `groups` G > 1
+    it runs group by group on the G contiguous groups of T / G rows, and
+    each group's slots are its own (the layout of the JAX vmap over the
+    groups, flattened)."""
+    if groups > 1:
+        parts = [moe_gating_plain(g, k, capacity) for g in logits.chunk(groups)]
+        return tuple(torch.cat(outs) for outs in zip(*parts))
     probs = torch.softmax(logits.float(), dim=-1)
     w, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
     w = w[:, :k].clamp(min=0.0)
@@ -87,12 +103,14 @@ def moe_gating_plain(logits: torch.Tensor, k: int, capacity: int | None = None):
     return (w, idx, *number_assignments(w, idx, logits.shape[1], capacity))
 
 
-def moe_gating(logits: torch.Tensor, k: int, capacity: int | None = None):
+def moe_gating(logits: torch.Tensor, k: int, capacity: int | None = None, groups: int = 1):
     """logits (T, E) float32 or bfloat16 -> (weights (T, k) float32,
     indices (T, k) int32), and with a capacity C also (slot (T k,) int64,
-    kept (T k,) float32) as `number_assignments`. CPU tensors take the
-    plain version; CUDA tensors launch the kernel or raise."""
-    global launches
+    kept (T k,) float32) as `number_assignments`, each of the `groups`
+    contiguous groups of T / G rows numbered on its own. CPU tensors take
+    the plain version; CUDA tensors launch the kernel (one launch for all
+    groups) or raise."""
+    global launches, grouped_launches
     if logits.ndim != 2:
         raise ValueError(f"moe_gating: logits must be (T, E), got {tuple(logits.shape)}")
     T, E = logits.shape
@@ -100,14 +118,17 @@ def moe_gating(logits: torch.Tensor, k: int, capacity: int | None = None):
         raise ValueError(f"moe_gating: need 1 <= k <= E <= {MAX_EXPERTS}, got k={k}, E={E}")
     if capacity is not None and capacity < 1:
         raise ValueError(f"moe_gating: capacity must be >= 1, got {capacity}")
+    if groups < 1 or T % groups:
+        raise ValueError(f"moe_gating: {groups} groups must divide the {T} rows")
     if logits.device.type == "cpu":
-        return moe_gating_plain(logits, k, capacity)
+        return moe_gating_plain(logits, k, capacity, groups)
     if logits.device.type != "cuda":
         raise ValueError(f"moe_gating: logits on {logits.device}")
     if logits.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"moe_gating takes float32 or bfloat16 logits, got {logits.dtype}")
-    if T * k > MAX_ASSIGNMENTS:
-        raise ValueError(f"moe_gating: T x k = {T * k} assignments, at most {MAX_ASSIGNMENTS}")
+    if T // groups * k > MAX_ASSIGNMENTS:
+        raise ValueError(f"moe_gating: T / G x k = {T // groups * k} assignments a group, "
+                         f"at most {MAX_ASSIGNMENTS}")
     logits = logits.contiguous()
     dev = logits.device
     w = torch.empty((T, k), dtype=torch.float32, device=dev)
@@ -116,12 +137,13 @@ def moe_gating(logits: torch.Tensor, k: int, capacity: int | None = None):
     slot = torch.empty((T * k,), dtype=torch.int64, device=dev) if numbered else None
     kept = torch.empty((T * k,), dtype=torch.float32, device=dev) if numbered else None
     if T:
-        plan = gating_plan(T)
+        plan = gating_plan(T // groups)
         rc = _build.library().repro_moe_gating(
             logits.data_ptr(), _build.DTYPE_CODES[str(logits.dtype).removeprefix("torch.")],
             w.data_ptr(), idx.data_ptr(), slot.data_ptr() if numbered else None,
             kept.data_ptr() if numbered else None, T, E, k, capacity or 0, plan.cs, plan.per,
-            plan.threads, _build.stream_handle(dev))
+            plan.threads, groups, _build.stream_handle(dev))
         _build.check(rc, "moe_gating")
         launches += 1
+        grouped_launches += groups > 1
     return (w, idx, slot, kept) if numbered else (w, idx)

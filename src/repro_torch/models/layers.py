@@ -117,13 +117,29 @@ def activation_fn(name: str):
     raise ValueError(f"unknown activation {name}")
 
 
+# ------------------------------------------------------- mesh regions ----
+
+
+def _region(tp, out_name: str, dim: int) -> bool:
+    """Whether a block runs as a column-parallel region on this mesh rank
+    with a gradient: its row-parallel product `out_name` holds dim `dim`
+    over `model` and sums over it, and autograd records. Its input (and its
+    parameters replicated over `model`) then enter through
+    `MeshRank.model_in`, whose backward sums the ranks' partial gradients;
+    serving, which records none, skips it."""
+    return tp is not None and torch.is_grad_enabled() and tp.on_model(out_name, dim)
+
+
 # ------------------------------------------------------------------ mlp ----
 
 
 def mlp_apply(cfg: ModelConfig, p, x, tp=None):
     """The MLP; on a mesh (`tp`, a `distributed.sharding.MeshRank`) with
     this rank's columns of w_gate/w_up/w_in and rows of w_down, whose
-    partial products are summed over `model`."""
+    partial products are summed over `model` (a column-parallel region
+    with a gradient, `_region`)."""
+    if _region(tp, "mlp/w_down", 0):
+        x = tp.model_in(x)
     act = activation_fn(cfg.activation)
     if cfg.gated_mlp:
         h = act(x @ p["w_gate"]) * (x @ p["w_up"])
@@ -176,15 +192,22 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, scale=None):
     return torch.einsum("bhgqs,bshd->bqhgd", p.to(v_cache.dtype), v_cache)
 
 
-def _lora_b(tp, lora, name: str, proj: str):
+def _lora_b(tp, lora, name: str, proj: str, inside: bool = False):
     """The adapter's b_* for a projection's heads. On a mesh b_* (r, heads
     x hd) has its columns over `model` where they divide: the rank's heads
     where the projection's heads are over `model` too, and otherwise a
-    split inside a head, which is gathered whole."""
+    split inside a head, which is gathered whole (and, `inside` a
+    column-parallel region with a gradient, its gradient summed over
+    `model` before the rank's slice)."""
     b = lora[name]
     if tp is not None and tp.on_model(name, 1) and not tp.on_model(proj, 1):
         b = tp.model_cat(b)
+        if inside:
+            b = tp.model_in(b)
     return b
+
+
+_LORA_IN = ("a_q", "a_k", "a_v", "b_q", "b_k", "b_v")
 
 
 def _project_qkv(cfg: ModelConfig, p, x, lora=None, tp=None):
@@ -192,14 +215,25 @@ def _project_qkv(cfg: ModelConfig, p, x, lora=None, tp=None):
     application's adapter, the hybrid family's shared blocks) the low-rank
     deltas (x a) b are added before the bias and the q/k norms, as the JAX
     package adds them. On a mesh (`tp`) the heads are the rank's where the
-    weights hold them so."""
+    weights hold them so; where wo's heads are over `model` and autograd
+    records, the projections are a column-parallel region (`_region`):
+    x, the leaves replicated over `model` and the adapter's inputs enter
+    through `MeshRank.model_in`."""
+    inside = _region(tp, "attn/wo", 0)
+    if inside:
+        x, p = tp.model_in(x), tp.region(p, "attn")
+        if lora is not None:
+            lora = tp.region(lora, "", _LORA_IN)
     q = torch.einsum("bsd,dhe->bshe", x, p["wq"])
     k = torch.einsum("bsd,dhe->bshe", x, p["wk"])
     v = torch.einsum("bsd,dhe->bshe", x, p["wv"])
     if lora is not None:
-        q = q + ((x @ lora["a_q"]) @ _lora_b(tp, lora, "b_q", "attn/wq")).reshape(q.shape)
-        k = k + ((x @ lora["a_k"]) @ _lora_b(tp, lora, "b_k", "attn/wk")).reshape(k.shape)
-        v = v + ((x @ lora["a_v"]) @ _lora_b(tp, lora, "b_v", "attn/wv")).reshape(v.shape)
+        q = q + ((x @ lora["a_q"]) @ _lora_b(tp, lora, "b_q", "attn/wq", inside)
+                 ).reshape(q.shape)
+        k = k + ((x @ lora["a_k"]) @ _lora_b(tp, lora, "b_k", "attn/wk", inside)
+                 ).reshape(k.shape)
+        v = v + ((x @ lora["a_v"]) @ _lora_b(tp, lora, "b_v", "attn/wv", inside)
+                 ).reshape(v.shape)
     if cfg.attn_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     if cfg.qk_norm:
@@ -511,13 +545,17 @@ def _project_from0(cfg: ModelConfig, p, x, lora=None, tp=None):
     return q, k, v
 
 
-def _attend_slab(cfg: ModelConfig, p, q, k_layer, v_layer, tables, lora=None, tp=None):
+def _attend_slab(cfg: ModelConfig, p, q, k_layer, v_layer, tables, lora=None, tp=None,
+                 rank_kv=True):
     """Each row's queries q (B, S, H, hd) from position 0 through kernel K2
     (its autograd form) over the row's K/V of slab layers (B, Smax, Hkv,
     hd) seen as pages, one launch a row, then the output projection. On a
-    mesh q holds the rank's heads, which read their KV heads (`_rank_kv`)."""
+    mesh q holds the rank's heads, which read their KV heads (`_rank_kv`;
+    `rank_kv` False: the layers already hold the rank's KV heads)."""
     B, S = q.shape[:2]
-    q, k_layer, v_layer, back = _rank_kv(cfg, q, k_layer, v_layer, tp)
+    back = lambda out: out  # noqa: E731
+    if rank_kv:
+        q, k_layer, v_layer, back = _rank_kv(cfg, q, k_layer, v_layer, tp)
     ps = k_layer.shape[1] // tables.shape[1]
     kp, vp = slab_pages(k_layer, ps), slab_pages(v_layer, ps)
     out = torch.stack([_kag.chunk_prefill_attention(q[b], kp, vp, tables[b], 0)
@@ -635,6 +673,18 @@ def cross_attn_apply(cfg: ModelConfig, p, x, *, ck, cv, tp=None):
     return _out_proj(p, out, tp=tp)
 
 
+def cross_attn_apply_full(cfg: ModelConfig, p, x, enc, tp=None):
+    """Training's cross-attention of a decoder layer over the encoder
+    output enc (B, S_enc, d): its cross K/V (`cross_kv`) and
+    `cross_attn_apply`, with a gradient for enc too. On a mesh with a
+    gradient it is one column-parallel region (`_region`): x, enc and the
+    leaves replicated over `model` enter through `MeshRank.model_in`."""
+    if _region(tp, "attn/wo", 0):
+        x, enc, p = tp.model_in(x), tp.model_in(enc), tp.region(p, "attn")
+    ck, cv = cross_kv(p, enc)
+    return cross_attn_apply(cfg, p, x, ck=ck, cv=cv, tp=tp)
+
+
 def cross_decode_apply(cfg: ModelConfig, p, x, *, ck, cv, tp=None):
     """A decode step's cross-attention (the JAX `attn_decode_apply(cross=
     True)`): x (B, 1, d), one query a row over its cross K/V ck, cv (B, S,
@@ -648,20 +698,23 @@ def cross_decode_apply(cfg: ModelConfig, p, x, *, ck, cv, tp=None):
 # ------------------------------------------------- full sequence (training) --
 
 
-def attn_apply(cfg: ModelConfig, p, x, *, lora=None):
+def attn_apply(cfg: ModelConfig, p, x, *, lora=None, tp=None):
     """Causal self-attention over a whole sequence from position 0 (the
     JAX `attn_apply`, which training's `forward` runs), with a gradient:
     q, k, v projected (`lora`, the bias, the q/k norms) and rotated at
     positions 0..S-1, then kernel K2 over each row's K/V seen as pages, as
     `attn_apply_slab` runs it without the cache. x (B, S, d) -> (B, S, d).
     The encoder and cross-attention are `attn_apply_bidirectional` and
-    `cross_attn_apply`. The JAX package switches to `blockwise_attention`
-    past 2,048 positions, a memory bound of its XLA path; K2 is that
-    function here, so it is not ported."""
+    `cross_attn_apply_full`. The JAX package switches to
+    `blockwise_attention` past 2,048 positions, a memory bound of its XLA
+    path; K2 is that function here, so it is not ported. On a mesh (`tp`)
+    over the rank's heads (its query heads over the KV heads they read,
+    `_rank_kv`, where the KV heads stay whole), summed over `model`."""
     B, S, _ = x.shape
-    q, k, v = _project_from0(cfg, p, x, lora)
+    q, k, v = _project_from0(cfg, p, x, lora, tp)
     tables = slab_tables(B, S, slab_page_size(S), x.device)
-    return _attend_slab(cfg, p, q, k.contiguous(), v.contiguous(), tables, lora)
+    rank_kv = tp is None or not tp.on_model("attn/wk", 1)
+    return _attend_slab(cfg, p, q, k.contiguous(), v.contiguous(), tables, lora, tp, rank_kv)
 
 
 # ------------------------------------------------------------------ MLA ----
@@ -704,7 +757,11 @@ def mla_apply(cfg: ModelConfig, p, x, *, positions, tp=None):
     """Full-sequence causal MLA in the non-absorbed form (the slab's
     whole-prompt prefill): per-head K = [c_kv w_uk, k_rope] (nd + rd) and
     V = c_kv w_uv (vd). On a mesh (`tp`) over the rank's heads, summed over
-    `model` after wo. Returns (out (B, S, d), c_kv, k_rope)."""
+    `model` after wo: with a gradient a column-parallel region
+    (`_region`), x and w_dkv and kv_norm entering through
+    `MeshRank.model_in`. Returns (out (B, S, d), c_kv, k_rope)."""
+    if _region(tp, "attn/wo", 0):
+        x, p = tp.model_in(x), tp.region(p, "attn")
     B, S, _ = x.shape
     vd, rd = cfg.v_head_dim, cfg.qk_rope_dim
     q_nope, q_rope, c_kv, k_rope = mla_project(cfg, p, x, positions)
@@ -886,6 +943,25 @@ def mla_verify_apply(cfg: ModelConfig, p, x, *, pos, ckv_pool, krope_pool, table
 
 # ------------------------------------------------------------------ MoE ----
 
+_MOE_GROUPS = 0  # >1: grouped-local dispatch (expert-parallel layouts)
+
+
+def set_moe_groups(g):
+    """The grouped dispatch's group count, as the JAX package's
+    `set_moe_groups` (a module-level setting both packages read the same
+    way): G > 1 dispatches each of G contiguous groups of B S / G tokens on
+    its own where G divides B S; 0 or 1 dispatches every token of the call
+    together."""
+    global _MOE_GROUPS
+    _MOE_GROUPS = int(g)
+
+
+def moe_groups(T: int):
+    """The dispatch groups of T tokens under `set_moe_groups`: G where
+    G > 1 divides T, else None (ungrouped, the JAX package's fallback)."""
+    G = _MOE_GROUPS
+    return G if G > 1 and T % G == 0 else None
+
 
 def moe_capacity(cfg: ModelConfig, T: int) -> int:
     """Slots per expert for T tokens: capacity_factor x k x T / E, rounded
@@ -894,63 +970,86 @@ def moe_capacity(cfg: ModelConfig, T: int) -> int:
     return max(8, -(-C // 8) * 8)
 
 
-def moe_apply(cfg: ModelConfig, p, x, *, return_aux=False, tp=None):
+def moe_apply(cfg: ModelConfig, p, x, *, return_aux=False, tp=None, groups=None):
     """Capacity-limited top-k MoE with gather/scatter dispatch (the JAX
-    `moe_apply`, ungrouped). x (B, S, d) -> (B, S, d), and with
-    `return_aux` (the training forward) also the Switch load-balance loss
-    E sum_e f_e P_e, f_e the share of tokens whose first expert is e and
-    P_e the mean of the full router softmax, computed in plain PyTorch
-    beside K6 (which returns only the top k). The gating runs through K6's
-    autograd form, so in training the kept weights carry the router's
-    gradient.
+    `moe_apply`). x (B, S, d) -> (B, S, d), and with `return_aux` (the
+    training forward) also the Switch load-balance loss E sum_e f_e P_e,
+    f_e the share of tokens whose first expert is e and P_e the mean of the
+    full router softmax, computed in plain PyTorch beside K6 (which returns
+    only the top k). The gating runs through K6's autograd form, so in
+    training the kept weights carry the router's gradient.
 
-    Every token of the call counts toward capacity (C from T = B * S, pad
-    positions and dead rows included), and assignments are numbered in
-    (token, rank) order: an expert's slots go to its first C assignments
-    and later ones are dropped (GShard-style), so tokens of one call
-    interact. Kernel K6 takes the router logits in the model dtype and
-    computes the gating and that numbering in one launch: each
+    Ungrouped, every token of the call counts toward capacity (C from T =
+    B * S, pad positions and dead rows included), and assignments are
+    numbered in (token, rank) order: an expert's slots go to its first C
+    assignments and later ones are dropped (GShard-style), so tokens of
+    one call interact. Kernel K6 takes the router logits in the model
+    dtype and computes the gating and that numbering in one launch: each
     assignment's slot (e * C + pos, or the drop slot E * C) and its kept
-    weight. Each token's k weighted expert rows are summed in
-    rank order from zeros in the model dtype -- the JAX CPU scatter-add's
-    order -- and not with `index_add_`, whose atomics on the card sum in an
-    order that changes from run to run.
+    weight. Each token's k weighted expert rows are summed in rank order
+    from zeros in the model dtype -- the JAX CPU scatter-add's order -- and
+    not with `index_add_`, whose atomics on the card sum in an order that
+    changes from run to run.
 
-    On a mesh (`tp`) every rank runs every row of the call (the moe
-    family's rows replicate over `data`), so K6 numbers the same
+    Grouped (`groups` G >= 1; None reads `moe_groups(B S)` under
+    `set_moe_groups`, 0 is ungrouped; the JAX
+    `jax.vmap(_moe_dispatch_group)`): the tokens are G contiguous
+    groups of T / G, each numbered against its own capacity
+    moe_capacity(cfg, T / G) by K6's grouped launch (one launch for all
+    groups), with a dispatch buffer a group; the shared experts run over
+    all tokens and aux is 0, as in the JAX package. A mesh rank that holds
+    whole groups passes its own count (`MeshRank.train_rows`), even 1.
+
+    On a mesh (`tp`) every rank runs every row of the call (ungrouped, the
+    moe family's rows replicate over `data`), so K6 numbers the same
     assignments as on one card; the experts' products run on the rank's
     columns of w_gate/w_up and rows of w_down (and the shared experts'),
-    summed over `model`."""
+    summed over `model`, each a column-parallel region with a gradient
+    (`_region`)."""
     B, S, d = x.shape
     x2 = x.reshape(B * S, d)
     T, E, K = B * S, cfg.n_experts, cfg.moe_top_k
-    C = moe_capacity(cfg, T)
+    G = moe_groups(T) if groups is None else groups
+    Gn = max(G or 1, 1)
+    C = moe_capacity(cfg, T // Gn)
     logits = x2 @ p["router"]
-    _, idx, slot, kept = _kag.moe_gating(logits, K, C)
-    xe = x2.new_zeros((E * C + 1, d))
-    # each token's row once a rank; kept slots are distinct, the drop slot is cut
-    xe[slot] = x2[:, None, :].expand(T, K, d).reshape(T * K, d)
-    xe = xe[:E * C].reshape(E, C, d)
+    _, idx, slot, kept = _kag.moe_gating(logits, K, C, Gn)
+    # group g's slots index its own buffer of E * C + 1 rows (the last its drop slot)
+    span = E * C + 1
+    gslot = slot + (torch.arange(T * K, device=slot.device) // (T // Gn * K)) * span \
+        if Gn > 1 else slot
+    xe = x2.new_zeros((Gn * span, d))
+    # each token's row once a rank; kept slots are distinct, the drop slots are cut
+    xe[gslot] = x2[:, None, :].expand(T, K, d).reshape(T * K, d)
+    xe = xe.reshape(Gn, span, d)[:, :E * C].reshape(Gn, E, C, d)
+    xe = xe.transpose(0, 1).reshape(E, Gn * C, d)
+    if _region(tp, "moe/w_down", 1):
+        xe = tp.model_in(xe)
     act = activation_fn(cfg.activation)
     h = act(torch.bmm(xe, p["w_gate"])) * torch.bmm(xe, p["w_up"])
     ye = torch.bmm(h, p["w_down"])
     if tp is not None and tp.on_model("moe/w_down", 1):
         ye = tp.model_sum(ye)
-    ye_flat = torch.cat([ye.reshape(E * C, d), ye.new_zeros((1, d))])
-    back = ye_flat[slot] * kept[:, None].to(ye.dtype)
+    ye = ye.reshape(E, Gn, C, d).transpose(0, 1).reshape(Gn, E * C, d)
+    ye_flat = torch.cat([ye, ye.new_zeros((Gn, 1, d))], dim=1).reshape(Gn * span, d)
+    back = ye_flat[gslot] * kept[:, None].to(ye.dtype)
     back = back.reshape(T, K, d)
     y = x2.new_zeros((T, d))
     for j in range(K):
         y = y + back[:, j]
     if cfg.n_shared_experts:
-        sp = p["shared"]
-        ys = (act(x2 @ sp["w_gate"]) * (x2 @ sp["w_up"])) @ sp["w_down"]
+        sp, xs = p["shared"], x2
+        if _region(tp, "shared/w_down", 0):
+            xs = tp.model_in(xs)
+        ys = (act(xs @ sp["w_gate"]) * (xs @ sp["w_up"])) @ sp["w_down"]
         if tp is not None and tp.on_model("shared/w_down", 0):
             ys = tp.model_sum(ys)
         y = y + ys
     y = y.reshape(B, S, d)
     if not return_aux:
         return y
+    if G:
+        return y, torch.zeros((), dtype=torch.float32, device=x.device)
     frac_tokens = F.one_hot(idx[:, 0].long(), E).float().mean(dim=0)
     frac_probs = torch.softmax(logits.float(), dim=-1).mean(dim=0)
     return y, E * (frac_tokens * frac_probs).sum()

@@ -282,7 +282,7 @@ def _run(remat: bool, fn, *args):
 
 
 def _trunk(cfg, params, x, attend=None, mamba=None, cross=None, *, aux=None,
-           remat=False, tp=None):
+           remat=False, tp=None, groups=None):
     """Run the blocks on x. Attention blocks: x + attend(li, attn params,
     normed x, lora), then (the encdec family's decoder) x + cross(li,
     cross_attn params, normed x), then the MLP or MoE feed-forward on the
@@ -295,14 +295,15 @@ def _trunk(cfg, params, x, attend=None, mamba=None, cross=None, *, aux=None,
     `distributed.sharding.MeshRank`) each block first all-gathers its
     `data`-sharded weights; its MLP, MoE experts and Mamba1 channels run
     on this rank's part of `model`, while a Mamba2 block (the hybrid
-    family) gathers its weights whole and runs on every rank."""
+    family) gathers its weights whole and runs on every rank. `groups`:
+    the training forward's MoE dispatch groups (`layers.moe_apply`)."""
     def attention_block(li, lp, x, lora=None):
         x = x + attend(li, lp["attn"], L.norm_apply(cfg, lp["attn_norm"], x), lora)
         if cross is not None:
             x = x + cross(li, lp["cross_attn"], L.norm_apply(cfg, lp["cross_norm"], x))
         h = L.norm_apply(cfg, lp["mlp_norm"], x)
         if "moe" in lp and aux is not None:
-            m, a = L.moe_apply(cfg, lp["moe"], h, return_aux=True)
+            m, a = L.moe_apply(cfg, lp["moe"], h, return_aux=True, tp=tp, groups=groups)
             return x + m, a
         if "moe" in lp:
             moe_kw = {} if tp is None else {"tp": tp}
@@ -459,9 +460,11 @@ def _logits(cfg, params, x, tp=None):
         return h @ _head(cfg, params)
     name = "embed" if cfg.tie_embeddings else "lm_head"
     head = tp.gather(params[name], tp.specs[name])
+    vocab_split = tp.on_model(name, 0 if cfg.tie_embeddings else 1)
+    if vocab_split:
+        h = tp.model_in(h)           # a column-parallel product over the vocabulary
     logits = h @ (head.T if cfg.tie_embeddings else head)
-    return tp.model_cat(logits) if tp.on_model(name, 0 if cfg.tie_embeddings else 1) \
-        else logits
+    return tp.model_cat(logits) if vocab_split else logits
 
 
 def _lookup(params, tokens, tp=None):
@@ -597,7 +600,7 @@ def _cast(tree, dtype):
     return tree.to(dtype) if tree.is_floating_point() else tree
 
 
-def forward(cfg: ModelConfig, params, batch, *, remat=False):
+def forward(cfg: ModelConfig, params, batch, *, remat=False, constrain=None, mesh=None):
     """Full-sequence forward of every family from position 0, with a
     gradient (the JAX `forward`, which training runs). Returns (logits
     (B, S, V) in the model dtype over the text positions, aux: the moe
@@ -610,19 +613,40 @@ def forward(cfg: ModelConfig, params, batch, *, remat=False):
     encoder. Every floating parameter is cast to cfg.dtype on entry
     (`_cast`), so the parameters may be float32 masters. Attention runs
     K2 (causal) and K2's non-causal form (the encoder, cross-attention),
-    MLA plain PyTorch, MoE gates through K6 and Mamba1 scans through K7,
-    each kernel with its gradient (`kernels.autograd`); Mamba2 runs the SSD
-    form. `remat` recomputes every block's activations in the backward
-    pass (`torch.utils.checkpoint`); its losses and gradients equal the
-    plain run's."""
+    MLA plain PyTorch, MoE gates through K6 (its grouped launch under
+    `layers.set_moe_groups`) and Mamba1 scans through K7, each kernel with
+    its gradient (`kernels.autograd`); Mamba2 runs the SSD form. `remat`
+    recomputes every block's activations in the backward pass
+    (`torch.utils.checkpoint`, non-reentrant); its losses and gradients
+    equal the plain run's.
+
+    On a (data, model) mesh (`mesh`, a `distributed.sharding.MeshRank`
+    over the rank's `shard_params`) `batch` is the global batch and the
+    rank runs its rows: `constrain` (default `make_constrain(mesh, B)`)
+    puts the batch over `data` where it divides (`MeshRank.train_rows`;
+    the moe family's rows only under grouped dispatch). Each block gathers
+    its `data`-sharded weights (backward: a reduce-scatter) and runs the
+    rank's heads, MLP and expert columns and Mamba1 channels, its
+    column-parallel regions entered through `MeshRank.model_in` and its
+    row-parallel products summed over `model`; the logits over a
+    `model`-sharded vocabulary are gathered whole. Returns the rank's
+    rows' logits and its aux. Every rank recomputes the same blocks under
+    `remat`, so the collectives inside them meet in the backward pass."""
     _check_family(cfg)
     p = _cast(params, torch_dtype(cfg.dtype))
     dev = p["embed"].device
+    # the MoE dispatch groups are read once here, so that a block that
+    # `remat` recomputes in the backward pass dispatches as it did forward
+    tok = batch["tokens"]
+    rows, groups = slice(None), L.moe_groups(tok.shape[0] * tok.shape[1])
+    if mesh is not None:
+        rows, groups = mesh.train_rows(cfg, tok.shape[0], groups, constrain)
+    groups = groups or 0
 
     def tensor(key):
-        return torch.as_tensor(batch[key], device=dev)
+        return torch.as_tensor(batch[key], device=dev)[rows]
     image = tensor("image_embeds") if cfg.family == "vlm" else None
-    x, n_img = _embed(cfg, p, tensor("tokens"), image)
+    x, n_img = _embed(cfg, p, tensor("tokens"), image, mesh)
     n = x.shape[1]
     attend = cross = None
     if cfg.family == "encdec":
@@ -630,26 +654,26 @@ def forward(cfg: ModelConfig, params, batch, *, remat=False):
             raise ValueError(f"forward: {n} positions exceed the decoder's position "
                              f"table ({cfg.max_position})")
         x = x + p["dec_pos"][:n]
-        enc = _encoder(cfg, p, tensor("frames"), remat=remat)
+        enc = _encoder(cfg, p, tensor("frames"), remat=remat, tp=mesh)
 
         def cross(li, lp, h):
-            ck, cv = L.cross_kv(lp, enc)
-            return L.cross_attn_apply(cfg, lp, h, ck=ck, cv=cv)
+            return L.cross_attn_apply_full(cfg, lp, h, enc, tp=mesh)
     if cfg.use_mla:
         positions = torch.arange(n, device=dev)[None]
 
         def attend(li, lp, h, lora=None):
-            return L.mla_apply(cfg, lp, h, positions=positions)[0]
+            return L.mla_apply(cfg, lp, h, positions=positions, tp=mesh)[0]
     elif cfg.family != "ssm":
         def attend(li, lp, h, lora=None):
-            return L.attn_apply(cfg, lp, h, lora=lora)
+            return L.attn_apply(cfg, lp, h, lora=lora, tp=mesh)
     apply = _mamba(cfg, S.mamba1_apply, S.mamba2_apply)
+    kw = _tp_kw(cfg, mesh)
 
     def mamba(li, lp, h):
-        return apply(cfg, lp, h)
+        return apply(cfg, lp, h, **kw)
     aux = []
-    x = _trunk(cfg, p, x, attend, mamba, cross, aux=aux, remat=remat)
-    return _logits(cfg, p, x[:, n_img:]), sum(aux, torch.zeros((), device=dev))
+    x = _trunk(cfg, p, x, attend, mamba, cross, aux=aux, remat=remat, tp=mesh, groups=groups)
+    return _logits(cfg, p, x[:, n_img:], mesh), sum(aux, torch.zeros((), device=dev))
 
 
 # ------------------------------------------------------------- decode ------

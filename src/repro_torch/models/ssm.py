@@ -115,7 +115,9 @@ def _mamba1_scan_params(cfg: ModelConfig, p, x_conv, tp=None):
     N, r = cfg.ssm_state, cfg.resolved_dt_rank
     proj = x_conv @ p["x_proj"]
     if tp is not None and tp.on_model("mamba/x_proj", 0):
-        proj = tp.model_sum(proj)
+        # the sum's whole result feeds the rank's channels again: a
+        # column-parallel region's entry with a gradient
+        proj = tp.model_in(tp.model_sum(proj))
     dt_raw, B_mat, C_mat = proj[..., :r], proj[..., r:r + N], proj[..., r + N:]
     dt = F.softplus(dt_raw @ p["dt_proj"] + p["dt_bias"])
     A = -torch.exp(p["A_log"].float())
@@ -151,16 +153,20 @@ def _out(p, y, z, tp=None):
     return out
 
 
-def mamba1_apply(cfg: ModelConfig, p, x):
+def mamba1_apply(cfg: ModelConfig, p, x, tp=None):
     """A whole sequence through the Mamba1 block from a zero history, with
     a gradient (the JAX `mamba1_apply`, which training's `forward` runs):
     the causal conv, SiLU, the selective scan (`mamba1_scan`), the gate and
-    the output projection. x (B, S, d) -> (B, S, d)."""
+    the output projection. x (B, S, d) -> (B, S, d). On a mesh (`tp`) on
+    the rank's channels, x entering the column-parallel in_proj through
+    `MeshRank.model_in` where autograd records."""
+    if tp is not None and torch.is_grad_enabled() and tp.on_model("mamba/out_proj", 0):
+        x = tp.model_in(x)
     x_in, z = _mamba1_ssm_inputs(cfg, p, x)
     xc = F.silu(causal_depthwise_conv(x_in, p["conv_w"], p["conv_b"]))
-    dt, A, B_mat, C_mat = _mamba1_scan_params(cfg, p, xc)
+    dt, A, B_mat, C_mat = _mamba1_scan_params(cfg, p, xc, tp)
     y, _ = mamba1_scan(xc, dt, A, B_mat, C_mat, p["D"])
-    return _out(p, y, z)
+    return _out(p, y, z, tp)
 
 
 def mamba1_decode(cfg: ModelConfig, p, x_t, *, conv_state, ssm_state, tp=None):

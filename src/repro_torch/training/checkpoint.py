@@ -9,6 +9,13 @@ package (`tree.leaves`), so a checkpoint either package writes is one the
 other can read. Arrays are copied to the host (`.cpu().numpy()` copies)
 before the writer thread starts; a bfloat16 tensor has no numpy dtype, so
 trees are saved with float32 masters.
+
+From a mesh (`shardings=`, a tree of `distributed.sharding.Sharding` of
+the tree's structure) every rank gathers the global arrays, a collective,
+and rank 0 writes them: the file is the one a single device writes, and
+either package reads it. `restore_checkpoint(..., shardings=)` cuts each
+rank's shards out of the global arrays for a mesh that may differ from
+the writer's (the elastic restore).
 """
 from __future__ import annotations
 
@@ -21,8 +28,9 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from repro_torch.tree import keystr, leaves, map_leaves
+from repro_torch.tree import at, keystr, leaves, map_leaves
 
 
 def _host(t) -> np.ndarray:
@@ -50,22 +58,41 @@ def _write(ckpt_dir, step: int, arrays: dict, extra: dict | None):
     return final
 
 
-def save_checkpoint(ckpt_dir, step: int, tree, extra: dict | None = None):
-    """Synchronous save; keeps every step directory. Returns its path."""
-    return _write(ckpt_dir, step, host_arrays(tree), extra)
+def _global(tree, shardings):
+    """The global tensors of a tree of shards (a collective), or the tree
+    itself without `shardings`."""
+    if shardings is None:
+        return tree
+    return map_leaves(lambda keys, index, t: at(shardings, keys, index).whole(t), tree)
+
+
+def _writer(shardings) -> bool:
+    return shardings is None or dist.get_rank() == 0
+
+
+def save_checkpoint(ckpt_dir, step: int, tree, extra: dict | None = None, shardings=None):
+    """Synchronous save; keeps every step directory. Returns its path.
+    With `shardings` every rank calls it, and rank 0 writes the global
+    arrays (the others return None)."""
+    arrays = host_arrays(_global(tree, shardings))
+    return _write(ckpt_dir, step, arrays, extra) if _writer(shardings) else None
 
 
 class AsyncCheckpointer:
     """Fire-and-forget saver: the tree is copied to the host, then written
-    on a worker thread, so the train loop never blocks on disk."""
+    on a worker thread, so the train loop never blocks on disk. With
+    `shardings` the global arrays are gathered first (every rank calls
+    `save`) and rank 0 writes."""
 
     def __init__(self, ckpt_dir):
         self.ckpt_dir = Path(ckpt_dir)
         self._thread = None
 
-    def save(self, step: int, tree, extra=None):
-        arrays = host_arrays(tree)               # snapshot before mutation
+    def save(self, step: int, tree, extra=None, shardings=None):
+        arrays = host_arrays(_global(tree, shardings))   # snapshot before mutation
         self.wait()
+        if not _writer(shardings):
+            return
         self._thread = threading.Thread(
             target=_write, args=(self.ckpt_dir, step, arrays, extra), daemon=True)
         self._thread.start()
@@ -84,10 +111,12 @@ def latest_step(ckpt_dir) -> int | None:
     return steps[-1] if steps else None
 
 
-def restore_checkpoint(ckpt_dir, step: int, like_tree):
+def restore_checkpoint(ckpt_dir, step: int, like_tree, shardings=None):
     """(a tree of `like_tree`'s structure holding the checkpoint's arrays,
     each on its `like_tree` tensor's device, in the stored dtype; the
-    manifest's extra dict)."""
+    manifest's extra dict). With `shardings` (`Sharding`s of the current
+    mesh, of `like_tree`'s structure) each leaf is this rank's shard of the
+    stored global array."""
     path = Path(ckpt_dir) / f"step_{step:08d}"
     manifest = json.loads((path / "manifest.json").read_text())
     with np.load(path / "payload.npz") as payload:
@@ -95,6 +124,8 @@ def restore_checkpoint(ckpt_dir, step: int, like_tree):
 
     def load(keys, index, like):
         arr = arrays[keystr(keys)]
-        arr = arr if index is None else arr[index]
-        return torch.from_numpy(np.array(arr)).to(like.device)
+        t = torch.from_numpy(np.array(arr if index is None else arr[index]))
+        if shardings is not None:
+            t = at(shardings, keys, index).local(t).contiguous()
+        return t.to(like.device)
     return map_leaves(load, like_tree), manifest["extra"]

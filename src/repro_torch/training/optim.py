@@ -18,6 +18,20 @@ otherwise and decays every tensor.
 
 Scalars are float32 tensors formed as the JAX code forms them (lr,
 b1 ** step), so the two packages round alike.
+
+On a (data, model) mesh (`make_optimizer(cfg, mesh)`, `mesh` a
+`distributed.sharding.MeshRank`) each rank updates its shards with the
+global arithmetic that GSPMD gives the JAX step. The state is that of the
+global parameters cut by `opt_state_specs` (`shard_opt_state`). AdamW is
+elementwise. `global_norm` sums each leaf's squares over the axes that
+shard it, a leaf replicated over an axis once. Adafactor's row and column
+means sum over the sharded dim with an all-reduce, its factored
+statistics are whole on every rank (their specs replicate) and its update
+RMS sums over the leaf's shards. 8-bit Adam quantises blocks of q_block
+along the last dim as the unsharded array does: where a shard's width is
+a multiple of q_block its blocks are the global ones, and elsewhere the
+rank quantises on the leaf gathered along that dim. These sums run in
+another order than one device's.
 """
 from __future__ import annotations
 
@@ -27,7 +41,9 @@ from functools import partial
 
 import torch
 
-from repro_torch.tree import leaves
+from repro_torch.distributed.sharding import global_shape, shard_opt_state
+from repro_torch.launch.mesh import axis_size
+from repro_torch.tree import at, leaves, map_leaves
 
 
 @dataclass(frozen=True)
@@ -54,22 +70,44 @@ def lr_schedule(cfg: OptConfig, step):
     return cfg.lr * warm
 
 
-def global_norm(tree) -> torch.Tensor:
+def global_norm(tree, mesh=None) -> torch.Tensor:
     """sqrt of the sum over JAX leaves (`jax.tree.leaves` order) of each
-    leaf's sum of squares in float32."""
+    leaf's sum of squares in float32. On a mesh (`tree` the rank's shards
+    of the parameters' structure) the leaves' sums are grouped by the axes
+    that shard them, and each group is summed over those axes: a leaf
+    replicated over an axis counts once."""
     total = 0
-    for _, group, _ in leaves(tree):
+    if mesh is None:
+        for _, group, _ in leaves(tree):
+            leaf = 0
+            for g in group:
+                leaf = leaf + torch.sum(torch.square(g.float()))
+            total = total + leaf
+        return torch.sqrt(total)
+    sums, groups = [], {}
+    for (_, group, _), (_, specs, _) in zip(leaves(tree), leaves(mesh.specs)):
         leaf = 0
         for g in group:
             leaf = leaf + torch.sum(torch.square(g.float()))
+        axes = tuple(sorted({a for e in specs[0] if e is not None
+                             for a in ((e,) if isinstance(e, str) else e)}))
+        groups.setdefault(axes, []).append(len(sums))
+        sums.append(leaf)
+    # one all-reduce per set of axes, then the leaves added in leaf order:
+    # one card's order, so a mesh of one rank gives its norm bit for bit
+    for axes, idx in groups.items():
+        summed = mesh.leaf_sum(torch.stack([sums[i] for i in idx]), axes)
+        for j, i in enumerate(idx):
+            sums[i] = summed[j]
+    for leaf in sums:
         total = total + leaf
     return torch.sqrt(total)
 
 
-def clip_by_global_norm(grads, max_norm):
+def clip_by_global_norm(grads, max_norm, mesh=None):
     """(the gradients in float32 scaled by min(1, max_norm / max(norm,
-    1e-9)), the norm)."""
-    norm = global_norm(grads)
+    1e-9)), the norm); on a mesh the global norm of the shards."""
+    norm = global_norm(grads, mesh)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
 
     def clip(t):
@@ -187,7 +225,45 @@ def adafactor_init(params):
     return {"f": {path: z(g, s) for path, g, s in leaves(params)}, "step": _step0(params)}
 
 
-def adafactor_update(cfg: OptConfig, grads, state, params):
+def _spec(mesh, path, ndim) -> tuple:
+    """The mesh spec of a JAX leaf (stacked layers' leading None included),
+    padded with None to `ndim` entries."""
+    sp = mesh.leaf_specs().get(path, ())
+    return tuple(sp) + (None,) * (ndim - len(sp))
+
+
+def _size(mesh, entry) -> int:
+    return 1 if entry is None else axis_size(mesh.mesh, entry)
+
+
+def _adafactor_mesh(cfg, mesh, path, f, p, g, decay):
+    """One Adafactor leaf on a mesh: (delta, new state leaf). The row and
+    column means sum over their sharded dims and are gathered whole (the
+    factored statistics replicate); the update RMS sums over every shard."""
+    sp = _spec(mesh, path, p.ndim)
+    row_sh, col_sh = mesh.sharding(path, sp[:-1]), mesh.sharding(path, sp[:-2] + sp[-1:])
+    g2 = torch.square(g) + 1e-30
+    if p.ndim >= 2:
+        row = mesh.leaf_sum(g2.sum(dim=-1), sp[-1:]) / (p.shape[-1] * _size(mesh, sp[-1]))
+        col = mesh.leaf_sum(g2.sum(dim=-2), sp[-2:-1]) / (p.shape[-2] * _size(mesh, sp[-2]))
+        vr = decay * f["vr"] + (1 - decay) * row_sh.whole(row)
+        vc = decay * f["vc"] + (1 - decay) * col_sh.whole(col)
+        vr_mean = vr.mean(dim=-1, keepdim=True)
+        denom = torch.sqrt(row_sh.local(vr)[..., None] * col_sh.local(vc)[..., None, :]
+                           / torch.clamp(mesh.sharding(path, sp[:-2] + (None,)).local(
+                               vr_mean)[..., None], min=1e-30))
+        new = {"vr": vr, "vc": vc}
+    else:
+        v = decay * f["v"] + (1 - decay) * g2
+        denom = torch.sqrt(v)
+        new = {"v": v}
+    delta = g / torch.clamp(denom, min=1e-12)
+    n = math.prod(global_shape(delta.shape, sp, mesh.mesh))
+    rms = torch.sqrt(mesh.leaf_sum(torch.sum(torch.square(delta)), sp) / n)
+    return delta / torch.clamp(rms, min=1.0), new
+
+
+def adafactor_update(cfg: OptConfig, grads, state, params, mesh=None):
     step, lr = _step_scalars(cfg, state)
     decay = 1.0 - (step.float() + 1.0) ** -0.8
     new_f = {}
@@ -195,6 +271,11 @@ def adafactor_update(cfg: OptConfig, grads, state, params):
     def upd(path, p, g):
         f = state["f"][path]
         g = g.float()
+        if mesh is not None:
+            delta, new_f[path] = _adafactor_mesh(cfg, mesh, path, f, p, g, decay)
+            if p.ndim >= 2:
+                delta = delta + cfg.weight_decay * p.float()
+            return (p.float() - lr * delta).to(p.dtype)
         g2 = torch.square(g) + 1e-30
         if p.ndim >= 2:
             vr = decay * f["vr"] + (1 - decay) * g2.mean(dim=-1)
@@ -232,7 +313,7 @@ def adam8bit_init(params, q_block=256):
     return {"q": {path: z(g, s) for path, g, s in leaves(params)}, "step": _step0(params)}
 
 
-def adam8bit_update(cfg: OptConfig, grads, state, params):
+def adam8bit_update(cfg: OptConfig, grads, state, params, mesh=None):
     step, lr = _step_scalars(cfg, state)
     b1, b2 = cfg.b1, cfg.b2
     c1 = 1 - torch.pow(_f32(b1, step.device), step.float())
@@ -241,6 +322,20 @@ def adam8bit_update(cfg: OptConfig, grads, state, params):
 
     def upd(path, p, g):
         q = state["q"][path]
+        if mesh is not None and "mq" in q:
+            sp = _spec(mesh, path, p.ndim)
+            if sp[-1] is not None and p.shape[-1] % cfg.q_block:
+                # the shard's blocks are not the global ones: quantise on the
+                # leaf gathered along its last dim, and keep the shard
+                last = mesh.sharding(path, (None,) * (p.ndim - 1) + sp[-1:])
+                q = {k: last.whole(t) if k in ("mq", "vq") else t for k, t in q.items()}
+                new = step_leaf(path, q, last.whole(p), last.whole(g))
+                new_q[path] = {k: last.local(t) if k in ("mq", "vq") else t
+                               for k, t in new_q[path].items()}
+                return last.local(new)
+        return step_leaf(path, q, p, g)
+
+    def step_leaf(path, q, p, g):
         g = g.float()
         if "mq" in q:
             m = _dq8(q["mq"], q["ms"], cfg.q_block)
@@ -266,14 +361,29 @@ def adam8bit_update(cfg: OptConfig, grads, state, params):
 # ------------------------------------------------------------- registry ----
 
 
-def make_optimizer(cfg: OptConfig):
+def make_optimizer(cfg: OptConfig, mesh=None):
     """(init(params) -> state, update(grads, state, params) -> (params,
     state)); update writes the new values into `params` in place and
-    returns them."""
+    returns them. On a mesh (`mesh`, a `MeshRank`; `params` the rank's
+    shards) init makes the state of the global parameters, cut into the
+    rank's shards (`shard_opt_state`), and update runs the global
+    arithmetic on them (the module docstring)."""
     if cfg.name == "adamw":
-        return adamw_init, partial(adamw_update, cfg)
-    if cfg.name == "adafactor":
-        return adafactor_init, partial(adafactor_update, cfg)
-    if cfg.name == "adam8bit":
-        return partial(adam8bit_init, q_block=cfg.q_block), partial(adam8bit_update, cfg)
-    raise ValueError(cfg.name)
+        init, update = adamw_init, partial(adamw_update, cfg)
+    elif cfg.name == "adafactor":
+        init, update = adafactor_init, partial(adafactor_update, cfg, mesh=mesh)
+    elif cfg.name == "adam8bit":
+        init, update = (partial(adam8bit_init, q_block=cfg.q_block),
+                        partial(adam8bit_update, cfg, mesh=mesh))
+    else:
+        raise ValueError(cfg.name)
+    if mesh is None:
+        return init, update
+
+    def init_shards(params):
+        shapes = map_leaves(lambda keys, index, t: torch.empty(
+            global_shape(t.shape, at(mesh.specs, keys, index), mesh.mesh), dtype=t.dtype,
+            device="meta"), params)
+        dev = leaves(params)[0][1][0].device
+        return shard_opt_state(mesh.cfg, init(shapes), mesh.specs, mesh.mesh, device=dev)
+    return init_shards, update

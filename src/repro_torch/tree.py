@@ -57,3 +57,14 @@ def like(tree, values) -> dict:
     """A tree of `tree`'s structure holding `values` in `flat` order."""
     it = iter(values)
     return map_leaves(lambda keys, index, t: next(it), tree)
+
+
+def at(tree, keys, index):
+    """The entry of a tree at dict `keys`, in list entry `index` where the
+    path crosses a list (the port's layer stacks)."""
+    node = tree
+    for k in keys:
+        node = node[k]
+        if isinstance(node, list):
+            node = node[index]
+    return node

@@ -1,6 +1,6 @@
 """Package rules of the port: importing `repro_torch` and every one of its
-modules (the training, launch and distributed packages and
-`launch.mesh` among them) loads no `jax` and no module of the JAX package
+modules (the training, launch and distributed packages,
+`launch.mesh` and `launch.specs` among them) loads no `jax` and no module of the JAX package
 `repro`; the jax-free modules it keeps as copies stay verbatim copies, and those copied
 with named edits differ from their originals in those lines only; the config
 registry serves qwen2.5-3b, qwen3-32b, nemotron-4-15b, deepseek-67b,
@@ -91,7 +91,7 @@ def test_port_imports_no_jax_and_no_repro():
     modules = list(_modules())
     for package in ("repro_torch.training", "repro_torch.launch", "repro_torch.distributed"):
         assert package in modules and any(m.startswith(package + ".") for m in modules)
-    assert "repro_torch.launch.mesh" in modules
+    assert "repro_torch.launch.mesh" in modules and "repro_torch.launch.specs" in modules
     code = (
         "import importlib, sys\n"
         f"for m in {modules!r}:\n"
