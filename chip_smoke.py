@@ -7,7 +7,7 @@ Runs from the root of a checkout, imports nothing of JAX or of the JAX
 package, and goes through its phases, each printing one JSON line. By
 default it runs every phase; `--phases` names some (main, spec, slab,
 draft, frontend, cascade, live, mesh, train, ssm, moe, vlm, grok, hybrid,
-whisper, dense_family, kernels, reference), and each brings the phases it
+whisper, dense_family, dryrun, kernels, reference), and each brings the phases it
 needs (`NEEDS`: the paths on the legal corpus's 100 documents compare with
 main's rows, kernels checks the launches the model paths captured):
 
@@ -192,7 +192,25 @@ main's rows, kernels checks the launches the model paths captured):
              the full count comes from the meta device), each serving the
              query on the reference phase's 20 documents with the spec
              settings. Rows must equal SMOKE qwen2.5-3b's on the same
-             documents; K2, K3 and K4 must launch and K1 must stay at 0;
+             documents; K2, K3 and K4 must launch and K1 must stay at 0.
+             Then a fourth, derived model (not a published one, DENSE_MLA):
+             deepseek-v2-lite-16b's own first-layer block -- MLA attention
+             (r 512, rope 64, nope 128, v 128) and its dense MLP (d_ff
+             10,944) -- as a dense model at its published widths (d_model
+             2,048, 16 heads, vocab 102,400), DENSE_LAYERS deep, bf16 from
+             --seed, served the same way: MLA attends the latent pools in
+             plain PyTorch, so K3 launches and no other kernel; its
+             kv_bytes_peak beside qwen3-32b's; and its query on the first
+             FAMILY_MESH_DOCS documents on a 1x1 NCCL mesh, identical to
+             the card alone ("dense_family_mesh");
+  dryrun     the production dry run (`repro_torch.launch.dryrun`) in two
+             child processes without a CUDA device (its fake process
+             group must not meet the mesh phases' NCCL group), started
+             after the build beside the card's phases: qwen2.5-3b's
+             decode_32k and train_4k cells at --probe 2 as rank 0 of the
+             (16, 16) production mesh, on meta tensors; each record's
+             status, flops, collective bytes, temp bytes and seconds. A
+             record that is not "ok" fails the phase;
   kernels    every kernel of those paths (K1 paged decode attention, K2
              paged chunk-prefill attention, K3 L2 top-k, K4 paged verify
              attention, K5 dense-cache decode attention, K5s its
@@ -268,8 +286,10 @@ main's rows, kernels checks the launches the model paths captured):
              in three (off; prompt lookup with the prefix cache; slab with
              the prefix cache: the image prefix through every layout),
              qwen3-32b (random q/k-norm weights), nemotron-4-15b and
-             deepseek-67b with prompt lookup and the prefix cache,
-             grok-1-314b in llava's three (its K/V pools, sink page
+             deepseek-67b with prompt lookup and the prefix cache, SMOKE
+             dense MLA (DENSE_MLA's derivation of SMOKE
+             deepseek-v2-lite-16b) with prompt lookup and the prefix cache
+             on the page pool, grok-1-314b in llava's three (its K/V pools, sink page
              included, card against CPU to TOL, and its prompt-lookup mode
              twice on the card with bit-identical pools), zamba2-2.7b in
              falcon-mamba-7b's four and whisper-medium in llava's three with a
@@ -299,7 +319,8 @@ main's rows, kernels checks the launches the model paths captured):
              agree across the devices. Training modes (`training_runs`):
              the seven families' SMOKE configs in float32, the first
              step's loss and gradients and the parameters after two AdamW
-             steps (qwen2.5-3b also Adafactor and 8-bit Adam;
+             steps (qwen2.5-3b also Adafactor and 8-bit Adam; SMOKE dense
+             MLA too;
              deepseek-v2-lite-16b also under set_moe_groups(2): K6's
              grouped launch, aux 0) card against CPU within TRAIN_REF_TOL,
              each family's kernels launched on the card, and crash-resume
@@ -307,6 +328,12 @@ main's rows, kernels checks the launches the model paths captured):
              checkpoint) bit for bit, also with the crash on a 1x1 NCCL
              mesh (its checkpoint the global arrays) resumed on the card
              alone.
+
+The compile cache: the main phase's engine is built with
+`compilation_cache_dir=` the build's directory, and a child process
+started after the build enables the same directory
+(`launch.compile_cache`) and loads the kernel library from it, with
+nvcc made to fail: it must load the cached library ("compile_cache").
 
 Every phase raises on a mismatch. Then it prints each phase's seconds,
 the `kernels` summary line (K1-K7 and K2's non-causal form; empty when
@@ -643,6 +670,25 @@ HYBRID_LAYERS = 18
 # one card, and three whole models would not fit the time limit.
 DENSE_FAMILY = ("qwen3-32b", "nemotron-4-15b", "deepseek-67b")
 DENSE_LAYERS = 4
+# The dense_family phase's fourth model and the reference phase's dense MLA
+# mode: deepseek-v2-lite-16b's own first-layer block (MLA attention and its
+# dense MLP) as a dense model, a derived configuration and not a published
+# model (the JAX model runs dense with MLA, src/repro/models/model.py:46).
+DENSE_MLA = "deepseek-v2-lite-16b-dense-mla"
+
+
+def _dense_mla_config(get_config):
+    return get_config("deepseek-v2-lite-16b").replace(
+        name=DENSE_MLA, family="dense", n_experts=0, n_shared_experts=0,
+        first_dense_layers=0)
+
+
+def _smoke_config(arch: str):
+    """The SMOKE config of a registry id, or DENSE_MLA's derivation of SMOKE
+    deepseek-v2-lite-16b."""
+    from repro_torch.configs import get_smoke_config
+    return _dense_mla_config(get_smoke_config) if arch == DENSE_MLA else \
+        get_smoke_config(arch)
 
 
 def _cut(cfg, params, n: int = MAIN_LAYERS):
@@ -735,6 +781,7 @@ def phase_main(seed: int, captures: dict) -> dict:
     import torch
     from repro_torch.configs import get_config
     from repro_torch.data.corpus import make_legal_corpus
+    from repro_torch.kernels import _build
     from repro_torch.kernels import decode_attention as k1
     from repro_torch.kernels import flash_attention as k2
     from repro_torch.kernels import topk_l2 as k3
@@ -749,7 +796,7 @@ def phase_main(seed: int, captures: dict) -> dict:
     cfg, params = _cut(full_cfg, full_params)
     corpus = make_legal_corpus(seed=1)
     session, engine, extractor, build_s = _served_query(
-        cfg, params, corpus, "cuda", max_new=12)
+        cfg, params, corpus, "cuda", max_new=12, compilation_cache_dir=str(_build.BUILD_DIR))
 
     captures["K1"] = Capture(k1, "paged_decode_attention",
                              lambda q, kp, vp, tbl, lens: tbl.shape[1] * q.shape[0])
@@ -770,7 +817,7 @@ def phase_main(seed: int, captures: dict) -> dict:
            "generated_tokens": gen_tokens, "weights_init_s": init_s,
            "index_build_s": build_s, "query_wall_s": wall,
            "generated_tokens_per_s": gen_tokens / wall,
-           "launches": launches}
+           "compilation_cache_dir": str(_build.BUILD_DIR), "launches": launches}
     emit(out)
     if not result.rows:
         raise AssertionError("the main-path query returned no rows")
@@ -1934,7 +1981,9 @@ def _smoke_result(seed: int, corpus, device):
 def phase_dense_family(seed: int) -> dict:
     """The query on qwen3-32b, nemotron-4-15b and deepseek-67b at their
     published widths, each cut to its first DENSE_LAYERS layers, with the
-    served settings, on the first 20 legal documents."""
+    served settings, on the first 20 legal documents; then on DENSE_MLA,
+    derived from deepseek-v2-lite-16b at its widths, and that model's query
+    on a 1x1 mesh."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.data.corpus import make_legal_corpus
@@ -1945,8 +1994,8 @@ def phase_dense_family(seed: int) -> dict:
     want = _smoke_result(seed, corpus, "cuda")
     out = {"phase": "dense_family", "docs": len(corpus.docs), "layers": DENSE_LAYERS,
            "engine_options": SPEC, "rows_smoke_qwen2.5-3b": len(want.rows), "models": {}}
-    for arch in DENSE_FAMILY:
-        full_cfg = get_config(arch)
+    for arch in DENSE_FAMILY + (DENSE_MLA,):
+        full_cfg = _dense_mla_config(get_config) if arch == DENSE_MLA else get_config(arch)
         cfg = full_cfg.replace(num_layers=DENSE_LAYERS)
         t0 = time.perf_counter()
         gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -1969,7 +2018,14 @@ def phase_dense_family(seed: int) -> dict:
                "served_requests": extractor.stats.requests,
                "generated_tokens": gen_tokens, "weights_init_s": init_s,
                "index_build_s": build_s, "query_wall_s": wall,
-               "generated_tokens_per_s": gen_tokens / wall, "launches": launches}
+               "generated_tokens_per_s": gen_tokens / wall, "launches": launches,
+               "seconds": time.perf_counter() - t0}
+        if arch == DENSE_MLA:
+            row.update(derived="deepseek-v2-lite-16b's first-layer block as a dense model, "
+                               "not a published model",
+                       mla={"kv_lora_rank": cfg.kv_lora_rank, "qk_rope_dim": cfg.qk_rope_dim,
+                            "qk_nope_dim": cfg.qk_nope_dim, "v_head_dim": cfg.v_head_dim},
+                       vocab=cfg.vocab_size)
         out["models"][arch] = row
         emit({"phase": "dense_family", "model": arch, **row})
         if not result.rows or result.rows != want.rows or \
@@ -1978,11 +2034,22 @@ def phase_dense_family(seed: int) -> dict:
                                  f"{result.ledger.input_tokens} input tokens, not SMOKE "
                                  f"qwen2.5-3b's {len(want.rows)} and "
                                  f"{want.ledger.input_tokens}")
-        if launches["K1"] or not all(launches[k] for k in ("K2", "K3", "K4")):
+        if arch == DENSE_MLA:
+            # MLA attends its latent pools in plain PyTorch: retrieval's K3 alone
+            if launches["K3"] <= 0 or any(n for k, n in launches.items() if k != "K3"):
+                raise AssertionError(f"{arch}: K3 did not launch or another kernel did: "
+                                     f"{launches}")
+        elif launches["K1"] or not all(launches[k] for k in ("K2", "K3", "K4")):
             raise AssertionError(f"{arch}: K1 launched or K2/K3/K4 did not: {launches}")
         if st["prefix_hits"] <= 0 or st["spec_rounds"] <= 0:
             raise AssertionError(f"{arch}: no prefix hit or no verify round")
-        del session, engine, extractor, params
+        del session, engine, extractor
+        if arch == DENSE_MLA:
+            out["kv_bytes_peak"] = {a: out["models"][a]["engine"]["kv_bytes_peak"]
+                                    for a in ("qwen3-32b", DENSE_MLA)}
+            emit({"phase": "dense_family", "kv_bytes_peak": out["kv_bytes_peak"]})
+            out["mesh"] = _family_mesh("dense_family", cfg, params)
+        del params
         torch.cuda.empty_cache()
     return out
 
@@ -2006,7 +2073,7 @@ class _Spans:
                     return fn(*a, **kw)
             return run
         self.saved = [(layers, n, getattr(layers, n))
-                      for n in ("page_view", "_mla_attend", "write_view_blocks")]
+                      for n in ("page_view", "_mla_attend", "_write_latent")]
         self.saved.append((torch, "bmm", torch.bmm))
         for mod, n, fn in self.saved:
             setattr(mod, n, named(fn, "moe_expert_bmm" if n == "bmm" else "mla_attention"))
@@ -3855,7 +3922,7 @@ def _reference_models() -> dict:
             "falcon-mamba-7b": {"off": {}, "spec": SPEC, "slab": slab, "rollback": rollback},
             "deepseek-v2-lite-16b": {"off": {}, "spec": SPEC, "slab": slab, "draft": draft},
             "llava-next-mistral-7b": {"off": {}, "spec": SPEC, "slab": slab},
-            **{arch: {"spec": SPEC} for arch in DENSE_FAMILY},
+            **{arch: {"spec": SPEC} for arch in DENSE_FAMILY + (DENSE_MLA,)},
             "grok-1-314b": {"off": {}, "spec": SPEC, "slab": slab},
             "zamba2-2.7b": {"off": {}, "spec": SPEC, "slab": slab, "rollback": rollback},
             "whisper-medium": {"off": {}, "spec": SPEC, "slab": slab}}
@@ -3879,7 +3946,6 @@ def reference_runs(seed: int, device: str) -> dict:
     K6 launches and seconds, keyed by (arch, mode)."""
     import torch
     from repro_torch import core
-    from repro_torch.configs import get_smoke_config
     from repro_torch.data import lm_data
     from repro_torch.data.corpus import make_legal_corpus
     from repro_torch.kernels import moe_gating as k6
@@ -3889,7 +3955,7 @@ def reference_runs(seed: int, device: str) -> dict:
     docs = {n: full.subset(sorted(full.docs)[:n]) for n in (REF_NEW_DOCS, REF_SLAB_DOCS)}
     runs, states, pools, gating, seconds = {}, {}, {}, {}, {}
     for arch, modes in _reference_models().items():
-        cfg = get_smoke_config(arch).replace(vocab_size=lm_data.VOCAB)
+        cfg = _smoke_config(arch).replace(vocab_size=lm_data.VOCAB)
         if cfg.family == "encdec":
             cfg = cfg.replace(max_position=REF_WHISPER_POSITIONS)
         gen = torch.Generator().manual_seed(seed)
@@ -3947,18 +4013,19 @@ def reference_runs(seed: int, device: str) -> dict:
 # `make_train_step` at this lr; qwen2.5-3b also with Adafactor and 8-bit
 # Adam (q_block 32, so that its stacked norms are quantized).
 TRAIN_REF_ARCHS = ("qwen2.5-3b", "deepseek-v2-lite-16b", "grok-1-314b", "falcon-mamba-7b",
-                   "zamba2-2.7b", "llava-next-mistral-7b", "whisper-medium")
+                   "zamba2-2.7b", "llava-next-mistral-7b", "whisper-medium", DENSE_MLA)
 TRAIN_REF_OPT = {"lr": 1e-3, "warmup_steps": 1}
 TRAIN_REF_EXTRA = {"adafactor": {"name": "adafactor"},
                    "adam8bit": {"name": "adam8bit", "q_block": 32}}
 # deepseek-v2-lite-16b's grouped mode: AdamW under set_moe_groups(
 # GROUPED_GROUPS), K6's grouped launch on the card
 GROUPED_MODE, GROUPED_GROUPS = "adamw grouped", 2
-# the kernels each family's training forward must launch on the card
+# the kernels each family's training forward must launch on the card (dense
+# MLA none: its attention is plain PyTorch)
 TRAIN_REF_KERNELS = {"qwen2.5-3b": ("K2",), "deepseek-v2-lite-16b": ("K6",),
                      "grok-1-314b": ("K2", "K6"), "falcon-mamba-7b": ("K7",),
                      "zamba2-2.7b": ("K2",), "llava-next-mistral-7b": ("K2",),
-                     "whisper-medium": ("K2", "K2nc")}
+                     "whisper-medium": ("K2", "K2nc"), DENSE_MLA: ()}
 # card against CPU, float32: the loss, its parts and each step's loss and
 # gradient norm relative, each gradient tensor relative to its largest
 # value, a parameter in the allclose form |a - b| / (1 + |b|): 10% of one
@@ -3991,12 +4058,11 @@ def training_runs(seed: int, device: str) -> dict:
     deepseek-v2-lite-16b also under set_moe_groups(GROUPED_GROUPS) (K6's
     grouped launch); on the card also the crash-resume check
     (`_crash_resume`, its crash written from a 1x1 mesh too)."""
-    from repro_torch.configs import get_smoke_config
     from repro_torch.models import layers
 
     out = {}
     for arch in TRAIN_REF_ARCHS:
-        cfg = get_smoke_config(arch)
+        cfg = _smoke_config(arch)
         opts = ("adamw", "adafactor", "adam8bit") if arch == "qwen2.5-3b" else \
             ("adamw", GROUPED_MODE) if arch == "deepseek-v2-lite-16b" else ("adamw",)
         for opt in opts:
@@ -4306,7 +4372,7 @@ def phase_reference(seed: int, cpu_half) -> dict:
                  for dev in ("cuda", "cpu")}
     # the dense family's one mode: rows equal the plain mode's on its documents
     invariant.update({f"{a}/spec/{dev}": runs[a, "spec", dev][0] == plain_small[dev]
-                      for a in DENSE_FAMILY for dev in ("cuda", "cpu")})
+                      for a in DENSE_FAMILY + (DENSE_MLA,) for dev in ("cuda", "cpu")})
     moe_tokens = {f"{a}/{m}/{dev}": _token_agreement(runs[a, "off", dev][5], runs[a, m, dev][5])
                   for a in moe_archs for m in models[a] if m != "off"
                   and docs(a, m) == docs(a, "off") for dev in ("cuda", "cpu")}
@@ -4404,6 +4470,143 @@ def phase_reference(seed: int, cpu_half) -> dict:
     return out
 
 
+# The dry run's cells (`phase_dryrun`): reduced-depth probes at published
+# widths, on the (16, 16) production mesh's rank 0.
+DRYRUN_CELLS = (("qwen2.5-3b", "decode_32k"), ("qwen2.5-3b", "train_4k"))
+DRYRUN_PROBE = 2
+
+
+class _Child:
+    """A child process started now, its output and wall kept when it ends
+    (a thread waits on it, so it runs beside the card's phases); `stop_all`
+    kills those still running."""
+    started: list = []
+
+    def __init__(self, cmd, env=None):
+        import threading
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                     text=True, env=env)
+        _Child.started.append(self)
+        self.text, self.wall_s = "", None
+        self.thread = threading.Thread(target=self._wait, daemon=True)
+        self.thread.start()
+
+    def _wait(self):
+        self.text, _ = self.proc.communicate()
+        self.wall_s = time.perf_counter() - self.t0
+
+    @classmethod
+    def stop_all(cls):
+        for child in cls.started:
+            if child.proc.poll() is None:
+                child.proc.kill()
+                child.proc.wait()
+
+    def join(self, timeout: float = 600):
+        self.thread.join(timeout)
+        if self.thread.is_alive():
+            self.proc.kill()
+            self.thread.join()
+            raise AssertionError(f"child {self.proc.args[:4]} did not end in {timeout} s")
+        return self
+
+
+def _child_env(**extra) -> dict:
+    import os
+    return {**os.environ, "PYTHONPATH": str(SRC), **extra}
+
+
+def start_dryrun(out_dir) -> list:
+    """The dry run's cells, each `python -m repro_torch.launch.dryrun` in a
+    child process with no CUDA device visible: its default process group
+    is the fake backend's, which must not meet the mesh phases' NCCL
+    group."""
+    base = Path(out_dir) if out_dir else ROOT / "build"
+    base.mkdir(parents=True, exist_ok=True)
+    cells = []
+    for arch, shape in DRYRUN_CELLS:
+        out = base / f"dryrun_{shape}.json"
+        out.unlink(missing_ok=True)
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--mesh", "single",
+               "--arch", arch, "--shape", shape, "--probe", str(DRYRUN_PROBE),
+               "--out", str(out)]
+        cells.append((f"{arch}|{shape}|single|probe{DRYRUN_PROBE}", out,
+                      _Child(cmd, _child_env(CUDA_VISIBLE_DEVICES=""))))
+    return cells
+
+
+def phase_dryrun(cells) -> dict:
+    """Each dry-run cell's record: status, flops, collective bytes and
+    counts, argument and temp bytes, its seconds and its process's."""
+    records = {}
+    for key, out, child in cells:
+        child.join()
+        rec = json.loads(out.read_text()).get(key, {}) if out.exists() else {}
+        records[key] = {"status": rec.get("status", "missing"), "rc": child.proc.returncode,
+                        "n_devices": rec.get("n_devices"), "rank": rec.get("rank"),
+                        "flops": rec.get("cost", {}).get("flops"),
+                        "collective_bytes": rec.get("collectives", {}).get("_total"),
+                        "collective_counts": rec.get("collectives", {}).get("_counts"),
+                        "collective_sites": rec.get("collective_sites"),
+                        "temp_bytes": rec.get("memory", {}).get("temp_size_in_bytes"),
+                        "argument_bytes": rec.get("memory", {}).get("argument_size_in_bytes"),
+                        "run_s": rec.get("run_s"), "process_s": child.wall_s,
+                        "error": rec.get("error") or (child.text[-1500:]
+                                                      if child.proc.returncode else None)}
+    out = {"phase": "dryrun", "mesh": "single: (data 16, model 16), rank 0, fake backend, "
+                                      "meta tensors, no CUDA device visible",
+           "records": records}
+    emit(out)
+    bad = {k: r for k, r in records.items() if r["status"] != "ok" or r["rc"] != 0}
+    if bad:
+        raise AssertionError(f"dry-run cells not ok: {bad}")
+    return out
+
+
+CACHE_CHILD = """
+import json, sys
+sys.path.insert(0, {src!r})
+from repro_torch.kernels import _build
+from repro_torch.launch.compile_cache import compilation_cache_dir, enable_compilation_cache
+
+def no_nvcc():
+    raise RuntimeError("nvcc started: the library was not found in the cache")
+
+_build._nvcc = no_nvcc
+enabled = enable_compilation_cache({cache!r})
+_build.library()
+print(json.dumps({{"enabled": enabled, "dir": compilation_cache_dir(),
+                  "cached": _build.build_info["cached"],
+                  "nvcc_seconds": _build.build_info["seconds"],
+                  "library": str(_build.build())}}))
+"""
+
+
+def start_cache_child() -> _Child:
+    """A process that enables the compile cache at the build's directory
+    and loads the kernel library from it, nvcc made to fail."""
+    from repro_torch.kernels import _build
+    code = CACHE_CHILD.format(src=str(SRC), cache=str(_build.BUILD_DIR))
+    return _Child([sys.executable, "-c", code], _child_env())
+
+
+def check_cache_child(child: _Child) -> dict:
+    from repro_torch.kernels import _build
+    child.join(300)
+    lines = [ln for ln in child.text.splitlines() if ln.startswith("{")]
+    got = json.loads(lines[-1]) if child.proc.returncode == 0 and lines else {}
+    out = {"phase": "compile_cache", "dir": str(_build.BUILD_DIR), "rc": child.proc.returncode,
+           "process_s": child.wall_s, **got}
+    if child.proc.returncode:
+        out["error"] = child.text[-1500:]
+    emit(out)
+    if not got.get("cached") or got.get("dir") != str(_build.BUILD_DIR) or \
+            got.get("library") != str(_build.build()):
+        raise AssertionError(f"the later process did not load the cached library: {out}")
+    return out
+
+
 def _to(tree, device):
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}
@@ -4414,8 +4617,8 @@ def _to(tree, device):
 
 # every phase, in the order they run; the device and build phases always run
 PHASES = ("main", "spec", "slab", "draft", "frontend", "cascade", "live", "mesh", "train",
-          "ssm", "moe", "vlm", "grok", "hybrid", "whisper", "dense_family", "kernels",
-          "reference")
+          "ssm", "moe", "vlm", "grok", "hybrid", "whisper", "dense_family", "dryrun",
+          "kernels", "reference")
 # the phases whose results a phase reads: the qwen2.5-3b paths and the
 # ssm and moe phases compare with main's rows, draft with slab's tokens,
 # and kernels checks the launches the model paths captured
@@ -4493,6 +4696,8 @@ def main() -> int:
 
         captures: dict = {}
         seconds = {"build": report["build"]["seconds"]}
+        cache_child = start_cache_child()
+        dryrun_cells = start_dryrun(args.out) if "dryrun" in phases else None
         if "reference" in phases:
             cpu_reference = _CpuReference(args.seed)
         clock = [time.perf_counter()]
@@ -4589,6 +4794,10 @@ def main() -> int:
         if "dense_family" in phases:
             report["dense_family"] = phase_dense_family(args.seed)
             lap("dense_family")
+        if "dryrun" in phases:              # its children ran beside the phases above
+            report["dryrun"] = phase_dryrun(dryrun_cells)
+            lap("dryrun")
+        report["compile_cache"] = check_cache_child(cache_child)
         if "kernels" in phases:
             launches = {**report["main"]["launches"], "K4": report["spec"]["launches"]["K4"],
                         "K5": report["draft"]["launches"]["K5"],
@@ -4627,6 +4836,7 @@ def main() -> int:
         traceback.print_exc()
         return 1
     finally:
+        _Child.stop_all()
         if cpu_reference is not None:
             cpu_reference.close()
         if args.out:

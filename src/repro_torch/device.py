@@ -8,6 +8,11 @@ from __future__ import annotations
 
 import torch
 
+# The devices whose tensors a kernel wrapper sends to its plain PyTorch
+# version: the CPU, and the meta device, whose tensors have no storage (the
+# dry run's, `launch/dryrun.py`). A CUDA tensor launches the kernel.
+PLAIN_DEVICES = ("cpu", "meta")
+
 
 def resolve_device(device=None) -> torch.device:
     dev = torch.device("cuda" if device is None else device)

@@ -338,13 +338,13 @@ class MeshParams(dict):
         self.mesh = mesh
 
 
-def shard_params(cfg: ModelConfig, params, mesh, device=None) -> MeshParams:
+def shard_params(cfg: ModelConfig, params, mesh, device=None, overrides=None) -> MeshParams:
     """Cut a full parameter tree into this rank's shards under
-    `param_specs`, on `device` (default: where the tensors are). Shards
-    that are already cut are returned as they are."""
+    `param_specs` (with its `overrides`), on `device` (default: where the
+    tensors are). Shards that are already cut are returned as they are."""
     if isinstance(params, MeshParams):
         return params
-    specs = param_specs(cfg, params, mesh)
+    specs = param_specs(cfg, params, mesh, overrides)
     local = map_leaves(lambda keys, index, t: _sharding(cfg, keys, _at(specs, keys, index), mesh)
                        .local(t).to(device if device is not None else t.device), params)
     return MeshParams(local, specs, mesh)
@@ -395,7 +395,7 @@ def _interleaved(cfg: ModelConfig, path: str, spec) -> bool:
     rank r's columns of the x half beside the same columns of the z half:
     the conv, the scan and the gate then all run on the rank's d_inner
     channels."""
-    return (cfg.mamba_version == 1 and "['mamba']['in_proj']" in path
+    return (cfg.mamba_version != 2 and "['mamba']['in_proj']" in path
             and len(spec) >= 1 and spec[-1] == TP)
 
 
@@ -524,10 +524,11 @@ def _records(*xs) -> bool:
 
 def _reduce_scatter(g, group, n: int, rank: int):
     """This rank's row of the sum over `group` of g (n, numel): a
-    reduce-scatter where the backend has one (NCCL), else an all-reduce
-    and the rank's row (gloo)."""
+    reduce-scatter where the backend has one (NCCL, and the fake backend
+    that stands for it in the dry run, `launch/dryrun.py`), else an
+    all-reduce and the rank's row (gloo)."""
     g = g.contiguous()
-    if dist.get_backend(group) == "nccl":
+    if dist.get_backend(group) != "gloo":
         out = g.new_empty(g.shape[1:])
         dist.reduce_scatter_tensor(out, g, group=group)
         return out

@@ -25,6 +25,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.device import PLAIN_DEVICES
+
 from . import flash_attention as _k2
 from . import moe_gating as _k6
 from . import ssm_scan as _k7
@@ -116,7 +118,7 @@ def _direct(*xs) -> bool:
     """Whether the call goes straight to the kernel's wrapper: CPU tensors
     (the plain version, with PyTorch's autograd) or no input that records a
     gradient."""
-    return xs[0].device.type == "cpu" or not (
+    return xs[0].device.type in PLAIN_DEVICES or not (
         torch.is_grad_enabled() and any(torch.is_tensor(x) and x.requires_grad for x in xs))
 
 

@@ -65,6 +65,8 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.device import PLAIN_DEVICES
+
 from . import _build
 
 KEY_TILE = 64          # key positions per staged tile (paged_attention.cuh's kPaKeyTile)
@@ -169,7 +171,7 @@ def paged_decode_attention(q, k_pool, v_pool, page_table, lengths):
     CPU tensors take the plain version; CUDA tensors launch the kernel or
     raise."""
     global launches
-    if q.device.type == "cpu":
+    if q.device.type in PLAIN_DEVICES:
         return paged_decode_attention_plain(q, k_pool, v_pool, page_table, lengths)
     if q.device.type != "cuda":
         raise ValueError(f"paged_decode_attention: device {q.device}")
@@ -252,7 +254,7 @@ def decode_attention(q, k_cache, v_cache, lengths):
     (B,) int32 (broadcast) -> (B, H, D) in q's dtype. CPU tensors take the
     plain version; CUDA tensors launch the kernel or raise."""
     global dense_launches
-    if q.device.type == "cpu":
+    if q.device.type in PLAIN_DEVICES:
         return decode_attention_plain(q, k_cache, v_cache, lengths)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention: device {q.device}")
@@ -315,7 +317,7 @@ def decode_attention_stats(q, k_shard, v_shard, lengths, start: int):
     tensors take the plain version; CUDA tensors launch the kernel or
     raise."""
     global stats_launches
-    if q.device.type == "cpu":
+    if q.device.type in PLAIN_DEVICES:
         return decode_attention_stats_plain(q, k_shard, v_shard, lengths, start)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention_stats: device {q.device}")

@@ -49,6 +49,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.device import PLAIN_DEVICES
+
 from . import _build
 from .decode_attention import _aligned, plan_spans
 
@@ -79,7 +81,7 @@ def chunk_prefill_attention(q, k_pool, v_pool, ctx_table, start: int):
     CPU tensors take the plain version; CUDA tensors launch the kernel or
     raise."""
     global launches
-    if q.device.type == "cpu":
+    if q.device.type in PLAIN_DEVICES:
         return chunk_prefill_attention_plain(q, k_pool, v_pool, ctx_table, start)
     if q.device.type != "cuda":
         raise ValueError(f"chunk_prefill_attention: device {q.device}")
@@ -177,7 +179,7 @@ def bidirectional_attention(q, k, v, n_keys: int):
     every query sees the keys at positions < n_keys (1 <= n_keys <= Skv)
     -> (B, Sq, H, D). CPU tensors take the plain version; CUDA tensors
     launch the kernel or raise."""
-    if q.device.type == "cpu":
+    if q.device.type in PLAIN_DEVICES:
         return bidirectional_attention_plain(q, k, v, n_keys)
     if q.device.type != "cuda":
         raise ValueError(f"bidirectional_attention: device {q.device}")

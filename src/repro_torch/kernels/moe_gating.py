@@ -40,6 +40,8 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.device import PLAIN_DEVICES
+
 from . import _build
 
 MAX_EXPERTS = 256
@@ -120,7 +122,7 @@ def moe_gating(logits: torch.Tensor, k: int, capacity: int | None = None, groups
         raise ValueError(f"moe_gating: capacity must be >= 1, got {capacity}")
     if groups < 1 or T % groups:
         raise ValueError(f"moe_gating: {groups} groups must divide the {T} rows")
-    if logits.device.type == "cpu":
+    if logits.device.type in PLAIN_DEVICES:
         return moe_gating_plain(logits, k, capacity, groups)
     if logits.device.type != "cuda":
         raise ValueError(f"moe_gating: logits on {logits.device}")

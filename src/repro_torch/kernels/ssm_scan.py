@@ -37,6 +37,8 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.device import PLAIN_DEVICES
+
 from . import _build
 
 launches = 0
@@ -94,6 +96,16 @@ def ssm_scan_plain(x, dt, A, B_mat, C_mat, D, h0=None, states=None):
         if h0 is None else h0.float()
     xf, dtf = x.float(), dt.float()
     Bf, Cf = B_mat.float(), C_mat.float()
+    if x.device.type == "meta":
+        # meta tensors (the dry run) hold no values to recur over: one
+        # step's ops stand for the S steps', on the same inputs and with the
+        # loop's shapes and dependences, without S rounds of Python calls
+        h = torch.exp(dtf[:, 0, :, None] * A) * h + \
+            (dtf[:, 0] * xf[:, 0])[..., None] * Bf[:, 0, None, :]
+        ys = Cf.sum(-1)[:, :, None] * h.sum(-1)[:, None, :]
+        if states is not None:
+            states.copy_(h[:, None].expand_as(states))
+        return (ys + xf * D.float()).to(x.dtype), h
     ys = torch.empty((Bsz, S, di), dtype=torch.float32, device=x.device)
     for t in range(S):
         da = torch.exp(dtf[:, t, :, None] * A)
@@ -138,7 +150,7 @@ def ssm_scan(x, dt, A, B_mat, C_mat, D, h0=None, states=None):
     version; CUDA tensors launch the kernel or raise. On the card N must be
     a power of two <= 32 and every tensor contiguous."""
     Bsz, S, di, N = _check(x, dt, A, B_mat, C_mat, D, h0, states)
-    if x.device.type == "cpu":
+    if x.device.type in PLAIN_DEVICES:
         return ssm_scan_plain(x, dt, A, B_mat, C_mat, D, h0, states)
     if x.device.type != "cuda":
         raise ValueError(f"ssm_scan: device {x.device}")

@@ -28,6 +28,8 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.device import PLAIN_DEVICES
+
 from . import _build
 
 MAX_N = 16384          # database rows a call
@@ -74,7 +76,7 @@ def topk_l2_packed(db: torch.Tensor, q: torch.Tensor, k: int) -> torch.Tensor:
     ascending. CPU tensors take the plain version; CUDA tensors launch the
     kernel or raise."""
     global launches
-    if db.device.type == "cpu" and q.device.type == "cpu":
+    if q.device == db.device and db.device.type in PLAIN_DEVICES:
         d, i = topk_l2_plain(db, q, k)
         return torch.stack([d, i.view(torch.float32)])
     if db.device.type != "cuda" or q.device != db.device:
@@ -106,7 +108,7 @@ def topk_l2(db: torch.Tensor, q: torch.Tensor, k: int):
     """db (N, D) float32, q (M, D) float32 -> (dists (M, k), idx (M, k)
     int32), ascending. CPU tensors take the plain version; CUDA tensors
     launch the kernel or raise; on the card both are views of one buffer."""
-    if db.device.type == "cpu" and q.device.type == "cpu":
+    if q.device == db.device and db.device.type in PLAIN_DEVICES:
         return topk_l2_plain(db, q, k)
     out = topk_l2_packed(db, q, k)
     return out[0], out[1].view(torch.int32)

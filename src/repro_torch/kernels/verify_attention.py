@@ -29,6 +29,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.device import PLAIN_DEVICES
+
 from . import _build
 from .decode_attention import _aligned, _check_paged, plan_spans
 
@@ -62,7 +64,7 @@ def paged_verify_attention(q, k_pool, v_pool, page_table, starts):
     dtype, a transposed view of a (B, C, H, D) tensor on CUDA. CPU tensors
     take the plain version; CUDA tensors launch the kernel or raise."""
     global launches
-    if q.device.type == "cpu":
+    if q.device.type in PLAIN_DEVICES:
         return paged_verify_attention_plain(q, k_pool, v_pool, page_table, starts)
     if q.device.type != "cuda":
         raise ValueError(f"paged_verify_attention: device {q.device}")

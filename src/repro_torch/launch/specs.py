@@ -107,14 +107,15 @@ def _batch_structs(cfg: ModelConfig, shape: ShapeSpec, mesh, *, train: bool):
 
 def input_specs(arch: str, shape_name: str, mesh=None, *, opt_cfg=None,
                 cfg: ModelConfig | None = None, shard_overrides=None,
-                decode_layout: str = "default"):
+                decode_layout: str = "default", shape: ShapeSpec | None = None):
     """`Abstract` stand-ins for one (arch x shape) cell. Returns a dict:
       train  : {params, opt_state, batch, opt_cfg}
       prefill: {params, batch}
       decode : {params, token, cache}
-    """
+    `shape` stands in for SHAPES[shape_name] where given (a cell cut to a
+    smaller batch or sequence)."""
     cfg = cfg or get_config(arch)
-    shape = SHAPES[shape_name]
+    shape = shape or SHAPES[shape_name]
     B = shape.global_batch
     if shape.kind == "train":
         params = abstract_params(cfg, mesh, dtype=torch.float32, overrides=shard_overrides)

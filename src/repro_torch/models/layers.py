@@ -866,15 +866,36 @@ def write_view_blocks(pool, view, blocks, ids):
     so the write is deterministic on the card too. Dead rows read the sink
     back, and with MoE a dead row's tokens compete for expert capacity, so
     its contents are part of the result."""
-    ps = pool.shape[1]
+    _write_pages(pool, _view_pages(view, blocks, pool.shape[1]), ids)
+
+
+def _view_pages(view, blocks, ps: int):
+    """Blocks (B, n) of each row's view (B, n_ctx, ...): (B, n, ps, ...)."""
     B = view.shape[0]
-    tail = tuple(view.shape[2:])
     rows = torch.arange(B, device=view.device)[:, None].expand_as(blocks)
-    pages = view.reshape((B, -1, ps) + tail)[rows, blocks].reshape((-1, ps) + tail)
+    return view.reshape((B, -1, ps) + tuple(view.shape[2:]))[rows, blocks]
+
+
+def _write_pages(pool, pages, ids):
     flat = ids.reshape(-1).long()
     order = torch.arange(flat.numel(), device=flat.device)
     last = torch.where(flat[None, :] == flat[:, None], order[None, :], -1).amax(1)
-    pool[flat] = pages[last].to(pool.dtype)
+    pool[flat] = pages.reshape((-1,) + tuple(pages.shape[2:]))[last].to(pool.dtype)
+
+
+def _write_latent(tp, B: int, ckv_pool, krope_pool, ckv, kr, blocks, ids):
+    """`write_view_blocks` of both MLA pools from views of this rank's rows.
+    Where the rank runs its rows of the B (`MeshRank.rows`: the dense and
+    vlm families on `data` > 1), every row's blocks and page ids are first
+    all-gathered over `data`, as the dense paged path gathers K/V
+    (`_rows_kv`): the pools replicate over `data`, so every rank writes
+    every row's blocks, in the JAX scatter's row order."""
+    ps = ckv_pool.shape[1]
+    pc, pk = _view_pages(ckv, blocks, ps), _view_pages(kr, blocks, ps)
+    if tp is not None and ckv.shape[0] != B:
+        pc, pk, ids = (tp.rows_cat(t, B) for t in (pc, pk, ids.contiguous()))
+    _write_pages(ckv_pool, pc, ids)
+    _write_pages(krope_pool, pk, ids)
 
 
 def mla_decode_apply(cfg: ModelConfig, p, x, *, pos, ckv_pool, krope_pool, table,
@@ -885,15 +906,17 @@ def mla_decode_apply(cfg: ModelConfig, p, x, *, pos, ckv_pool, krope_pool, table
     row attends its gathered view with the token written in, and the view
     block holding pos (clamped into the view) goes back to write_pages. On
     a mesh (`tp`) the views are whole (`_latent_views`), the heads the
-    rank's, and each rank writes back its part of r. Returns (B, 1, d)."""
+    rank's, the rows the rank's (`MeshRank.rows`), and each rank writes
+    back its part of r of every row's block (`_write_latent`). Returns
+    (B, 1, d)."""
     ps = ckv_pool.shape[1]
     ckv, kr, rank = _latent_views(cfg, ckv_pool, krope_pool, table, tp)
     out = mla_decode_apply_slab(cfg, p, x, pos=pos, ckv_cache=ckv, krope_cache=kr, tp=tp)
     blocks = (pos.long() // ps).clamp(max=table.shape[1] - 1)[:, None]
-    ids = write_pages.reshape(-1, 1)
+    B = write_pages.shape[0]
+    ids = write_pages[tp.rows(B) if tp is not None else slice(None)].reshape(-1, 1)
     ckv, kr = rank(ckv, kr)
-    write_view_blocks(ckv_pool, ckv, blocks, ids)
-    write_view_blocks(krope_pool, kr, blocks, ids)
+    _write_latent(tp, B, ckv_pool, krope_pool, ckv, kr, blocks, ids)
     return out
 
 
@@ -915,8 +938,7 @@ def mla_chunk_apply(cfg: ModelConfig, p, x, *, start: int, ckv_pool, krope_pool,
     blocks = torch.arange(b0, b0 + nb, device=x.device)[None]
     ids = table[:, b0:b0 + nb]
     ckv, kr = rank(ckv, kr)
-    write_view_blocks(ckv_pool, ckv, blocks, ids)
-    write_view_blocks(krope_pool, kr, blocks, ids)
+    _write_latent(tp, 1, ckv_pool, krope_pool, ckv, kr, blocks, ids)
     return out
 
 
@@ -933,11 +955,12 @@ def mla_verify_apply(cfg: ModelConfig, p, x, *, pos, ckv_pool, krope_pool, table
     ckv, kr, rank = _latent_views(cfg, ckv_pool, krope_pool, table, tp)
     out = mla_chunk_apply_slab(cfg, p, x, start=pos, ckv_cache=ckv, krope_cache=kr, tp=tp)
     nb = (C + ps - 2) // ps + 1 if ps > 1 else C
+    B = block0s.shape[0]
+    block0s = block0s[tp.rows(B) if tp is not None else slice(None)]
     blocks = block0s.long()[:, None] + torch.arange(nb, device=x.device)[None, :]
     ids = table.long().gather(1, blocks)
     ckv, kr = rank(ckv, kr)
-    write_view_blocks(ckv_pool, ckv, blocks, ids)
-    write_view_blocks(krope_pool, kr, blocks, ids)
+    _write_latent(tp, B, ckv_pool, krope_pool, ckv, kr, blocks, ids)
     return out
 
 

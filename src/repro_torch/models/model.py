@@ -47,7 +47,12 @@ on the slab, and pools of the same two keys on the paged layout. Its
 attention is plain PyTorch (`layers.mla_*`): the paged forms gather each
 row's view through its page table and write the dirtied blocks back as the
 JAX engine does, which is why `verify_chunk` takes the engine's `block0s`.
-Every MoE layer gates through kernel K6. MoE with standard GQA attention
+The dense and vlm families run MLA the same way where `use_mla` is set:
+every attention choice keys on `use_mla`, never on the family, as in the
+JAX model. Dense and vlm with `n_experts` > 0 build plain dense blocks (no
+router), and the ssm family with `mamba_version` 0 runs Mamba1, as the JAX
+model does; `_check_family` refuses the two variants the JAX model fails
+on. Every MoE layer gates through kernel K6. MoE with standard GQA attention
 (grok-1-314b) keeps k/v slabs and pools as the dense family and runs K1,
 K2, K4 and K5 the same way; the engine makes the dense paged path write
 the sink page as the JAX engine does for it (`serving.engine`).
@@ -107,19 +112,29 @@ def torch_dtype(name: str) -> torch.dtype:
     return DTYPES[name]
 
 
+FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid", "encdec")
+
+
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family in ("dense", "vlm") and not (cfg.use_mla or cfg.n_experts):
-        return
-    if cfg.family == "ssm" and cfg.mamba_version == 1:
-        return
-    if cfg.family == "hybrid" and cfg.mamba_version == 2:
-        return
-    if cfg.family in ("moe", "encdec"):
-        return
-    raise NotImplementedError(
-        f"model family {cfg.family!r} (mamba_version {cfg.mamba_version}) is not "
-        f"ported: no config of the registry uses it (the port serves the dense, vlm, "
-        f"moe, hybrid and encdec families and Mamba1)")
+    """Refuse the variants that the JAX model cannot run either; every
+    other one runs as JAX runs it: dense and vlm with MLA (every attention
+    choice keys on `use_mla`), dense and vlm with `n_experts` as plain
+    dense blocks (no router), and the ssm family with `mamba_version` 0 as
+    Mamba1."""
+    if cfg.family not in FAMILIES:
+        raise ValueError(cfg.family)
+    if cfg.family == "ssm" and cfg.mamba_version == 2:
+        raise NotImplementedError(
+            "family 'ssm' with mamba_version 2 is not ported: the JAX model builds "
+            "Mamba1 parameters for it (src/repro/models/model.py:86-89) and its "
+            "forward calls mamba2_apply on them (model.py:145-146), which fails "
+            "with a broadcasting ValueError")
+    if cfg.family == "hybrid" and cfg.mamba_version != 2:
+        raise NotImplementedError(
+            f"family 'hybrid' with mamba_version {cfg.mamba_version} is not ported: the "
+            f"JAX model builds Mamba2 parameters for it (src/repro/models/model.py:"
+            f"90-92) and its forward calls mamba1_apply on them (model.py:147-148), "
+            f"which fails with a ValueError in conv_general_dilated")
 
 
 def n_applications(cfg: ModelConfig) -> int:
@@ -402,7 +417,7 @@ def _mamba(cfg, S1, S2):
 def _tp_kw(cfg, tp) -> dict:
     """The mesh argument of a Mamba function: Mamba1 runs on the rank's
     channels (`tp`), Mamba2 whole (none)."""
-    return {"tp": tp} if tp is not None and cfg.mamba_version == 1 else {}
+    return {"tp": tp} if tp is not None and cfg.mamba_version != 2 else {}
 
 
 def _mamba_decode(cfg, state, tp=None):
@@ -903,7 +918,9 @@ def prefill(cfg: ModelConfig, params, tokens, max_len: int, length=None,
     cache's "ck"/"cv" and cross-attends it through K2's non-causal form.
 
     On a serving mesh (`mesh`, a `distributed.sharding.MeshRank`) every
-    rank runs the prompt on its shards, and the cache is the rank's shard
+    rank runs its rows of the prompts (`MeshRank.rows`: all of them where
+    the batch replicates, as the engine's B = 1 does) on its shards and
+    returns their logits, and the cache is the rank's shard
     of the global one (`MeshRank.local_cache`: the sequence of k/v and of
     MLA's ckv/krope over `model`, Mamba1's channels, the cross K/V's heads);
     attention gathers a layer's sequence shards whole for its write and K2,
@@ -919,6 +936,7 @@ def prefill(cfg: ModelConfig, params, tokens, max_len: int, length=None,
     cache = init_decode_cache(cfg, B, max_len, device=dev)
     if mesh is not None:
         cache = mesh.local_cache(cfg, cache, B)
+        tokens, image_embeds, frames = _mesh_rows(mesh, tokens, image_embeds, frames)
     n = n_img + (S if length is None else int(length))
     x, _ = _embed(cfg, params, tokens, image_embeds, mesh)
     S = x.shape[1]

@@ -199,7 +199,8 @@ class ServingEngine:
                  page_size: int = 16, num_pages: Optional[int] = None,
                  chunk_size: int = 32, spec_decode="off", spec_k: int = 4,
                  spec_ngram: int = 3, draft_model: Optional[tuple] = None,
-                 mesh=None, page_allocator=None, tracer=None, metrics=None,
+                 mesh=None, page_allocator=None,
+                 compilation_cache_dir: Optional[str] = None, tracer=None, metrics=None,
                  device=None):
         """queue_depth: optional admission-control bound on queued requests;
         ServedExtractor splits its batch rounds into windows of this size
@@ -231,7 +232,13 @@ class ServingEngine:
         over a started default process group: the engine on the mesh.
         `params` are the full parameters (or `shard_params`' shards), and
         so are a draft model's; the engine's device is the rank's
-        (`launch.mesh.mesh_device`), and `device` must be None."""
+        (`launch.mesh.mesh_device`), and `device` must be None.
+        compilation_cache_dir: build and load the CUDA kernels' library in
+        this directory (`launch/compile_cache.py`), so that a later process
+        with the same directory loads it without nvcc."""
+        if compilation_cache_dir is not None:
+            from repro_torch.launch.compile_cache import enable_compilation_cache
+            enable_compilation_cache(compilation_cache_dir)
         if kv_layout not in ("paged", "slab"):
             raise ValueError(f"kv_layout must be 'paged' or 'slab', got {kv_layout!r}")
         self.cfg = cfg

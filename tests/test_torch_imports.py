@@ -1,6 +1,7 @@
 """Package rules of the port: importing `repro_torch` and every one of its
-modules (the training, launch and distributed packages,
-`launch.mesh` and `launch.specs` among them) loads no `jax` and no module of the JAX package
+modules (the training, launch and distributed packages, `launch.mesh`,
+`launch.specs`, `launch.compile_cache`, `launch.comm_analysis` and
+`launch.dryrun` among them) loads no `jax` and no module of the JAX package
 `repro`; the jax-free modules it keeps as copies stay verbatim copies, and those copied
 with named edits differ from their originals in those lines only; the config
 registry serves qwen2.5-3b, qwen3-32b, nemotron-4-15b, deepseek-67b,
@@ -91,7 +92,8 @@ def test_port_imports_no_jax_and_no_repro():
     modules = list(_modules())
     for package in ("repro_torch.training", "repro_torch.launch", "repro_torch.distributed"):
         assert package in modules and any(m.startswith(package + ".") for m in modules)
-    assert "repro_torch.launch.mesh" in modules and "repro_torch.launch.specs" in modules
+    for name in ("mesh", "specs", "compile_cache", "comm_analysis", "dryrun"):
+        assert f"repro_torch.launch.{name}" in modules, name
     code = (
         "import importlib, sys\n"
         f"for m in {modules!r}:\n"

@@ -634,26 +634,36 @@ def test_topk_l2_ops_copies_one_packed_buffer():
 
 
 def test_no_silent_cpu_fallback():
-    """Entry points default to the CUDA device and raise without one; a
-    wrapper given a tensor that is neither on the CPU nor on CUDA raises
-    instead of running the plain version."""
+    """Entry points default to the CUDA device and raise without one. A
+    wrapper runs its plain version only by the device of the data: a meta
+    tensor (the dry run's, storage-less) gets the plain version's result
+    on the meta device -- shapes only, nothing computed on the CPU, no
+    launch -- and inputs on two devices raise."""
     from repro_torch.device import resolve_device
     if torch.cuda.is_available():
         assert resolve_device(None).type == "cuda"
     else:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             resolve_device(None)
-    meta = torch.empty((4, 8), device="meta")
+
+    def meta(*shape, dtype=torch.float32):
+        return torch.empty(shape, device="meta", dtype=dtype)
+    before = (k1.launches, k2.launches, k2.bidirectional_launches, k3.launches, k4.launches)
+    d, i = k3.topk_l2(meta(16, 8), meta(2, 8), 3)
+    assert (d.device.type, d.shape, i.dtype) == ("meta", (2, 3), torch.int32)
     with pytest.raises(ValueError):
-        k3.topk_l2(meta, meta, 2)
-    with pytest.raises(ValueError):
-        k1.paged_decode_attention(torch.empty((1, 2, 8), device="meta"),
-                                  None, None, None, None)
-    with pytest.raises(ValueError):
-        k4.paged_verify_attention(torch.empty((1, 2, 3, 8), device="meta"),
-                                  None, None, None, None)
-    with pytest.raises(ValueError):
-        k2.bidirectional_attention(torch.empty((1, 2, 2, 8), device="meta"), None, None, 2)
+        k3.topk_l2(torch.zeros((16, 8)), meta(2, 8), 3)
+    table, lengths = meta(2, 4, dtype=torch.int32), meta(2, dtype=torch.int32)
+    out = k1.paged_decode_attention(meta(2, 4, 16), meta(9, 8, 2, 16), meta(9, 8, 2, 16),
+                                    table, lengths)
+    assert (out.device.type, out.shape) == ("meta", (2, 4, 16))
+    out = k4.paged_verify_attention(meta(2, 4, 3, 16), meta(9, 8, 2, 16), meta(9, 8, 2, 16),
+                                    table, lengths)
+    assert (out.device.type, out.shape) == ("meta", (2, 4, 3, 16))
+    out = k2.bidirectional_attention(meta(1, 5, 4, 16), meta(1, 7, 2, 16), meta(1, 7, 2, 16), 7)
+    assert (out.device.type, out.shape) == ("meta", (1, 5, 4, 16))
+    assert (k1.launches, k2.launches, k2.bidirectional_launches, k3.launches,
+            k4.launches) == before
 
 
 # ------------------------- the new families' shapes: D = 80, E = 8 top 2 --

@@ -123,15 +123,18 @@ def test_moe_gating_bf16_rounded_logits():
 
 
 def test_moe_gating_wrapper_rejects_what_the_kernel_does_not_take():
-    """k outside 1..E, more than 256 experts, a tensor not (T, E), or one on
-    a device that is neither the CPU nor the card."""
+    """k outside 1..E, more than 256 experts, a tensor not (T, E), or a
+    capacity below 1; a meta tensor (the dry run's) takes the plain
+    version on the meta device, with no launch."""
     for shape, k in (((4, 8), 9), ((4, 8), 0), ((4, 300), 2), ((4,), 1)):
         with pytest.raises(ValueError):
             k6.moe_gating(torch.zeros(shape), k)
     with pytest.raises(ValueError, match="capacity"):
         k6.moe_gating(torch.zeros((4, 8)), 2, 0)
-    with pytest.raises(ValueError, match="meta"):
-        k6.moe_gating(torch.zeros((4, 8), device="meta"), 2)
+    before = k6.launches
+    w, idx = k6.moe_gating(torch.zeros((4, 8), device="meta"), 2)
+    assert (w.device.type, w.shape, idx.shape) == ("meta", (4, 2), (4, 2))
+    assert k6.launches == before
 
 
 def _jax_numbering(logits, k, C):

@@ -99,8 +99,16 @@ def test_dense_decode_plain_per_row_lengths():
 
 
 def test_dense_decode_no_silent_cpu_fallback():
-    with pytest.raises(ValueError):
-        k5.decode_attention(torch.empty((1, 2, 8), device="meta"), None, None, 1)
+    """A meta tensor (the dry run's) takes the plain version on the meta
+    device, nothing computed on the CPU and no launch; caches on another
+    device than q raise."""
+    before = k5.dense_launches
+    q, kv = torch.empty((1, 2, 8), device="meta"), torch.empty((1, 6, 2, 8), device="meta")
+    out = k5.decode_attention(q, kv, kv, 3)
+    assert (out.device.type, out.shape) == ("meta", (1, 2, 8))
+    assert k5.dense_launches == before
+    with pytest.raises(RuntimeError, match="device"):
+        k5.decode_attention(q, torch.zeros((1, 6, 2, 8)), torch.zeros((1, 6, 2, 8)), 3)
 
 
 # ------------------------------------------------------ slab cache ops -----

@@ -249,9 +249,10 @@ def test_served_legal_query_identical(weights, served):
 
 
 def test_unported_families_raise(weights):
-    """Mamba2 in the ssm family is not ported (no config uses it; the
-    hybrid family runs Mamba2): the engine refuses it on either layout.
-    The encdec family is served now (tests/test_torch_whisper.py)."""
+    """Mamba2 in the ssm family is not ported (the JAX model fails on it:
+    tests/test_torch_variants.py; the hybrid family runs Mamba2): the
+    engine refuses it on either layout. The encdec family is served now
+    (tests/test_torch_whisper.py)."""
     _, _, tcfg, tparams, _ = weights
     for layout in ("paged", "slab"):
         with pytest.raises(NotImplementedError, match="not ported"):
